@@ -1,0 +1,1044 @@
+"""Scalar expression evaluation over device columns.
+
+Equivalent of the reference's DB-dialect lowering
+(reference: src/compiler/Conversion/DBToStd/LowerToStd.cpp — nullable<T> ->
+(i1, T) pairs, decimal arith on i128, string/date ops via runtime calls).
+Here each expression lowers to array ops over SCol (data, validity) pairs:
+  - NULLs: separate bool validity tensors, Kleene 3-valued logic for and/or
+  - decimals: scaled int64 while every value fits 63 bits; beyond that the
+    exact wide tier takes over (host Python-int limbs, ops/decwide.py — a
+    superset of the reference's i128 range)
+  - strings: host-computed dictionary LUTs + one device gather (ops/strings.py)
+String ops build LUTs on the host against the dictionary, never the data.
+
+Constants evaluate to 0-dim arrays; `eval_expr` places them beside the
+environment's tensors (same device), so infix arithmetic between a column and
+a constant never mixes a tensor with a numpy array."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import backend as be
+from .backend import xnp as jnp
+
+from ..plan.exprs import BExpr, Call, CaseExpr, Cast, ColRef, Const
+from ..runtime.vtable import SCol, dec_is_float, dec_is_wide, is_obj, np_dtype
+from ..sql.types import IntervalUnit, K, Type
+from ..storage.column import EPOCH, decimal_str_to_int
+from . import dates, decwide, strings
+
+INT64_MAX = (1 << 63) - 1
+INT64_MIN = -(1 << 63)
+
+US_PER_DAY = 86_400_000_000
+
+
+class EvalError(Exception):
+    pass
+
+
+def const_scol(value, t: Type) -> SCol:
+    """Build a broadcastable scalar SCol for a constant."""
+    if value is None:
+        return SCol(t.as_nullable(), jnp.zeros((), np_dtype(t)), jnp.zeros((), jnp.bool_),
+                    np.array([""], dtype=object) if t.is_string else None)
+    if t.is_string:
+        return SCol(t, jnp.zeros((), jnp.int32), None, np.array([str(value)], dtype=object))
+    v = _const_physical(value, t)
+    if (t.kind in (K.DECIMAL, K.INT, K.BIGINT) and isinstance(v, int)
+            and not (INT64_MIN <= v <= INT64_MAX)):
+        return SCol(t, decwide.obj_scalar(v), None)  # wide literal: exact
+    return SCol(t, jnp.asarray(v, np_dtype(t)), None)
+
+
+def _const_physical(v, t: Type):
+    if t.kind == K.DECIMAL:
+        if isinstance(v, str):
+            iv = decimal_str_to_int(v, t.s)
+        elif isinstance(v, int):
+            iv = v * 10**t.s
+        else:
+            iv = round(v * 10**t.s)
+        return iv / 10**t.s if dec_is_float(t) else iv
+    if t.kind == K.DATE:
+        if isinstance(v, str):
+            return int(be.astype((np.datetime64(_norm_date_str(v), "D") - EPOCH), np.int64))
+        return int(v)
+    if t.kind == K.TIMESTAMP:
+        if isinstance(v, str):
+            return int(be.astype(np.datetime64(_norm_date_str(v), "us"), np.int64))
+        return int(v)
+    if t.kind == K.BOOL:
+        return bool(v)
+    if t.kind in (K.FLOAT, K.DOUBLE):
+        return float(v)
+    return int(v)
+
+
+def eval_expr(e: BExpr, env: dict[int, SCol]) -> SCol:
+    if isinstance(e, ColRef):
+        return env[e.cid]
+    if isinstance(e, Const):
+        return _place(const_scol(e.value, e.type), env)
+    if isinstance(e, Cast):
+        return eval_cast(eval_expr(e.arg, env), e.type)
+    if isinstance(e, CaseExpr):
+        return eval_case(e, env)
+    if isinstance(e, Call):
+        return eval_call(e, env)
+    raise EvalError(f"cannot evaluate {e!r}")
+
+
+def _env_device(env):
+    for c in env.values():
+        if be.is_torch(c.data):
+            return c.data.device
+    return None
+
+
+def _place(c: SCol, env) -> SCol:
+    """Move a constant's 0-dim arrays beside the environment's tensors."""
+    dev = _env_device(env)
+    if dev is None or is_obj(c.data) or be.is_torch(c.data):
+        return c
+    return SCol(c.type, be.to_device(c.data, dev),
+                None if c.valid is None else be.to_device(c.valid, dev),
+                c.dictionary)
+
+
+def _exact_result(t: Type, data, valid, ref) -> SCol:
+    """SCol for a result computed exactly on the host in Python ints: data
+    that needs more than 63 bits stays a host object column (its validity
+    comes to the host too); data that fits int64 goes back beside `ref`, so
+    a table of tensors holds no stray host array."""
+    data = decwide.demote_if_possible(data)
+    if is_obj(data):
+        return SCol(t, data, None if valid is None else be.to_host(valid))
+    return SCol(t, be.like(data, ref),
+                None if valid is None else be.like(valid, ref))
+
+
+def _first_torch(*xs):
+    return next((x for x in xs if be.is_torch(x)), None)
+
+
+def truth_mask(c: SCol) -> jnp.ndarray:
+    """3-valued boolean -> WHERE mask (NULL counts as false).
+    (reference: db.derive_truth, DBOps.td:322)"""
+    m = be.astype(c.data, jnp.bool_)
+    if c.valid is not None:
+        m = m & c.valid
+    return m
+
+
+# --------------------------------------------------------------------- helpers
+def _and_valid(*cols: SCol):
+    out = None
+    for c in cols:
+        if c.valid is not None:
+            out = c.valid if out is None else (out & c.valid)
+    return out
+
+
+def _bcast(c: SCol, n: int) -> SCol:
+    """Broadcast scalar SCol (or scalar validity) to n rows."""
+    if c.data.ndim != 0 and (c.valid is None or c.valid.ndim != 0):
+        return c
+    data = c.data if c.data.ndim != 0 else jnp.broadcast_to(c.data, (n,))
+    valid = c.valid
+    if valid is not None and valid.ndim == 0:
+        valid = jnp.broadcast_to(valid, (n,))
+    return SCol(c.type, data, valid, c.dictionary)
+
+
+def _is_const_string(c: SCol) -> bool:
+    return c.dictionary is not None and c.data.ndim == 0
+
+
+# --------------------------------------------------------------------- casts
+def eval_cast(a: SCol, t: Type) -> SCol:
+    s, d = a.type, t
+    valid = a.valid
+    if s.base_eq(d):
+        return SCol(d, a.data, valid, a.dictionary)
+    if s.kind == K.NULL:
+        return const_scol(None, d)
+    if s.is_string:
+        return _cast_from_string(a, d)
+    if d.is_string:
+        return _cast_to_string(a, d)
+    data = a.data
+    # logical numeric value extraction
+    if s.kind == K.DECIMAL and is_obj(data):
+        # wide (Python-int) source: exact host casts
+        if d.kind == K.DECIMAL:
+            out = decwide.demote_if_possible(decwide.rescale(data, s.s, d.s))
+            return SCol(d, out, valid)
+        if d.kind in (K.FLOAT, K.DOUBLE):
+            f = np.array([float(v) for v in data.reshape(-1)],
+                         np.dtype(np_dtype(d))).reshape(data.shape)
+            return SCol(d, f / (10.0**s.s), valid)
+        if d.kind in (K.INT, K.BIGINT):
+            q = decwide.div_trunc(data, 10**s.s) if s.s else data
+            return SCol(d, be.astype(q, np.dtype(np_dtype(d))), valid)
+        if d.kind == K.BOOL:
+            return SCol(d, be.astype((data != 0), np.bool_), valid)
+    if s.kind == K.DECIMAL and not dec_is_float(s):
+        if d.kind == K.DECIMAL:
+            from .backend import is_torch
+
+            # exact host rescale when int64 cannot hold the computation:
+            # object input, rescale factor beyond 18 digits, or a
+            # host-resident wide upscale (value may exceed int64)
+            need_exact = (is_obj(data) or abs(d.s - s.s) > 18
+                          or (dec_is_wide(d) and d.s > s.s and not is_torch(data)))
+            if need_exact:
+                return _exact_result(
+                    d, decwide.rescale(decwide.to_obj(data), s.s, d.s), valid,
+                    _first_torch(data, valid))
+            return SCol(d, _rescale_int(data, s.s, d.s, to_float=dec_is_float(d)), valid)
+        if d.kind in (K.FLOAT, K.DOUBLE):
+            if is_obj(data):
+                f = np.array([float(v) for v in data.reshape(-1)],
+                             np.dtype(np_dtype(d))).reshape(data.shape)
+                return SCol(d, f / (10.0**s.s), valid)
+            return SCol(d, be.astype(be.fdiv(data, 10.0**s.s), np_dtype(d)), valid)
+        if d.kind in (K.INT, K.BIGINT):
+            if s.s and (is_obj(data) or s.s > 18):
+                # divisor 10^s exceeds int64 (or data already object): exact
+                r = _exact_result(
+                    d, decwide.div_trunc(decwide.to_obj(data), 10**s.s), valid,
+                    _first_torch(data, valid))
+                if not is_obj(r.data):
+                    r.data = be.astype(r.data, np_dtype(d))
+                return r
+            q = _div_trunc(data, 10**s.s) if s.s else data
+            return SCol(d, be.astype(q, np_dtype(d)), valid)
+        if d.kind == K.BOOL:
+            return SCol(d, data != 0, valid)
+    if s.kind == K.DECIMAL and dec_is_float(s):
+        data = data  # already float logical value
+        s = Type.double(s.nullable)
+    if s.kind in (K.INT, K.BIGINT, K.BOOL):
+        if d.kind == K.DECIMAL:
+            from .backend import is_torch
+
+            if is_obj(data) or (
+                    dec_is_wide(d) and d.s > 0
+                    and (d.s > 18 or not is_torch(data))):
+                return _exact_result(d, decwide.to_obj(data) * (10**d.s), valid,
+                                     _first_torch(data, valid))
+            return SCol(d, be.astype(data, jnp.int64) * (10**d.s), valid)
+        if d.kind in (K.INT, K.BIGINT):
+            if is_obj(data):
+                return SCol(d, data, valid)  # stays exact on the host
+            return SCol(d, be.astype(data, np_dtype(d)), valid)
+        if d.kind in (K.FLOAT, K.DOUBLE):
+            if is_obj(data):
+                f = np.array([float(v) for v in data.reshape(-1)],
+                             np.dtype(np_dtype(d))).reshape(data.shape)
+                return SCol(d, f, valid)
+            return SCol(d, be.astype(data, np_dtype(d)), valid)
+        if d.kind == K.BOOL:
+            return SCol(d, data != 0, valid)
+    if s.kind in (K.FLOAT, K.DOUBLE):
+        if d.kind == K.DECIMAL:
+            if dec_is_float(d):
+                return SCol(d, be.astype(data, jnp.float64), valid)
+            scaled = be.astype(data, jnp.float64) * (10.0**d.s)
+            return SCol(d, be.astype(_round_half_away_f(scaled), jnp.int64), valid)
+        if d.kind in (K.INT, K.BIGINT):
+            return SCol(d, be.astype(jnp.trunc(data), np_dtype(d)), valid)
+        if d.kind in (K.FLOAT, K.DOUBLE):
+            return SCol(d, be.astype(data, np_dtype(d)), valid)
+        if d.kind == K.BOOL:
+            return SCol(d, data != 0, valid)
+    if s.kind == K.DATE and d.kind == K.TIMESTAMP:
+        return SCol(d, be.astype(data, jnp.int64) * US_PER_DAY, valid)
+    if s.kind == K.TIMESTAMP and d.kind == K.DATE:
+        return SCol(d, be.astype(jnp.floor_divide(data, US_PER_DAY), jnp.int32), valid)
+    raise EvalError(f"cast {s} -> {t} not supported")
+
+
+def _rescale_int(data, s_from: int, s_to: int, to_float=False):
+    if to_float:
+        return be.astype(be.fdiv(data, 10.0**s_from), jnp.float64)
+    if s_to == s_from:
+        return data
+    if s_to > s_from:
+        return data * (10 ** (s_to - s_from))
+    return _div_round(data, 10 ** (s_from - s_to))
+
+
+def _div_trunc(a, b):
+    """Integer division truncating toward zero (SQL semantics)."""
+    q = jnp.floor_divide(jnp.abs(a), abs(b) if isinstance(b, int) else jnp.abs(b))
+    sign = jnp.sign(a) * (1 if isinstance(b, int) and b > 0 else jnp.sign(b))
+    return be.astype((q * sign), be.dt(a))
+
+
+def _div_round(a, b):
+    """Integer division rounding half away from zero."""
+    if isinstance(b, int):
+        bb = b
+        habs = abs(b) // 2
+    else:
+        bb = b
+        habs = jnp.abs(b) // 2
+    sign = jnp.where(a >= 0, 1, -1) * (1 if isinstance(b, int) and b > 0 else jnp.where(bb >= 0, 1, -1))
+    num = jnp.abs(a) + habs
+    q = jnp.floor_divide(num, abs(b) if isinstance(b, int) else jnp.abs(bb))
+    return be.astype((q * sign), be.dt(a))
+
+
+def _round_half_away_f(x):
+    return jnp.sign(x) * jnp.floor(jnp.abs(x) + 0.5)
+
+
+def _div_shift_exact(a, b, shift: int):
+    """round(a * 10^shift / b) exactly in int64, even when a * 10^shift would
+    overflow: chunked long division carrying the remainder k digits at a time.
+    k=6 is exact while |b| <= 2^43 (r*10^6 must not overflow); a digit-at-a-time
+    (k=1) pass covers |b| up to (2^63-1)/10 ~ 9.2e17. Only divisors beyond that
+    (>= 18 digits) blend in a float64 result, where the quotient is tiny."""
+    sign = be.astype(jnp.where((a >= 0) == (b >= 0), 1, -1), jnp.int64)
+    aa = jnp.abs(be.astype(a, jnp.int64))
+    bb = jnp.abs(be.astype(b, jnp.int64))
+
+    def longdiv(kmax: int):
+        q = jnp.floor_divide(aa, bb)
+        r = aa - q * bb
+        rem = shift
+        while rem > 0:
+            k = min(kmax, rem)
+            m = 10**k
+            q = q * m + jnp.floor_divide(r * m, bb)
+            r = (r * m) % bb
+            rem -= k
+        return q + (2 * r >= bb)
+
+    out = be.astype((longdiv(6) * sign), jnp.int64)
+    big = bb > (1 << 43)  # k=6 unsafe: r*10^6 could overflow
+    if shift > 0:
+        out = jnp.where(big, be.astype((longdiv(1) * sign), jnp.int64), out)
+    huge = bb > ((1 << 63) - 1) // 10  # even k=1 unsafe
+    if shift <= 18:
+        approx = be.astype(_round_half_away_f(
+            be.fdiv(aa, bb) * (10.0**shift)
+        ), jnp.int64) * sign
+        out = jnp.where(huge, approx, out)
+    return out
+
+
+def _cast_from_string(a: SCol, d: Type) -> SCol:
+    assert a.dictionary is not None
+
+    def lut(fn, dtype):
+        table = strings.value_lut(a.dictionary, fn, dtype)
+        return be.lut_take(table, a.data)
+
+    valid = a.valid
+    if d.kind in (K.INT, K.BIGINT):
+        return SCol(d, lut(lambda s: int(float(s)) if s.strip() else 0, np.dtype(np_dtype(d))), valid)
+    if d.kind in (K.FLOAT, K.DOUBLE):
+        return SCol(d, lut(lambda s: float(s) if s.strip() else 0.0, np.dtype(np_dtype(d))), valid)
+    if d.kind == K.DECIMAL:
+        if dec_is_wide(d):
+            vals = [decimal_str_to_int(s, d.s) if s.strip() else 0
+                    for s in a.dictionary]
+            if not all(INT64_MIN <= v <= INT64_MAX for v in vals):
+                table = np.array(vals, dtype=np.object_)
+                codes = be.to_host(a.data)
+                if valid is not None:
+                    valid = be.to_host(valid)
+                return SCol(d, table[codes], valid)
+        return SCol(d, lut(lambda s: decimal_str_to_int(s, d.s) if s.strip() else 0, np.int64), valid)
+    if d.kind == K.DATE:
+        return SCol(d, lut(lambda s: int(be.astype((np.datetime64(_norm_date_str(s), "D") - EPOCH), np.int64)) if s.strip() else 0, np.int32), valid)
+    if d.kind == K.TIMESTAMP:
+        return SCol(d, lut(lambda s: int(be.astype(np.datetime64(_norm_date_str(s), "us"), np.int64)) if s.strip() else 0, np.int64), valid)
+    if d.kind == K.BOOL:
+        return SCol(d, lut(lambda s: s.strip().lower() in ("t", "true", "1", "yes"), np.bool_), valid)
+    if d.is_string:
+        return SCol(d, a.data, valid, a.dictionary)
+    raise EvalError(f"cast string -> {d}")
+
+
+def _format_value(v, t: Type) -> str:
+    if t.kind == K.DECIMAL and not dec_is_float(t):
+        sign = "-" if v < 0 else ""
+        v = abs(int(v))
+        if t.s == 0:
+            return f"{sign}{v}"
+        ip, fp = divmod(v, 10**t.s)
+        return f"{sign}{ip}.{fp:0{t.s}d}"
+    if t.kind == K.DATE:
+        return str(EPOCH + np.timedelta64(int(v), "D"))
+    if t.kind == K.TIMESTAMP:
+        return str(np.datetime64(int(v), "us"))
+    if t.kind == K.BOOL:
+        return "true" if v else "false"
+    if t.kind in (K.FLOAT, K.DOUBLE):
+        return repr(float(v))
+    return str(v)
+
+
+def _cast_to_string(a: SCol, d: Type) -> SCol:
+    # host roundtrip: pull codes/values, format, re-encode (rare path)
+    host = be.to_host(a.data)
+    vals = [_format_value(v, a.type) for v in host.reshape(-1)]
+    dictionary, codes = strings.encode_strings(vals)
+    codes = be.like(codes.reshape(host.shape), a.data)
+    return SCol(d, codes, a.valid, dictionary)
+
+
+# --------------------------------------------------------------------- case
+def eval_case(e: CaseExpr, env: dict[int, SCol]) -> SCol:
+    t = e.type
+    else_c = eval_expr(e.else_, env) if e.else_ is not None else _place(const_scol(None, t), env)
+    result, rvalid, rdict = None, None, None
+    # normalize string branches onto one dictionary
+    branches = [(eval_expr(c, env), eval_expr(v, env)) for c, v in e.whens]
+    if t.is_string:
+        branches, else_c, rdict = _unify_string_dicts([b for _, b in branches], else_c, branches)
+    data = else_c.data
+    valid = else_c.valid_mask() if (else_c.valid is not None or else_c.type.kind == K.NULL) else None
+
+    def where_mixed(m, x, y):
+        # wide (Python-int object) decimal branches select on the host
+        if is_obj(x) or is_obj(y):
+            mh = be.to_host(m)
+            return np.where(mh, decwide.to_obj(x) if not is_obj(x) else x,
+                            decwide.to_obj(y) if not is_obj(y) else y)
+        return jnp.where(m, x, y)
+
+    # apply WHENs in reverse so the first match wins
+    for cond_c, val_c in reversed(branches):
+        m = truth_mask(cond_c)
+        data = where_mixed(m, val_c.data, data)
+        vvalid = val_c.valid
+        if valid is not None or vvalid is not None:
+            va = jnp.ones_like(m) if vvalid is None else (jnp.broadcast_to(vvalid, m.shape) if vvalid.ndim == 0 else vvalid)
+            vb = jnp.ones_like(m) if valid is None else (jnp.broadcast_to(valid, m.shape) if valid.ndim == 0 else valid)
+            valid = jnp.where(m, va, vb)
+    return SCol(t, data, valid, rdict)
+
+
+def _unify_string_dicts(vals: list[SCol], else_c: SCol, branches):
+    cols = vals + [else_c]
+    merged = None
+    for c in cols:
+        if c.dictionary is None:
+            continue
+        merged = c.dictionary if merged is None else strings.remap_to_merged(merged, c.dictionary)[0]
+    if merged is None:
+        merged = np.array([""], dtype=object)
+    out_branches = []
+    for cond_c, v in branches:
+        out_branches.append((cond_c, _remap_string(v, merged)))
+    return out_branches, _remap_string(else_c, merged), merged
+
+
+def _remap_string(c: SCol, merged: np.ndarray) -> SCol:
+    if c.dictionary is None:
+        return SCol(c.type, c.data, c.valid, merged)
+    remap = be.astype(np.searchsorted(merged, c.dictionary), np.int32)
+    return SCol(c.type, be.lut_take(remap, c.data), c.valid, merged)
+
+
+# --------------------------------------------------------------------- calls
+def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
+    op = e.op
+    if op == "and":
+        return _eval_and([eval_expr(a, env) for a in e.args], e.type)
+    if op == "or":
+        return _eval_or([eval_expr(a, env) for a in e.args], e.type)
+    args = [eval_expr(a, env) for a in e.args]
+    if op == "not":
+        a = args[0]
+        return SCol(e.type, ~be.astype(a.data, jnp.bool_), a.valid)
+    if op in ("eq", "neq", "lt", "lte", "gt", "gte"):
+        return eval_compare(op, args[0], args[1], e.type)
+    if op == "nseq":  # null-safe equality: NULL == NULL is TRUE
+        a, b = args
+        c = eval_compare("eq", a, b, Type.bool_(True))
+        va = a.valid_mask() if a.valid is not None else None
+        vb = b.valid_mask() if b.valid is not None else None
+        both_valid = c.valid if c.valid is not None else None
+        eq_and_valid = c.data if both_valid is None else (c.data & both_valid)
+        if va is None and vb is None:
+            return SCol(e.type, c.data, None)
+        both_null = (~va & ~vb) if (va is not None and vb is not None) else False
+        return SCol(e.type, eq_and_valid | both_null, None)
+    if op in ("add", "sub", "mul", "div", "mod"):
+        return eval_arith(op, args[0], args[1], e.type)
+    if op == "neg":
+        a = args[0]
+        return SCol(e.type, -a.data, a.valid)
+    if op == "isnull":
+        a = args[0]
+        v = jnp.zeros_like(a.data, dtype=jnp.bool_) if a.valid is None else ~a.valid
+        return SCol(e.type, v, None)
+    if op == "isnotnull":
+        a = args[0]
+        v = jnp.ones_like(a.data, dtype=jnp.bool_) if a.valid is None else a.valid
+        return SCol(e.type, v, None)
+    if op == "coalesce":
+        return _eval_coalesce(args, e.type)
+    if op == "nullif":
+        a, b = args
+        eqc = eval_compare("eq", a, b, Type.bool_(True))
+        m = truth_mask(eqc)
+        valid = a.valid_mask() & ~m if a.valid is not None else ~m
+        return SCol(e.type, a.data, valid, a.dictionary)
+    if op == "in":
+        return _eval_in(args, e.type)
+    if op in ("like", "ilike"):
+        return _eval_like(args[0], args[1], e.type, op == "ilike")
+    if op in ("date_add", "date_sub"):
+        return _eval_date_addsub(op, args[0], e.args[1], args[1], e.type)
+    if op.startswith("extract_"):
+        part = op[len("extract_"):]
+        a = args[0]
+        out = dates.extract(part, a.data, a.type.kind == K.TIMESTAMP)
+        return SCol(e.type, be.astype(out, jnp.int64), a.valid)
+    if op.startswith("datediff_"):
+        unit = op[len("datediff_"):]
+        a, b = args[0], args[1]
+        valid = _and_valid(a, b)
+
+        def us_of(c):
+            return be.astype(c.data, jnp.int64) * US_PER_DAY if c.type.kind == K.DATE else be.astype(c.data, jnp.int64)
+
+        diff = us_of(b) - us_of(a)
+        per = {"second": 1_000_000, "minute": 60_000_000, "hour": 3_600_000_000,
+               "day": US_PER_DAY, "week": US_PER_DAY * 7}
+        if unit in per:
+            out = diff // per[unit]
+        elif unit in ("month", "year", "quarter"):
+            am = dates.extract("year", us_of(a) // US_PER_DAY, False) * 12 + dates.extract("month", us_of(a) // US_PER_DAY, False)
+            bm = dates.extract("year", us_of(b) // US_PER_DAY, False) * 12 + dates.extract("month", us_of(b) // US_PER_DAY, False)
+            m = bm - am
+            out = m // 12 if unit == "year" else (m // 3 if unit == "quarter" else m)
+        else:
+            raise EvalError(f"datediff unit {unit}")
+        return SCol(e.type, be.astype(out, jnp.int64), valid)
+    if op == "date_trunc":
+        part_c, a = args[0], args[1]
+        part = str(part_c.dictionary[0]) if part_c.dictionary is not None else "day"
+        out = dates.date_trunc(part.lower(), a.data, a.type.kind == K.TIMESTAMP)
+        return SCol(e.type, be.astype(out, be.dt(a.data)), a.valid)
+    if op == "regexp_replace":
+        import re as _re
+
+        a, p, r = args[0], args[1], args[2]
+        if not (_is_const_string(p) and _is_const_string(r)):
+            raise EvalError("regexp_replace requires constant pattern")
+        rx = _re.compile(str(p.dictionary[0]))
+        rep = str(r.dictionary[0]).replace("\\0", "\\g<0>")
+        new_dict, remap = strings.map_dictionary(a.dictionary, lambda s: rx.sub(rep, s))
+        return SCol(e.type, be.lut_take(remap, a.data), a.valid, new_dict)
+    if op in ("upper", "lower", "ltrim", "rtrim", "trim", "reverse"):
+        return _eval_string_map(op, args[0], e.type)
+    if op == "length":
+        a = args[0]
+        lut = strings.value_lut(a.dictionary, len, np.int64)
+        return SCol(e.type, be.lut_take(lut, a.data), a.valid)
+    if op == "substring":
+        return _eval_substring(args, e.type)
+    if op == "concat":
+        return _eval_concat(args, e.type)
+    if op == "replace":
+        a, frm, to = args
+        f, t_ = str(frm.dictionary[0]), str(to.dictionary[0])
+        nd, remap = strings.map_dictionary(a.dictionary, lambda s: s.replace(f, t_))
+        return SCol(e.type, be.lut_take(remap, a.data), a.valid, nd)
+    if op in ("startswith", "endswith"):
+        a, p = args
+        pat = str(p.dictionary[0])
+        fn = (lambda s: s.startswith(pat)) if op == "startswith" else (lambda s: s.endswith(pat))
+        lut = strings.predicate_lut(a.dictionary, fn)
+        return SCol(e.type, be.lut_take(lut, a.data), _and_valid(a, p))
+    if op in ("abs", "floor", "ceil", "sqrt", "exp", "ln", "log10", "sin", "cos"):
+        return _eval_math1(op, args[0], e.type)
+    if op == "round":
+        return _eval_round(args, e.type)
+    if op == "pow":
+        a, b = args
+        return SCol(e.type, jnp.power(a.data, b.data), _and_valid(a, b))
+    if op == "hash":
+        from .hashing import hash_columns
+
+        h = hash_columns(args)
+        return SCol(e.type, be.astype(h, jnp.int64), None)
+    if op.startswith("udf:"):
+        raise EvalError("not yet ported: UDF calls (ROADMAP queue A)")
+    raise EvalError(f"unknown op {op}")
+
+
+_UDF_REGISTRY: dict[str, object] = {}
+
+
+def udf_register(name: str, call):
+    _UDF_REGISTRY[name.lower()] = call
+
+
+def udfmod_registry_get(name: str):
+    return _UDF_REGISTRY.get(name.lower())
+
+
+def _eval_and(cols: list[SCol], t: Type) -> SCol:
+    # Kleene: FALSE dominates NULL
+    val = None
+    known_false = None
+    all_valid = None
+    for c in cols:
+        d = be.astype(c.data, jnp.bool_)
+        val = d if val is None else (val & d)
+        v = c.valid
+        if v is not None:
+            kf = ~d & v
+            known_false = kf if known_false is None else (known_false | kf)
+            all_valid = v if all_valid is None else (all_valid & v)
+        else:
+            kf = ~d
+            known_false = kf if known_false is None else (known_false | kf)
+    if all_valid is None:
+        return SCol(t, val, None)
+    valid = all_valid | known_false
+    return SCol(t, val & valid, valid)
+
+
+def _eval_or(cols: list[SCol], t: Type) -> SCol:
+    val = None
+    known_true = None
+    all_valid = None
+    any_invalid = None
+    for c in cols:
+        d = be.astype(c.data, jnp.bool_)
+        val = d if val is None else (val | d)
+        v = c.valid
+        if v is not None:
+            kt = d & v
+            any_invalid = ~v if any_invalid is None else (any_invalid | ~v)
+        else:
+            kt = d
+        known_true = kt if known_true is None else (known_true | kt)
+    if any_invalid is None:
+        return SCol(t, val, None)
+    valid = known_true | ~any_invalid
+    return SCol(t, known_true | (val & valid), valid)
+
+
+def _eval_coalesce(cols: list[SCol], t: Type) -> SCol:
+    if t.is_string:
+        merged = None
+        for c in cols:
+            if c.dictionary is not None:
+                merged = c.dictionary if merged is None else strings.remap_to_merged(merged, c.dictionary)[0]
+        cols = [_remap_string(c, merged) for c in cols]
+        rdict = merged
+    else:
+        rdict = None
+    data = cols[-1].data
+    valid = cols[-1].valid_mask() if cols[-1].valid is not None else None
+    for c in reversed(cols[:-1]):
+        if c.valid is None:
+            # non-nullable argument: everything to its left still wins, but the
+            # result is definitely non-null from here down
+            data, valid = c.data, None
+        else:
+            m = c.valid
+            data = jnp.where(m, c.data, data)
+            if valid is not None:
+                valid = m | valid
+            # valid None means "all rows valid already": m | all-true stays all-true
+    return SCol(t, data, valid, rdict)
+
+
+def _eval_in(args: list[SCol], t: Type) -> SCol:
+    """Three-valued IN: TRUE on any non-null match; NULL when unmatched but
+    some comparison was NULL (NULL probe or NULL list item); else FALSE."""
+    v, items = args[0], args[1:]
+    acc = None
+    any_null = None  # per-row: some item comparison evaluated to NULL
+    for it in items:
+        c = eval_compare("eq", v, it, Type.bool_(True))
+        if c.valid is not None:
+            m = c.data & c.valid
+            any_null = ~c.valid if any_null is None else (any_null | ~c.valid)
+        else:
+            m = c.data
+        acc = m if acc is None else (acc | m)
+    valid = None if any_null is None else (acc | ~any_null)
+    return SCol(t, acc, valid)
+
+
+def _eval_like(a: SCol, p: SCol, t: Type, ci: bool) -> SCol:
+    if not _is_const_string(p):
+        raise EvalError("LIKE with non-constant pattern not supported yet")
+    pat = str(p.dictionary[0])
+    # the pattern is matched against the dictionary on the host; the
+    # reference's device-side byte-plane matcher for high-cardinality
+    # dictionaries (ops/bytestr.py) is not ported yet (ROADMAP queue A)
+    lut = strings.like_lut(a.dictionary, pat, ci)
+    return SCol(t, be.lut_take(lut, a.data), a.valid)
+
+
+def _eval_string_map(op: str, a: SCol, t: Type) -> SCol:
+    fn = {
+        "upper": str.upper,
+        "lower": str.lower,
+        "ltrim": str.lstrip,
+        "rtrim": str.rstrip,
+        "trim": str.strip,
+        "reverse": lambda s: s[::-1],
+    }[op]
+    nd, remap = strings.map_dictionary(a.dictionary, fn)
+    return SCol(t, be.lut_take(remap, a.data), a.valid, nd)
+
+
+def _eval_substring(args: list[SCol], t: Type) -> SCol:
+    a, start, ln = args
+    if start.data.ndim == 0 and ln.data.ndim == 0:
+        s0 = int(start.data)
+        l0 = int(ln.data)
+
+        def fn(s):
+            b = max(s0 - 1, 0)
+            return s[b:b + l0]
+
+        nd, remap = strings.map_dictionary(a.dictionary, fn)
+        return SCol(t, be.lut_take(remap, a.data), a.valid, nd)
+    raise EvalError("substring with per-row start/length not supported yet")
+
+
+def _eval_concat(args: list[SCol], t: Type) -> SCol:
+    # fast path: exactly one non-constant dictionary column
+    non_const = [a for a in args if not _is_const_string(a) and a.data.ndim != 0]
+    if len(non_const) <= 1 and all(a.dictionary is not None for a in args):
+        if not non_const:
+            s = "".join(str(a.dictionary[0]) for a in args)
+            return const_scol(s, t)
+        var = non_const[0]
+        pieces = []
+        for a in args:
+            pieces.append(None if a is var else str(a.dictionary[0]))
+        def fn(s):
+            return "".join(s if p is None else p for p in pieces)
+        nd, remap = strings.map_dictionary(var.dictionary, fn)
+        return SCol(t, be.lut_take(remap, var.data), _and_valid(*args), nd)
+    # general: host roundtrip
+    host = []
+    n = max(a.data.shape[0] for a in args if a.data.ndim)
+    for a in args:
+        codes = be.to_host(jnp.broadcast_to(a.data, (n,)))
+        host.append(a.dictionary[codes])
+    vals = ["".join(str(x) for x in row) for row in zip(*host)]
+    nd, codes = strings.encode_strings(vals)
+    valid = _and_valid(*args)
+    return SCol(t, be.like(codes, valid if valid is not None else args[0].data), valid, nd)
+
+
+def _eval_math1(op: str, a: SCol, t: Type) -> SCol:
+    d = a.data
+    if op == "abs":
+        return SCol(t, jnp.abs(d), a.valid)
+    if op == "floor":
+        if t.kind == K.DECIMAL and not dec_is_float(t):
+            f = 10**t.s
+            return SCol(t, jnp.floor_divide(d, f) * f, a.valid)
+        return SCol(t, jnp.floor(d), a.valid)
+    if op == "ceil":
+        if t.kind == K.DECIMAL and not dec_is_float(t):
+            f = 10**t.s
+            return SCol(t, -jnp.floor_divide(-d, f) * f, a.valid)
+        return SCol(t, jnp.ceil(d), a.valid)
+    fn = {"sqrt": jnp.sqrt, "exp": jnp.exp, "ln": jnp.log, "log10": jnp.log10,
+          "sin": jnp.sin, "cos": jnp.cos}[op]
+    return SCol(t, fn(be.astype(d, jnp.float64)), a.valid)
+
+
+def _eval_round(args: list[SCol], t: Type) -> SCol:
+    a = args[0]
+    digits = int(args[1].data) if len(args) > 1 else 0
+    if t.kind == K.DECIMAL and not dec_is_float(t):
+        if digits >= t.s:
+            return a
+        f = 10 ** (t.s - digits)
+        return SCol(t, _div_round(a.data, f) * f, a.valid)
+    if t.kind in (K.INT, K.BIGINT):
+        return a
+    f = 10.0**digits
+    return SCol(t, _round_half_away_f(a.data * f) / f, a.valid)
+
+
+# ----------------------------------------------------------------- comparisons
+def eval_compare(op: str, a: SCol, b: SCol, t: Type) -> SCol:
+    valid = _and_valid(a, b)
+    if a.type.is_string or b.type.is_string:
+        return _compare_strings(op, a, b, t, valid)
+    x, y = _align_numeric(a, b)
+    fn = {
+        "eq": jnp.equal, "neq": jnp.not_equal, "lt": jnp.less,
+        "lte": jnp.less_equal, "gt": jnp.greater, "gte": jnp.greater_equal,
+    }[op]
+    out = fn(x, y)
+    if is_obj(out):
+        # exact comparison of wide decimals on the host; the flags go back
+        # beside the tensors of the table
+        out = be.like(out.astype(np.bool_), _first_torch(a.data, b.data, valid))
+    return SCol(t, out, valid)
+
+
+def _align_numeric(a: SCol, b: SCol):
+    """Bring two numeric/date columns to directly comparable tensors."""
+    ta, tb = a.type, b.type
+    if ta.kind == K.DECIMAL or tb.kind == K.DECIMAL:
+        fa = ta.kind == K.DECIMAL and dec_is_float(ta)
+        fb = tb.kind == K.DECIMAL and dec_is_float(tb)
+        if fa or fb or ta.kind in (K.FLOAT, K.DOUBLE) or tb.kind in (K.FLOAT, K.DOUBLE):
+            va = be.fdiv(a.data, 10.0**ta.s) if (ta.kind == K.DECIMAL and not fa) else a.data
+            vb = be.fdiv(b.data, 10.0**tb.s) if (tb.kind == K.DECIMAL and not fb) else b.data
+            return be.astype(va, jnp.float64), be.astype(vb, jnp.float64)
+        sa = ta.s if ta.kind == K.DECIMAL else 0
+        sb = tb.s if tb.kind == K.DECIMAL else 0
+        s = max(sa, sb)
+        if is_obj(a.data) or is_obj(b.data):
+            # exact wide comparison in Python ints
+            va = decwide.to_obj(a.data) * (10 ** (s - sa))
+            vb = decwide.to_obj(b.data) * (10 ** (s - sb))
+            return va, vb
+        va = be.astype(a.data, jnp.int64) * (10 ** (s - sa))
+        vb = be.astype(b.data, jnp.int64) * (10 ** (s - sb))
+        return va, vb
+    return a.data, b.data
+
+
+def _compare_strings(op: str, a: SCol, b: SCol, t: Type, valid) -> SCol:
+    # const vs column: use sorted-dictionary order directly
+    if _is_const_string(b) and not _is_const_string(a):
+        return _compare_col_const(op, a, str(b.dictionary[0]), t, valid)
+    if _is_const_string(a) and not _is_const_string(b):
+        flipped = {"eq": "eq", "neq": "neq", "lt": "gt", "lte": "gte", "gt": "lt", "gte": "lte"}[op]
+        return _compare_col_const(flipped, b, str(a.dictionary[0]), t, valid)
+    if _is_const_string(a) and _is_const_string(b):
+        import operator
+
+        f = {"eq": operator.eq, "neq": operator.ne, "lt": operator.lt,
+             "lte": operator.le, "gt": operator.gt, "gte": operator.ge}[op]
+        return SCol(t, jnp.asarray(f(str(a.dictionary[0]), str(b.dictionary[0]))), valid)
+    # two columns: same dictionary -> code compare; else remap to merged
+    ca, cb = a, b
+    if a.dictionary is not b.dictionary:
+        merged, ra, rb = strings.remap_to_merged(a.dictionary, b.dictionary)
+        ca = SCol(a.type, be.lut_take(ra, a.data), a.valid, merged)
+        cb = SCol(b.type, be.lut_take(rb, b.data), b.valid, merged)
+    fn = {
+        "eq": jnp.equal, "neq": jnp.not_equal, "lt": jnp.less,
+        "lte": jnp.less_equal, "gt": jnp.greater, "gte": jnp.greater_equal,
+    }[op]
+    return SCol(t, fn(ca.data, cb.data), valid)
+
+
+def _compare_col_const(op: str, a: SCol, v: str, t: Type, valid) -> SCol:
+    if a.type.kind == K.CHAR:
+        v = v.rstrip()  # char(N) semantics: trailing-space-insensitive
+    left, right, present = strings.const_code_bounds(a.dictionary, v)
+    c = a.data
+    if op == "eq":
+        out = (c == left) if present else jnp.zeros_like(c, dtype=jnp.bool_)
+    elif op == "neq":
+        out = (c != left) if present else jnp.ones_like(c, dtype=jnp.bool_)
+    elif op == "lt":
+        out = c < left
+    elif op == "lte":
+        out = c < right
+    elif op == "gt":
+        out = c >= right
+    else:  # gte
+        out = c >= left
+    return SCol(t, out, valid)
+
+
+# ----------------------------------------------------------------- arithmetic
+def eval_arith(op: str, a: SCol, b: SCol, t: Type) -> SCol:
+    valid = _and_valid(a, b)
+    ta, tb = a.type, b.type
+    # interval +- interval
+    if ta.kind == K.INTERVAL or tb.kind == K.INTERVAL:
+        f = jnp.add if op == "add" else jnp.subtract
+        return SCol(t, f(a.data, b.data), valid)
+    if ta.kind == K.DATE and tb.kind == K.DATE and op == "sub":
+        return SCol(t, be.astype((be.astype(a.data, jnp.int64) - be.astype(b.data, jnp.int64)), jnp.int32), valid)
+    if t.kind == K.DECIMAL:
+        return _decimal_arith(op, a, b, t, valid)
+    x = be.astype(a.data, np_dtype(t)) if be.dt(a.data) != np_dtype(t) else a.data
+    y = be.astype(b.data, np_dtype(t)) if be.dt(b.data) != np_dtype(t) else b.data
+    if op == "add":
+        return SCol(t, x + y, valid)
+    if op == "sub":
+        return SCol(t, x - y, valid)
+    if op == "mul":
+        return SCol(t, x * y, valid)
+    if op == "div":
+        if t.is_integer:
+            zero = y == 0
+            q = _div_trunc_arr(x, jnp.where(zero, 1, y))
+            valid = _mask_and(valid, ~zero)
+            return SCol(t, q, valid)
+        zero = y == 0
+        out = x / jnp.where(zero, 1, y)
+        valid = _mask_and(valid, ~zero)
+        return SCol(t, out, valid)
+    if op == "mod":
+        zero = y == 0
+        ysafe = jnp.where(zero, 1, y)
+        r = x - _div_trunc_arr(x, ysafe) * ysafe
+        valid = _mask_and(valid, ~zero)
+        return SCol(t, r, valid)
+    raise EvalError(op)
+
+
+def _div_trunc_arr(x, y):
+    q = jnp.floor_divide(jnp.abs(x), jnp.abs(y))
+    return be.astype((q * jnp.sign(x) * jnp.sign(y)), be.dt(x))
+
+
+def _mask_and(valid, extra):
+    if valid is None:
+        return extra
+    return valid & extra
+
+
+def _dec_logical(c: SCol):
+    """(tensor, scale) with tensor int64-scaled or float64 logical."""
+    t = c.type
+    if t.kind == K.DECIMAL:
+        if dec_is_float(t):
+            return c.data, None  # float logical value
+        return c.data, t.s
+    if t.kind in (K.FLOAT, K.DOUBLE):
+        return be.astype(c.data, jnp.float64), None
+    return be.astype(c.data, jnp.int64), 0
+
+
+def _decimal_arith(op: str, a: SCol, b: SCol, t: Type, valid) -> SCol:
+    xa, sa = _dec_logical(a)
+    xb, sb = _dec_logical(b)
+    from .backend import is_torch
+
+    # rescale constants beyond 18 digits cannot exist in int64: such ops MUST
+    # go exact (mul result scale far below/above operand-scale sum happens in
+    # deeply-derived decimal types, e.g. tpcxbb q23's variance over AVGs)
+    big_shift = (
+        sa is not None and sb is not None
+        and ((op in ("add", "sub", "mod")
+              and max(abs(t.s - sa), abs(t.s - sb)) > 18)
+             or (op == "mul" and abs(t.s - (sa + sb)) > 18)
+             # wide division: the quotient a*10^shift/b routinely exceeds
+             # int64 (12.51 at scale 19 wraps negative); magnitude is not
+             # statically knowable, so wide result types always go exact
+             or (op == "div" and dec_is_wide(t))))
+    if sa is not None and sb is not None and (
+            is_obj(xa) or is_obj(xb)
+            or (dec_is_wide(t) and not (is_torch(xa) or is_torch(xb)))
+            or big_shift):
+        # a side needs >63 bits, the host-resident result type may, or the
+        # rescale constant itself overflows int64: compute exactly in Python
+        # ints (overflow-detected by construction — the reference's i128
+        # path, LowerToStd.cpp:128-330). Device-resident narrow-typed data
+        # stays on the int64 device path (wide SUM accumulation is handled
+        # separately by limb-split reductions in the executor).
+        data, zero = decwide.arith(
+            op, decwide.to_obj(xa), decwide.to_obj(xb), sa, sb, t.s)
+        ref = _first_torch(xa, xb, valid)
+        if zero is not None:
+            if is_torch(valid):
+                valid = be.to_host(valid)
+            valid = _mask_and(valid, ~zero)
+        return _exact_result(t, data, valid, ref)
+    if dec_is_float(t) or sa is None or sb is None:
+        va = be.fdiv(xa, 10.0**sa) if sa else be.astype(xa, jnp.float64)
+        vb = be.fdiv(xb, 10.0**sb) if sb else be.astype(xb, jnp.float64)
+        if op == "add":
+            out = va + vb
+        elif op == "sub":
+            out = va - vb
+        elif op == "mul":
+            out = va * vb
+        elif op == "div":
+            zero = vb == 0
+            out = va / jnp.where(zero, 1.0, vb)
+            valid = _mask_and(valid, ~zero)
+        else:
+            zero = vb == 0
+            out = va - jnp.trunc(va / jnp.where(zero, 1.0, vb)) * vb
+            valid = _mask_and(valid, ~zero)
+        if not dec_is_float(t):
+            out = be.astype(_round_half_away_f(out * (10.0**t.s)), jnp.int64)
+        return SCol(t, out, valid)
+    s = t.s
+    if op in ("add", "sub"):
+        va = xa * (10 ** (s - sa)) if s >= sa else _div_round(xa, 10 ** (sa - s))
+        vb = xb * (10 ** (s - sb)) if s >= sb else _div_round(xb, 10 ** (sb - s))
+        return SCol(t, va + vb if op == "add" else va - vb, valid)
+    if op == "mul":
+        prod = xa * xb  # scale sa+sb
+        ps = sa + sb
+        out = prod * (10 ** (s - ps)) if s >= ps else _div_round(prod, 10 ** (ps - s))
+        return SCol(t, out, valid)
+    if op == "div":
+        # out = a/b at scale s: a*10^(s - sa + sb) / b. The scale shift can
+        # exceed what int64 holds (e.g. AVG's divide at scale 18), so the
+        # quotient is computed by exact chunked long division (the reference
+        # uses i128 arithmetic here, LowerToStd.cpp:128-330).
+        shift = s - sa + sb
+        zero = xb == 0
+        bsafe = jnp.where(zero, 1, xb)
+        if shift >= 0:
+            q = _div_shift_exact(xa, bsafe, shift)
+        else:
+            q = _div_round(_div_round(xa, 10**-shift), bsafe)
+        valid = _mask_and(valid, ~zero)
+        return SCol(t, q, valid)
+    if op == "mod":
+        va = xa * (10 ** (s - sa))
+        vb = xb * (10 ** (s - sb))
+        zero = vb == 0
+        vbs = jnp.where(zero, 1, vb)
+        r = va - _div_trunc_arr(va, vbs) * vbs
+        valid = _mask_and(valid, ~zero)
+        return SCol(t, r, valid)
+    raise EvalError(op)
+
+
+def _eval_date_addsub(op: str, a: SCol, iv_expr: BExpr, iv: SCol, t: Type) -> SCol:
+    sign = 1 if op == "date_add" else -1
+    valid = _and_valid(a, iv)
+    if iv.type.unit == IntervalUnit.MONTH:
+        months = be.astype(iv.data, jnp.int64) * sign
+        if a.type.kind == K.DATE:
+            out = dates.add_months_days(a.data, months)
+            return SCol(t, be.astype(out, jnp.int32), valid)
+        days = jnp.floor_divide(a.data, US_PER_DAY)
+        rem = a.data - days * US_PER_DAY
+        out = dates.add_months_days(days, months) * US_PER_DAY + rem
+        return SCol(t, out, valid)
+    us = be.astype(iv.data, jnp.int64) * sign
+    if a.type.kind == K.DATE:
+        out = be.astype(a.data, jnp.int64) + us // US_PER_DAY
+        return SCol(t, be.astype(out, jnp.int32), valid)
+    return SCol(t, a.data + us, valid)
+
+
+def _norm_date_str(v: str) -> str:
+    """Normalize non-zero-padded ISO dates (accepted by the reference's date
+    parser, mlir-support/parsing.cpp) for numpy: 2002-2-1 -> 2002-02-01."""
+    import re as _re
+
+    m = _re.match(r"^(\d{4})-(\d{1,2})-(\d{1,2})(.*)$", v.strip())
+    if m:
+        return f"{m.group(1)}-{int(m.group(2)):02d}-{int(m.group(3)):02d}{m.group(4)}"
+    return v.strip()

@@ -1,0 +1,157 @@
+"""Device placement policy + packed transfers.
+
+Every device->host sync stalls the stream of kernels behind it, so the
+executor runs large columnar work on the accelerator and *small*
+intermediate results as numpy arrays on the host — the analogue of the
+reference keeping small state in caches near the core while the JIT'd
+pipeline streams the base data (and of classic engines not shipping 4-row
+tables to an accelerator).
+
+All bulk device->host movement goes through ONE packed transfer: every column
+is widened to int64 (or float64) lanes of one matrix, fetched as one buffer,
+and re-split on the host.
+
+There is no module-level device: a VTable's tensors say where they live, and
+the session's device is passed to the one place that uploads (promote).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .vtable import SCol, VTable, is_obj
+
+SMALL_ROWS = 8192
+
+
+def get_mesh():
+    """Multi-device mesh for the sharded operators. The scale-out slice is
+    not ported yet (ROADMAP queue A): always None, so every operator takes
+    its single-device path."""
+    return None
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a session runs on. None means CUDA and raises when no GPU
+    is present: the engine never quietly carries on on the CPU. Tests pass
+    "cpu" explicitly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available: pass device='cpu' to run on the "
+                "host explicitly")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def vtable_device(vt: VTable):
+    """Device of the first tensor column (None for a host-numpy table)."""
+    for c in vt.cols.values():
+        if isinstance(c.data, torch.Tensor):
+            return c.data.device
+    return None
+
+
+# ----------------------------------------------------------- packed transfer
+def fetch_arrays_np(arrays: dict) -> dict:
+    """Fetch a dict of equal-length 1-D tensors with ONE device->host copy.
+    Returns numpy arrays with the original dtypes."""
+    if not arrays:
+        return {}
+    # host-resident planes (incl. object-dtype wide decimals) pass through;
+    # only tensors ride the packed transfer
+    out = {k: np.asarray(a) for k, a in arrays.items()
+           if not isinstance(a, torch.Tensor)}
+    tens = {k: a for k, a in arrays.items() if isinstance(a, torch.Tensor)}
+    if not tens:
+        return out
+    keys = sorted(tens.keys())
+    ikeys = [k for k in keys if not tens[k].dtype.is_floating_point]
+    fkeys = [k for k in keys if tens[k].dtype.is_floating_point]
+    if not any(t.is_cuda for t in tens.values()):
+        out.update({k: t.numpy() for k, t in tens.items()})
+        return out
+    parts = []
+    if ikeys:
+        parts.append(torch.stack([tens[k].to(torch.int64) for k in ikeys]))
+    if fkeys:
+        # float lanes travel as their bit patterns in the same int64 matrix
+        parts.append(torch.stack(
+            [tens[k].to(torch.float64) for k in fkeys]).view(torch.int64))
+    host = torch.cat(parts).cpu().numpy()
+    for i, k in enumerate(ikeys):
+        out[k] = host[i].astype(_np_dtype(tens[k]))
+    for i, k in enumerate(fkeys):
+        out[k] = host[len(ikeys) + i].view(np.float64).astype(_np_dtype(tens[k]))
+    return out
+
+
+def _np_dtype(t: torch.Tensor):
+    from ..ops.backend import dt
+
+    return dt(t)
+
+
+def fetch_vtable_np(vt: VTable) -> dict:
+    """VTable -> {('d'|'v', cid): np.ndarray} with one sync."""
+    arrays = {}
+    for cid, c in vt.cols.items():
+        arrays[("d", cid)] = c.data
+        if c.valid is not None:
+            arrays[("v", cid)] = c.valid
+    return fetch_arrays_np(arrays)
+
+
+def demote_small(vt: VTable) -> VTable:
+    """Move a small device-resident VTable onto the host numpy tier so
+    downstream operators run without device round trips."""
+    if vt.num_rows >= SMALL_ROWS or vt.num_rows == 0:
+        return vt
+    if vt.row_valid is not None:
+        return vt
+    if vtable_device(vt) is None:
+        return vt
+    host = fetch_vtable_np(vt)
+    cols = {}
+    for cid, c in vt.cols.items():
+        cols[cid] = SCol(c.type, host[("d", cid)], host.get(("v", cid)), c.dictionary)
+    return VTable(cols, vt.num_rows)
+
+
+def promote(vt: VTable, device) -> VTable:
+    """Move a host-resident VTable to `device` (e.g. the small side of a
+    join against a device-resident table)."""
+    from ..ops.backend import to_device
+
+    cols = {}
+    for cid, c in vt.cols.items():
+        if is_obj(c.data):
+            # wide-decimal object columns are host-only by contract
+            # (vtable.dec_is_wide): they never upload
+            cols[cid] = c
+            continue
+        cols[cid] = SCol(
+            c.type, to_device(c.data, device),
+            None if c.valid is None else to_device(c.valid, device),
+            c.dictionary,
+        )
+    return VTable(cols, vt.num_rows, row_valid=vt.row_valid)
+
+
+def align_devices(a: VTable, b: VTable) -> tuple[VTable, VTable]:
+    """Ensure two VTables are co-located before a binary operator: when one
+    side holds tensors and the other numpy arrays, the numpy side moves to
+    the tensors' device."""
+    da, db = vtable_device(a), vtable_device(b)
+    if (da is None) == (db is None):
+        return a, b
+    if da is not None:
+        return a, promote(b, da)
+    return promote(a, db), b
