@@ -14,8 +14,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
   2. build    compile the CUDA kernels of lingodb_tpu_torch/csrc with nvcc
   3. kernels  launch each kernel wrapper at the main path's shapes, require
               bit-equality with its plain PyTorch version, time both (and one
-              PyTorch library call computing the same function), compute the
-              bytes bound
+              PyTorch library call computing the same function) with CUDA
+              events around 10 calls, read the kernels' own time on the card
+              from torch.profiler, compute the bytes bound
   4. queries  TPC-H q6, q1, q14, q3, q4 through Session.sql on the card over
               generated tables; every result must equal that of a second
               session on device="cpu" (plain versions) over the same tables,
@@ -78,6 +79,26 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int = 5) -> float:
+    """Mean time per fn() that the card spent in kernels and copies
+    (torch.profiler, device rows only): unlike time_ms it leaves out the gaps
+    in which the card waits for the host to launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total_us += getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0))
+    return total_us / 1e3 / reps
+
+
 def max_abs_err(torch, got, want) -> int:
     worst = 0
     for g, w in zip(got, want):
@@ -88,9 +109,9 @@ def max_abs_err(torch, got, want) -> int:
     return worst
 
 
-def case_entry(name, shape, err, ms, plain_ms, library_ms, nbytes):
+def case_entry(name, shape, err, ms, dev_ms, plain_ms, library_ms, nbytes):
     return {"name": name, "shape": shape, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bytes": nbytes}
 
@@ -114,10 +135,11 @@ def check_compact(torch, pg, n, cases):
                 torch, [pos2[:k]], [pos_p[:k]]):
             fail("compact_positions sentinel tail / prefix wrong")
         ms = time_ms(torch, lambda: pg.compact_positions(mask, k))
+        dev = device_ms(torch, lambda: pg.compact_positions(mask, k))
         plain = time_ms(torch, lambda: pg.compact_positions_plain(mask, k), 3)
         lib = time_ms(torch, lambda: torch.nonzero(mask), 5)
         cases.append(case_entry("compact_positions", f"n={n} sel={sel} k={k}",
-                                err, ms, plain, lib, n + 4 * k + 4))
+                                err, ms, dev, plain, lib, n + 4 * k + 4))
         if err:
             fail(f"compact_positions differs from plain version (sel {sel})")
     # count > k: the count stays exact, the k slots hold the first k positions
@@ -157,10 +179,11 @@ def check_sorted(torch, pg, s, mask, cases):
         stacked = torch.stack(planes)
         idx64 = idx.to(torch.int64).clamp(0, s - 1)
         ms = time_ms(torch, lambda: pg.gather_sorted_planes(planes, idx))
+        dev = device_ms(torch, lambda: pg.gather_sorted_planes(planes, idx))
         plain = time_ms(torch, lambda: pg.gather_sorted_planes_plain(planes, idx), 3)
         lib = time_ms(torch, lambda: torch.index_select(stacked, 1, idx64), 5)
         cases.append(case_entry(
-            "gather_sorted", f"s={s} n={n} C={c}", err, ms, plain, lib,
+            "gather_sorted", f"s={s} n={n} C={c}", err, ms, dev, plain, lib,
             4 * n + 4 * c * n + 4 * c * distinct))
         if err:
             fail(f"gather_sorted differs from plain version (C={c})")
@@ -188,10 +211,11 @@ def check_chunked(torch, pg, n, cases):
         stacked = torch.stack(planes)
         idx64 = idx.to(torch.int64)
         ms = time_ms(torch, lambda: pg.gather_chunked_planes(planes, idx))
+        dev = device_ms(torch, lambda: pg.gather_chunked_planes(planes, idx))
         plain = time_ms(torch, lambda: pg.gather_chunked_planes_plain(planes, idx), 3)
         lib = time_ms(torch, lambda: torch.index_select(stacked, 1, idx64), 5)
         cases.append(case_entry("gather_chunked", f"s={s} n={n} C={c}", err, ms,
-                                plain, lib, 4 * n + 4 * c * n + 4 * c * s))
+                                dev, plain, lib, 4 * n + 4 * c * n + 4 * c * s))
         if err:
             fail(f"gather_chunked differs from plain version (s={s}, C={c})")
     table = torch.arange(100, device="cuda", dtype=torch.int32)
@@ -261,7 +285,8 @@ def main() -> int:
     check_sorted(torch, pg, n_li, mask, cases)
     check_chunked(torch, pg, n_li, cases)
     for c in cases:
-        log(f"# kernel {c['name']} {c['shape']}: {c['ms']:.4f} ms, plain "
+        log(f"# kernel {c['name']} {c['shape']}: {c['ms']:.4f} ms "
+            f"(on the card {c['device_ms']:.4f} ms), plain "
             f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} ms, bound "
             f"{c['bound_ms']:.4f} ms, max_abs_err {c['max_abs_err']}")
     del mask
@@ -326,7 +351,8 @@ def main() -> int:
         kernels.append({
             "name": name, **meta, "launches": launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": "bytes",
             "library_ms": head["library_ms"], "shape": head["shape"],
             "cases": mine,

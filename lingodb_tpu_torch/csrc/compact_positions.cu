@@ -23,7 +23,9 @@
 // 4 bytes are written per set byte. Each thread loads its 16 mask bytes with
 // one 16-byte load, so a warp reads 512 contiguous bytes per instruction; a
 // thread's 16 rows are consecutive, so ranks inside a tile are an exclusive
-// scan over per-thread popcounts (warp shuffles, one shared-memory hop).
+// scan over per-thread popcounts (warp shuffles, one shared-memory hop). The
+// scatter pass stages a tile's positions in shared memory (16 KB) so that its
+// stores to device memory coalesce.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,13 +133,20 @@ scatter_kernel(const uint8_t* __restrict__ mask, int64_t n,
   int total;
   const int excl =
       block_exclusive_scan<kThreads / 32>(__popc(bits), warp_sums, &total);
-  int64_t slot = (int64_t)tile_offsets[blockIdx.x] + excl;
+  // ranks are dense inside the tile: stage the tile's positions in shared
+  // memory, then store them with consecutive threads on consecutive slots
+  __shared__ int staged[kTile];
+  int r = excl;
   uint32_t rest = bits;
   while (rest) {
     const int j = __ffs(rest) - 1;
     rest &= rest - 1;
-    if (slot < k) out[slot] = (int)(base + j);
-    ++slot;
+    staged[r++] = (int)(base + j);
+  }
+  __syncthreads();
+  const int64_t first = tile_offsets[blockIdx.x];
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    if (first + i < k) out[first + i] = staged[i];
   }
   // sentinel tail [count, k): shared out among all threads of the grid
   const int64_t stride = (int64_t)gridDim.x * kThreads;
