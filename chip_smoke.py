@@ -23,6 +23,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               q6 also a direct numpy sum; every kernel must have been
               launched by the queries
   5. the rest the other 17 TPC-H queries, card against CPU session
+  6. battery  ~100 SQL statements over small tables held as tensors (joins of
+              every kind, set operations, subqueries, casts, NULLs), card
+              against CPU session
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -340,6 +343,21 @@ def main() -> int:
         if got != cpu.sql(sql).format_rows():
             fail(f"q{q}: GPU rows differ from the CPU session's")
         log(f"# extra query q{q}: rows={len(got)} wall_ms={ms:.2f} (first run)")
+
+    # ---- phase 6: SQL battery with every column on the tensor tier
+    from lingodb_tpu_torch.runtime import device as dv
+    from lingodb_tpu_torch.tools import sql_battery
+
+    dv.SMALL_ROWS = 2  # small tables would otherwise stay numpy on the host
+    gpu_b = ldb.create_in_memory()
+    cpu_b = ldb.create_in_memory(device="cpu")
+    for stmt in sql_battery.SETUP:
+        gpu_b.sql_stmt(stmt)
+        cpu_b.sql_stmt(stmt)
+    for q in sql_battery.QUERIES:
+        if gpu_b.sql(q).format_rows() != cpu_b.sql(q).format_rows():
+            fail(f"battery: GPU rows differ from the CPU session's: {q}")
+    log(f"# battery: {len(sql_battery.QUERIES)} statements equal on card and CPU")
 
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",
