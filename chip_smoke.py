@@ -5,8 +5,7 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU and the
 CUDA toolkit:
 
     python3 chip_smoke.py            # TPC-H scale factor 1
-    python3 chip_smoke.py --sf 0.2   # smaller data (lineitem stays >= 1M rows;
-                                     # below SF1 not every kernel is reached)
+    python3 chip_smoke.py --sf 0.2   # smaller data (lineitem stays >= 1M rows)
 
 Phases, each of which ends the run with a non-zero exit code when it fails:
 
@@ -122,9 +121,11 @@ def case_entry(name, shape, err, ms, dev_ms, plain_ms, library_ms, nbytes):
 def check_compact(torch, pg, n, cases):
     gen = torch.Generator(device="cuda").manual_seed(3)
     u = torch.rand(n, device="cuda", generator=gen)
-    for sel in (0.02, 0.5, 0.98):
-        mask = u < sel
-        cnt_p, pos_p = pg.compact_positions_plain(mask, n)
+    # the last case is a mask of a few rows: the dispatcher has no size
+    # threshold, so small intermediate results take the kernel too
+    for rows, sel in ((n, 0.02), (n, 0.5), (n, 0.98), (1024, 0.5)):
+        mask = u[:rows] < sel
+        cnt_p, pos_p = pg.compact_positions_plain(mask, rows)
         want = int(cnt_p)
         k = want
         cnt, pos = pg.compact_positions(mask, k)
@@ -141,8 +142,8 @@ def check_compact(torch, pg, n, cases):
         dev = device_ms(torch, lambda: pg.compact_positions(mask, k))
         plain = time_ms(torch, lambda: pg.compact_positions_plain(mask, k), 3)
         lib = time_ms(torch, lambda: torch.nonzero(mask), 5)
-        cases.append(case_entry("compact_positions", f"n={n} sel={sel} k={k}",
-                                err, ms, dev, plain, lib, n + 4 * k + 4))
+        cases.append(case_entry("compact_positions", f"n={rows} sel={sel} k={k}",
+                                err, ms, dev, plain, lib, rows + 4 * k + 4))
         if err:
             fail(f"compact_positions differs from plain version (sel {sel})")
     # count > k: the count stays exact, the k slots hold the first k positions
@@ -169,16 +170,19 @@ def check_sorted(torch, pg, s, mask, cases):
     planes8 = [torch.randint(-(1 << 31), (1 << 31) - 1, (s,), device="cuda",
                              dtype=torch.int64, generator=gen).to(torch.int32)
                for _ in range(8)]
-    distinct = int(torch.unique_consecutive(idx.clamp(0, s - 1)).numel())
-    n = int(idx.numel())
-    for c in (1, 2, 8):
+    # after the three full-size cases: q6's shape at scale factor 1 (7 planes,
+    # 2 % of the rows kept), q4's width (3 planes), and a sparse index set of
+    # about a thousand survivors of the whole table
+    few = idx[:: max(keep // 1024, 1)].contiguous()
+    for c, idx in ((1, idx), (2, idx), (8, idx), (7, idx[:: 26].contiguous()),
+                   (3, idx), (2, few)):
+        distinct = int(torch.unique_consecutive(idx.clamp(0, s - 1)).numel())
+        n = int(idx.numel())
         planes = planes8[:c]
-        got, ovf = pg.gather_sorted_planes(planes, idx)
-        want, _ = pg.gather_sorted_planes_plain(planes, idx)
+        got = pg.gather_sorted_planes(planes, idx)
+        want = pg.gather_sorted_planes_plain(planes, idx)
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
-        if ovf:
-            fail("gather_sorted reported unserved indices")
         stacked = torch.stack(planes)
         idx64 = idx.to(torch.int64).clamp(0, s - 1)
         ms = time_ms(torch, lambda: pg.gather_sorted_planes(planes, idx))
@@ -189,7 +193,7 @@ def check_sorted(torch, pg, s, mask, cases):
             "gather_sorted", f"s={s} n={n} C={c}", err, ms, dev, plain, lib,
             4 * n + 4 * c * n + 4 * c * distinct))
         if err:
-            fail(f"gather_sorted differs from plain version (C={c})")
+            fail(f"gather_sorted differs from plain version (C={c}, n={n})")
     # 64-bit column through strided limb planes, unsorted + out-of-range idx
     wide = torch.randint(-(1 << 62), 1 << 62, (s,), device="cuda", generator=gen)
     ridx = torch.randint(-5, s + 5, (1 << 20,), device="cuda", generator=gen).to(torch.int32)
@@ -202,7 +206,11 @@ def check_sorted(torch, pg, s, mask, cases):
 
 def check_chunked(torch, pg, n, cases):
     gen = torch.Generator(device="cuda").manual_seed(7)
-    for s, c in ((25, 1), (10_000, 1), (16_384, 1), (10_000, 2)):
+    # the last two cases are the shapes that q14 (part-type dictionary probe)
+    # and q3 (a 10-row result over a compacted build side) pass at scale
+    # factor 1, as listed by lingodb_tpu_torch/tools/threshold_bench.py
+    for s, c, n in ((25, 1, n), (10_000, 1, n), (16_384, 1, n), (10_000, 2, n),
+                    (150, 1, 75_029), (11_268, 6, 10)):
         planes = [torch.randint(-(1 << 31), (1 << 31) - 1, (s,), device="cuda",
                                 dtype=torch.int64, generator=gen).to(torch.int32)
                   for _ in range(c)]
@@ -307,7 +315,6 @@ def main() -> int:
         results[q] = gpu.sql(sqls[q]).format_rows()
     torch.cuda.synchronize()
     launches = dict(pg.LAUNCHES)
-    redos = pg.OVF_REDOS
     for q in QUERIES:
         want = cpu.sql(sqls[q]).format_rows()
         if results[q] != want:
@@ -327,9 +334,8 @@ def main() -> int:
         if rows != results[q]:
             fail(f"q{q}: second run differs from the first")
         log(f"# query q{q}: rows={len(rows)} wall_ms={ms:.2f} (second run) "
-            f"launches={json.dumps(pg.LAUNCHES)} ovf_redos={pg.OVF_REDOS}")
-    log(f"# main path launches (five queries, first run): {json.dumps(launches)} "
-        f"overflow_redos={redos}")
+            f"launches={json.dumps(pg.LAUNCHES)}")
+    log(f"# main path launches (five queries, first run): {json.dumps(launches)}")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         fail(f"kernels never launched by the main path: {missing}")

@@ -9,9 +9,8 @@
 // cannot be served and is counted in an overflow output (`d_chunks`,
 // `t_rows` and `conservative` size that window). A GPU thread can load any
 // address, so here every index is served straight from global memory and no
-// window exists: the wrapper keeps the (values, overflow) return shape for
-// its callers and the overflow is always 0; `d_chunks`, `t_rows` and
-// `conservative` are accepted by the wrapper and ignored.
+// window exists: the overflow output and the window parameters are dropped
+// from the port, and the wrapper returns the values alone.
 //
 // What the sorted contract still buys: with nondecreasing indices the 32
 // lanes of a warp touch neighbouring 32-byte sectors (often the same one), so

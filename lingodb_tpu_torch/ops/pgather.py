@@ -36,17 +36,13 @@ SENTINEL = 2147483646
 CHUNK_TABLE_LIMIT = 16384
 _MAX_PLANES = 8  # per kernel call (the kernels' pointer tables hold 8)
 
-# launches per kernel since the last reset_counters(); OVF_REDOS counts
-# gathers redone the plain way after a kernel reported unserved indices
+# launches per kernel since the last reset_counters()
 LAUNCHES = {"compact_positions": 0, "gather_sorted": 0, "gather_chunked": 0}
-OVF_REDOS = 0
 
 
 def reset_counters() -> None:
-    global OVF_REDOS
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    OVF_REDOS = 0
 
 
 def _check(err: int, what: str) -> None:
@@ -215,32 +211,29 @@ def gather_sorted_planes_plain(tables, idx):
     """Plain PyTorch version of gather_sorted_planes."""
     s = int(tables[0].shape[0])
     j = idx.to(torch.int64).clamp(0, max(s - 1, 0))
-    return [t[j] for t in tables], 0
+    return [t[j] for t in tables]
 
 
-def gather_sorted_planes(tables, idx, d_chunks: int = 0, t_rows: int = 0,
-                         conservative: bool = False, outs=None):
+def gather_sorted_planes(tables, idx, outs=None):
     """[t[clip(idx)] for t in tables] for equal-length 1-D int32 tables and
-    monotone nondecreasing 1-D int32 idx, in ONE kernel launch. Returns
-    (values_list, overflow_count); overflow > 0 would mean that some index
-    was not served and the caller must redo the gather the plain way.
+    monotone nondecreasing 1-D int32 idx, in ONE kernel launch.
 
     The CUDA kernel reads global memory directly and so serves every index,
-    sorted or not: its overflow count is always 0 and a wrong monotone hint
-    costs only coalescing. `d_chunks`, `t_rows` and `conservative` sized the
-    reference's on-chip window; they are accepted for call compatibility and
-    ignored."""
-    del d_chunks, t_rows, conservative
+    sorted or not: unsorted indices cost only coalescing. The reference's
+    kernel serves indices from an on-chip window and reports those outside
+    it in an overflow count (sized by `d_chunks`, `t_rows`, `conservative`);
+    none of that has a counterpart here, so the port returns the values
+    alone."""
     s = _check_planes(tables, idx, "gather_sorted")
     if idx.ndim != 1:
         raise ValueError("gather_sorted: idx must be 1-D")
     if not idx.is_cuda:
-        res, ovf = gather_sorted_planes_plain(tables, idx)
+        res = gather_sorted_planes_plain(tables, idx)
         if outs is not None:
             for o, r in zip(outs, res):
                 o.copy_(r)
-            return list(outs), ovf
-        return res, ovf
+            return list(outs)
+        return res
     from . import cuda_build
 
     idx = idx.contiguous()
@@ -254,13 +247,12 @@ def gather_sorted_planes(tables, idx, d_chunks: int = 0, t_rows: int = 0,
                      _stream(idx))
         LAUNCHES["gather_sorted"] += 1
         _check(err, "gather_sorted")
-    return list(outs), 0
+    return list(outs)
 
 
-def gather_sorted_i32(table, idx, d_chunks: int = 0, t_rows: int = 0):
+def gather_sorted_i32(table, idx):
     """Single-plane gather_sorted_planes (kept for tests/direct callers)."""
-    outs, ovf = gather_sorted_planes([table], idx, d_chunks, t_rows)
-    return outs[0], ovf
+    return gather_sorted_planes([table], idx)[0]
 
 
 # --------------------------------------------------------------------------
@@ -271,27 +263,13 @@ FORCE_KERNELS = None  # tests set True (kernel route on CPU tensors) or False
 
 
 def use_kernels(*tensors) -> bool:
-    """Whether gathers/compactions take the kernel route: the tensors lie on
-    a CUDA device and setting system.kernels is on. Tests force the route
-    for CPU tensors with FORCE_KERNELS=True (the wrappers then run their
-    plain versions, so routing, limb-splitting and padding are exercised)."""
+    """Whether gathers/compactions take the kernel route: some tensor lies on
+    a CUDA device. Tests force the route for CPU tensors with
+    FORCE_KERNELS=True (the wrappers then run their plain versions, so
+    routing, limb-splitting and padding are exercised)."""
     if FORCE_KERNELS is not None:
         return FORCE_KERNELS
-    from ..utils.settings import get_setting
-
-    if str(get_setting("system.kernels")).lower() in ("off", "false", "0"):
-        return False
     return any(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors)
-
-
-# Thresholds carried over from the reference as named constants. None of
-# them has been measured on an NVIDIA card yet.
-# below this many indices the launch overhead of limb-splitting plus a kernel
-# is assumed to outweigh plain indexing
-MIN_N = 1 << 16
-# monotone gathers go to the sorted kernel while the average index gap
-# (table rows / indices) stays at or under this
-MAX_SORTED_GAP = 128.0
 
 
 def _limbify(table):
@@ -321,42 +299,24 @@ def _limbify(table):
     return [limbs[0::2], limbs[1::2]], alloc
 
 
-def _guard_ovf(outs, ovf, planes, idx32):
-    """The kernels' contract: overflow > 0 means some index was not served.
-    The gather is then redone with the plain indexed load and counted."""
-    global OVF_REDOS
-    if ovf:
-        OVF_REDOS += 1
-        j = idx32.to(torch.int64).clamp(0, planes[0].shape[0] - 1)
-        for o, t in zip(outs, planes):
-            o.copy_(t[j])
-    return outs
-
-
-def _planes_gather(planes, outs, idx32, monotone: bool, s: int, n: int,
-                   conservative: bool = False):
+def _planes_gather(planes, outs, idx32, monotone: bool, s: int):
     """Gather a group of <= _MAX_PLANES equal-length i32 planes with shared
     idx into `outs` through whichever kernel applies."""
     if s <= CHUNK_TABLE_LIMIT:
         gather_chunked_planes(planes, idx32, outs=outs)
-        return
-    dense = s / max(n, 1) <= MAX_SORTED_GAP
-    if monotone and dense:
-        _, ovf = gather_sorted_planes(planes, idx32, conservative=conservative,
-                                      outs=outs)
-        _guard_ovf(outs, ovf, planes, idx32)
-        return
-    # random (or sparse) big-table gather: plain indexing, exactly where the
-    # reference goes to its framework's own take. (The reference also has a
-    # sort + sorted-gather + unsort route for large random gathers; it is a
-    # workaround for its hardware and is not ported.)
-    j = idx32.to(torch.int64).clamp(0, s - 1)
-    for o, t in zip(outs, planes):
-        o.copy_(t[j])
+    elif monotone:
+        gather_sorted_planes(planes, idx32, outs=outs)
+    else:
+        # random big-table gather: plain indexing, exactly where the
+        # reference goes to its framework's own take. (The reference also
+        # has a sort + sorted-gather + unsort route for large random
+        # gathers; it is a workaround for its hardware and is not ported.)
+        j = idx32.to(torch.int64).clamp(0, s - 1)
+        for o, t in zip(outs, planes):
+            o.copy_(t[j])
 
 
-def take_fast_multi(tables, idx, *, monotone: bool = False,
-                    conservative: bool = False):
+def take_fast_multi(tables, idx, *, monotone: bool = False):
     """[t[idx] for t in tables] with OOB clipped, for equal-length 1-D
     tables sharing one index array. Columns are limb-split to i32 planes and
     gathered in batched kernel calls (<= _MAX_PLANES planes each): one index
@@ -375,7 +335,7 @@ def take_fast_multi(tables, idx, *, monotone: bool = False,
                     for t in tables]
     n = int(idx.shape[0]) if idx.ndim == 1 else idx.numel()
     s = int(tables[0].shape[0])
-    if (not use_kernels(idx, *tables) or n < MIN_N or s == 0 or idx.ndim != 1
+    if (not use_kernels(idx, *tables) or n == 0 or s == 0 or idx.ndim != 1
             or any(t.ndim != 1 for t in tables)):
         j = idx.to(torch.int64).clamp(0, max(s - 1, 0))
         return [t[j] for t in tables]
@@ -391,16 +351,14 @@ def take_fast_multi(tables, idx, *, monotone: bool = False,
         rebuilds.append(rb)
     for g0 in range(0, len(planes), _MAX_PLANES):
         _planes_gather(planes[g0:g0 + _MAX_PLANES], outs[g0:g0 + _MAX_PLANES],
-                       idx32, monotone, s, n, conservative)
+                       idx32, monotone, s)
     return [rb() for rb in rebuilds]
 
 
-def take_fast(table, idx, *, monotone: bool = False,
-              conservative: bool = False):
+def take_fast(table, idx, *, monotone: bool = False):
     """table[idx] with OOB clipped. See take_fast_multi; column groups should
     prefer the multi form so the index decode is shared."""
-    return take_fast_multi([table], idx, monotone=monotone,
-                           conservative=conservative)[0]
+    return take_fast_multi([table], idx, monotone=monotone)[0]
 
 
 def nonzero_positions(mask, k: int):
@@ -413,8 +371,7 @@ def nonzero_positions(mask, k: int):
         out = np.zeros(k, np.int32)
         out[: min(len(pos), k)] = pos[:k]
         return np.int64(len(pos)), out
-    n = int(mask.shape[0])
-    if use_kernels(mask) and n >= MIN_N:
+    if use_kernels(mask):
         cnt, pos = compact_positions(mask, k)
         return cnt.to(torch.int64), pos
     cnt, pos = compact_positions_plain(mask, k)

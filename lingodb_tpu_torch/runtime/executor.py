@@ -564,7 +564,7 @@ class Executor:
         nr = rvt.num_rows
         pkd = be.astype(pk.data, jnp.int64)
         lut = be.like(lut, pkd)
-        p_sorted = nl >= pgather.MIN_N and bool(jnp.all(pkd[1:] >= pkd[:-1]))
+        p_sorted = bool(jnp.all(pkd[1:] >= pkd[:-1]))
         off = pkd - bmin
         offc = be.astype(jnp.clip(off, 0, span - 1), jnp.int32)
         pos = pgather.take_fast(lut, offc, monotone=p_sorted)

@@ -50,12 +50,16 @@ def profile_query(torch, session, sql: str) -> dict:
     dev.sort(key=lambda x: -x[1])
     own = [d for d in dev if any(k in d[0] for k in PORT_KERNELS)]
     device_ms = sum(d[1] for d in dev) / 1e3
+    if device_ms > wall_ms:
+        raise RuntimeError(
+            f"device time {device_ms:.3f} ms exceeds wall time {wall_ms:.3f} ms: "
+            "some device rows were counted twice")
     by_name = {e.key: e.count for e in events}
     return {
         "rows": len(rows),
         "wall_ms": wall_ms,
         "device_ms": device_ms,
-        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms) if wall_ms else None,
+        "device_idle_share": 1.0 - device_ms / wall_ms,
         "device_kernels": sum(d[2] for d in dev),
         "scalar_reads": by_name.get("aten::item", 0),
         "launch_calls": by_name.get("cudaLaunchKernel", 0),

@@ -98,9 +98,6 @@ SHUFFLE_MIN_ROWS = Setting("system.shuffle_min_rows", 1 << 16, int)
 # skew: a destination shard receiving more than this multiple of the mean
 # triggers the sampled heavy-hitter split (reference analogue: work stealing)
 SHUFFLE_SKEW_FACTOR = Setting("system.shuffle_skew_factor", 4.0, float)
-# hand-written CUDA kernels for gathers/compaction on CUDA tensors ("on"/"off");
-# "off" routes every gather and compaction to plain PyTorch indexing
-KERNELS = Setting("system.kernels", "on")
 # pipelined multi-query execution: overlap the next query's frontend +
 # optimizer + H2D prefetch with the current query's device execution
 # (reference: compilation runs inside scheduler tasks, Execution.cpp:294-325)

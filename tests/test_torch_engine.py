@@ -3,8 +3,8 @@
 The same generated TPC-H tables (carried across as plain numpy, so both
 engines read the very same bytes) go through `lingodb_tpu` and through
 `lingodb_tpu_torch` on device="cpu"; `format_rows()` must be equal string for
-string. The port's dispatcher is forced onto its kernel route (FORCE_KERNELS,
-MIN_N=1): on CPU tensors the wrappers then run the kernels' plain versions,
+string. The port's dispatcher is forced onto its kernel route
+(FORCE_KERNELS): on CPU tensors the wrappers then run the kernels' plain versions,
 so routing, limb-splitting and the sentinel tail are exercised as on the card.
 """
 
@@ -58,14 +58,14 @@ def pair():
     for small_rows in TIERS:
         ps[small_rows] = ldb.create_in_memory(device="cpu")
         tpchgen.install(ps[small_rows], carried)
-    old = pgather.FORCE_KERNELS, pgather.MIN_N
-    pgather.FORCE_KERNELS, pgather.MIN_N = True, 1
+    old = pgather.FORCE_KERNELS
+    pgather.FORCE_KERNELS = True
     # DEBUG mode verifies every operator's output, among it that no host
     # array sits in a table of tensors (such mixing fails only on a card)
     EXECUTION_MODE.set("DEBUG")
     yield rs, ps
     EXECUTION_MODE.set("DEFAULT")
-    pgather.FORCE_KERNELS, pgather.MIN_N = old
+    pgather.FORCE_KERNELS = old
 
 
 _WANT: dict = {}  # reference rows per query, computed once
@@ -173,7 +173,7 @@ def test_empty_table_join():
 
 
 def test_unique_key_join_with_build_rows_out_of_key_order():
-    """Sorted probe keys (>= MIN_N rows) over a build side whose rows are
+    """Sorted probe keys over a build side whose rows are
     stored in DESCENDING key order: every probe row must still get its own
     key's build row. (The reference's eager operator returns the first build
     row for every key here — ROADMAP.md, queue C — so the expectation is

@@ -22,7 +22,6 @@ def _modes(monkeypatch):
     monkeypatch.setattr(ref, "FORCE_PALLAS", True)
     monkeypatch.setattr(ref, "MIN_N", 1)
     monkeypatch.setattr(pg, "FORCE_KERNELS", True)
-    monkeypatch.setattr(pg, "MIN_N", 1)
 
 
 def _rng(seed):
@@ -110,8 +109,8 @@ def test_gather_sorted(s, n, maxstep):
     steps = rng.integers(0, maxstep, n)
     idx = np.minimum(np.cumsum(steps), s - 1).astype(np.int32)
     want, rovf = ref.gather_sorted_i32(jnp.asarray(table), jnp.asarray(idx))
-    got, ovf = pg.gather_sorted_i32(_t(table), _t(idx))
-    assert int(rovf) == 0 and int(ovf) == 0
+    got = pg.gather_sorted_i32(_t(table), _t(idx))
+    assert int(rovf) == 0
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -122,8 +121,7 @@ def test_gather_sorted_planes_strided_and_sentinel():
     limbs = _t(wide).view(torch.int32)
     idx = np.sort(rng.integers(0, s, n)).astype(np.int32)
     idx[-3:] = pg.SENTINEL  # padding tail of a compaction: clamps to s - 1
-    (lo, hi), ovf = pg.gather_sorted_planes([limbs[0::2], limbs[1::2]], _t(idx))
-    assert ovf == 0
+    lo, hi = pg.gather_sorted_planes([limbs[0::2], limbs[1::2]], _t(idx))
     back = torch.stack([lo, hi], dim=1).contiguous().view(torch.int64).reshape(-1)
     np.testing.assert_array_equal(back.numpy(), wide[np.minimum(idx, s - 1)])
 
@@ -204,13 +202,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         pg.compact_positions(torch.zeros((2, 2), dtype=torch.bool), 4)
 
 
-def test_overflow_redo_is_counted_and_repairs():
-    planes = [torch.arange(10, dtype=torch.int32)]
-    idx = torch.tensor([3, 1, 2], dtype=torch.int32)
-    outs = [torch.zeros(3, dtype=torch.int32)]
-    pg.reset_counters()
-    pg._guard_ovf(outs, 2, planes, idx)
-    assert pg.OVF_REDOS == 1
-    np.testing.assert_array_equal(outs[0].numpy(), [3, 1, 2])
-    pg._guard_ovf(outs, 0, planes, idx)
-    assert pg.OVF_REDOS == 1
+def test_kernel_route_at_every_size(monkeypatch):
+    """The dispatcher has no size threshold: a gather of a few rows takes the
+    same wrappers as one of millions, and each group of planes goes to the
+    wrapper its table size and the monotone hint name."""
+    seen = []
+    for name in ("gather_chunked_planes", "gather_sorted_planes",
+                 "compact_positions"):
+        orig = getattr(pg, name)
+        monkeypatch.setattr(
+            pg, name, lambda *a, _n=name, _o=orig, **k: seen.append(_n) or _o(*a, **k))
+    big = np.arange(20_000, dtype=np.int64) * 5
+    small = np.arange(30, dtype=np.int32)
+    idx = np.array([2, 2, 7], np.int32)
+    np.testing.assert_array_equal(
+        pg.take_fast(_t(big), _t(idx), monotone=True).numpy(), big[idx])
+    np.testing.assert_array_equal(pg.take_fast(_t(small), _t(idx)).numpy(), small[idx])
+    cnt, pos = pg.nonzero_positions(_t(np.array([0, 1, 1, 0], np.bool_)), 3)
+    assert int(cnt) == 2 and pos.tolist() == [1, 2, pg.SENTINEL]
+    assert seen == ["gather_sorted_planes", "gather_chunked_planes",
+                    "compact_positions"]
+    del seen[:]
+    rnd = np.array([9, 3, 19_999], np.int32)  # unsorted, big table: indexing
+    np.testing.assert_array_equal(pg.take_fast(_t(big), _t(rnd)).numpy(), big[rnd])
+    assert seen == []

@@ -34,15 +34,15 @@ def sessions():
     rs = _session(ref_ldb)
     want = {}
     ps = {}
-    old = pgather.FORCE_KERNELS, pgather.MIN_N, dv.SMALL_ROWS
-    pgather.FORCE_KERNELS, pgather.MIN_N = True, 1
+    old = pgather.FORCE_KERNELS, dv.SMALL_ROWS
+    pgather.FORCE_KERNELS = True
     EXECUTION_MODE.set("DEBUG")
     for small_rows in TIERS:
         dv.SMALL_ROWS = small_rows  # read when a column is first uploaded
         ps[small_rows] = _session(ldb, device="cpu")
     yield rs, ps, want
     EXECUTION_MODE.set("DEFAULT")
-    pgather.FORCE_KERNELS, pgather.MIN_N, dv.SMALL_ROWS = old
+    pgather.FORCE_KERNELS, dv.SMALL_ROWS = old
 
 
 @pytest.mark.parametrize("small_rows", TIERS, ids=["host_tier", "tensor_tier"])
