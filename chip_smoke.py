@@ -15,16 +15,30 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               bit-equality with its plain PyTorch version, time both (and one
               PyTorch library call computing the same function) with CUDA
               events around 10 calls, read the kernels' own time on the card
-              from torch.profiler, compute the bytes bound
+              from torch.profiler, compute the bytes bound; segscan is only
+              checked here (at lineitem's length, runs of 4 and one run over
+              the whole array) and timed by the kernel bench of phase 7
   4. queries  TPC-H q6, q1, q14, q3, q4 through Session.sql on the card over
-              generated tables; every result must equal that of a second
-              session on device="cpu" (plain versions) over the same tables,
-              q6 also a direct numpy sum; every kernel must have been
-              launched by the queries
+              generated tables, on two paths: the fused aggregate program
+              (it must engage for every query) and the eager operators (the
+              fused program declined); every result must equal that of a
+              second session on device="cpu" (plain versions) over the same
+              tables, q6 also a direct numpy sum; each of compact_positions,
+              gather_sorted and gather_chunked must have been launched on
+              the fused path. Per query and path: launches, wall time, host
+              syncs (sync debug mode) and peak device memory of a second run.
+              Then the fused path once more with every kernel call checked
+              bit for bit against the plain version on the very same inputs,
+              listing the shapes each query hands each kernel
   5. the rest the other 17 TPC-H queries, card against CPU session
   6. battery  ~100 SQL statements over small tables held as tensors (joins of
               every kind, set operations, subqueries, casts, NULLs), card
               against CPU session
+  7. kbench   `python -m lingodb_tpu_torch.tools.kbench --quick` as a
+              subprocess, the entry point that runs segscan (no engine
+              caller): every kernel at 6M rows, held against its plain
+              version; segscan must have been launched there, and its times
+              in the kernels line are that run's
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -37,7 +51,11 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data-sheet memory rate, for bound_ms
+# the port's kernel bench: its timing helpers and the card's memory rate
+from lingodb_tpu_torch.tools.kbench import HBM_BYTES_PER_S
+from lingodb_tpu_torch.tools.kbench import call_ms as time_ms
+from lingodb_tpu_torch.tools.kbench import card_ms as device_ms
+
 QUERIES = ["6", "1", "14", "3", "4"]
 KERNEL_META = {
     "compact_positions": {
@@ -55,7 +73,16 @@ KERNEL_META = {
         "source": "lingodb_tpu_torch/csrc/gather_chunked.cu",
         "replaces": "lingodb_tpu/ops/pgather.py:163",
     },
+    "segscan": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/segscan.cu",
+        "replaces": "lingodb_tpu/ops/pgather.py:606",
+    },
 }
+# the path whose run counts each kernel's launches: the fused aggregate for
+# the engine's kernels, the kernel bench for segscan (no engine caller)
+MAIN_PATH = {"compact_positions": "fused", "gather_sorted": "fused",
+             "gather_chunked": "fused", "segscan": "kbench"}
 
 
 def fail(msg: str):
@@ -67,38 +94,8 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device time of fn() in ms over `reps` launches (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(torch, fn, reps: int = 5) -> float:
-    """Mean time per fn() that the card spent in kernels and copies
-    (torch.profiler, device rows only): unlike time_ms it leaves out the gaps
-    in which the card waits for the host to launch."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            total_us += getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0.0))
-    return total_us / 1e3 / reps
+def fmt_ms(v) -> str:
+    return "none" if v is None else f"{v:.4f}"
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -235,6 +232,79 @@ def check_chunked(torch, pg, n, cases):
         fail("gather_chunked does not clamp out-of-range indices")
 
 
+def check_segscan(torch, pg, n, cases):
+    """segscan at the kernel bench's shape (two planes, runs of 4) and with
+    one run over the whole array (the carry crosses every tile), bit for bit
+    against the plain version. Its times come from the kernel bench."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    v1 = torch.randint(-1000, 1000, (n,), device="cuda", generator=gen,
+                       dtype=torch.int64).to(torch.int32)
+    ones = torch.ones(n, device="cuda", dtype=torch.int32)
+    for label, gid in (("runs of 4", torch.arange(n, device="cuda",
+                                                  dtype=torch.int32) // 4),
+                       ("one run", torch.zeros(n, device="cuda",
+                                               dtype=torch.int32))):
+        got = pg.segscan_i32(gid, [v1, ones])
+        err = max_abs_err(torch, got, pg.segscan_i32_plain(gid, [v1, ones]))
+        cases.append({"name": "segscan", "shape": f"n={n} W=2 {label}",
+                      "max_abs_err": err})
+        if err:
+            fail(f"segscan differs from plain version ({label})")
+    if int(got[1][-1]) != n:
+        fail("segscan: one run over the whole array does not count every row")
+
+
+def checked_kernel_calls(torch, pg, shapes: list):
+    """Within the block every call of the three engine kernels' wrappers is
+    followed by its plain version on the very same inputs and must equal it
+    bit for bit (the padding tail included); each call's kernel and shape
+    is appended to `shapes`."""
+    import contextlib
+
+    def compact(kernel, plain):
+        def call(mask, k):
+            cnt, pos = kernel(mask, k)
+            cnt_p, pos_p = plain(mask, k)
+            err = max_abs_err(torch, [pos], [pos_p])
+            if int(cnt) != int(cnt_p) or err:
+                fail(f"compact_positions differs from plain version on the "
+                     f"fused path (n={mask.numel()}, k={k})")
+            shapes.append(("compact_positions", f"n={mask.numel()} k={k} "
+                           f"count={int(cnt)}"))
+            return cnt, pos
+        return call
+
+    def gather(name, kernel, plain):
+        def call(tables, idx, outs=None):
+            got = kernel(tables, idx, outs=outs)
+            want = plain(tables, idx)
+            if max_abs_err(torch, [g.reshape(-1) for g in got],
+                           [w.reshape(-1) for w in want]):
+                fail(f"{name} differs from plain version on the fused path "
+                     f"(s={tables[0].shape[0]}, n={idx.numel()})")
+            shapes.append((name, f"s={tables[0].shape[0]} n={idx.numel()} "
+                           f"C={len(tables)}"))
+            return got
+        return call
+
+    @contextlib.contextmanager
+    def block():
+        orig = (pg.compact_positions, pg.gather_sorted_planes,
+                pg.gather_chunked_planes)
+        pg.compact_positions = compact(orig[0], pg.compact_positions_plain)
+        pg.gather_sorted_planes = gather("gather_sorted", orig[1],
+                                         pg.gather_sorted_planes_plain)
+        pg.gather_chunked_planes = gather("gather_chunked", orig[2],
+                                          pg.gather_chunked_planes_plain)
+        try:
+            yield
+        finally:
+            (pg.compact_positions, pg.gather_sorted_planes,
+             pg.gather_chunked_planes) = orig
+
+    return block()
+
+
 def q6_numpy(tables) -> str:
     import numpy as np
 
@@ -289,57 +359,108 @@ def main() -> int:
     if n_li < 1_000_000:
         fail("lineitem below 1M rows: not a size the main path is meant for")
 
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 3")
     # ---- phase 3: kernels against their plain versions
     cases: list = []
     pg.reset_counters()
     mask = check_compact(torch, pg, n_li, cases)
     check_sorted(torch, pg, n_li, mask, cases)
     check_chunked(torch, pg, n_li, cases)
+    check_segscan(torch, pg, n_li, cases)
     for c in cases:
+        if "ms" not in c:
+            log(f"# kernel {c['name']} {c['shape']}: max_abs_err "
+                f"{c['max_abs_err']}")
+            continue
         log(f"# kernel {c['name']} {c['shape']}: {c['ms']:.4f} ms "
             f"(on the card {c['device_ms']:.4f} ms), plain "
-            f"{c['plain_ms']:.4f} ms, library {c['library_ms']:.4f} ms, bound "
-            f"{c['bound_ms']:.4f} ms, max_abs_err {c['max_abs_err']}")
+            f"{c['plain_ms']:.4f} ms, library {fmt_ms(c['library_ms'])} ms, "
+            f"bound {c['bound_ms']:.4f} ms, max_abs_err {c['max_abs_err']}")
     del mask
     torch.cuda.empty_cache()
 
-    # ---- phase 4: main path
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 4")
+    # ---- phase 4: main path, on the fused program and on the eager operators
+    import lingodb_tpu_torch.runtime.executor as ex
+    from lingodb_tpu_torch.tools import gpu_profile
+
     gpu = ldb.create_in_memory()
     cpu = ldb.create_in_memory(device="cpu")
     tpchgen.install(gpu, tables)
     tpchgen.install(cpu, tables)
     sqls = {q: open(f"queries/tpch/{q}.sql").read() for q in QUERIES}
-    pg.reset_counters()  # launches made to compare kernels do not count
-    results = {}
-    for q in QUERIES:
-        results[q] = gpu.sql(sqls[q]).format_rows()
-    torch.cuda.synchronize()
-    launches = dict(pg.LAUNCHES)
-    for q in QUERIES:
-        want = cpu.sql(sqls[q]).format_rows()
-        if results[q] != want:
-            fail(f"q{q}: GPU rows differ from the CPU session's\n"
-                 f"gpu={results[q][:3]}\ncpu={want[:3]}")
-        if not results[q]:
-            fail(f"q{q}: empty result")
-    if results["6"] != [[q6_numpy(tables)]]:
-        fail(f"q6 {results['6']} != numpy {q6_numpy(tables)}")
-    for q in QUERIES:
-        pg.reset_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rows = gpu.sql(sqls[q]).format_rows()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        if rows != results[q]:
-            fail(f"q{q}: second run differs from the first")
-        log(f"# query q{q}: rows={len(rows)} wall_ms={ms:.2f} (second run) "
-            f"launches={json.dumps(pg.LAUNCHES)}")
-    log(f"# main path launches (five queries, first run): {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"kernels never launched by the main path: {missing}")
+    engaged = []
+    orig_fused = ex.Executor._try_fused_agg
 
+    def spy(self, op, epi=None):
+        r = orig_fused(self, op, epi)
+        engaged.append(r is not None)
+        return r
+
+    ex.Executor._try_fused_agg = spy
+    launches, checked = {}, {}
+    want = {q: cpu.sql(sqls[q]).format_rows() for q in QUERIES}
+    for path in ("fused", "eager"):
+        with gpu_profile.path_context(path):
+            pg.reset_counters()  # launches made to compare kernels do not count
+            results, hit = {}, {}
+            for q in QUERIES:
+                engaged.clear()
+                results[q] = gpu.sql(sqls[q]).format_rows()
+                hit[q] = any(engaged)
+            torch.cuda.synchronize()
+            launches[path] = dict(pg.LAUNCHES)
+            for q in QUERIES:
+                if results[q] != want[q]:
+                    fail(f"q{q} [{path}]: GPU rows differ from the CPU "
+                         f"session's\ngpu={results[q][:3]}\ncpu={want[q][:3]}")
+                if not results[q]:
+                    fail(f"q{q} [{path}]: empty result")
+                if hit[q] != (path == "fused"):
+                    fail(f"q{q} [{path}]: fused aggregate engaged={hit[q]}")
+            if results["6"] != [[q6_numpy(tables)]]:
+                fail(f"q6 [{path}] {results['6']} != numpy {q6_numpy(tables)}")
+            for q in QUERIES:
+                pg.reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows = gpu.sql(sqls[q]).format_rows()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = dict(pg.LAUNCHES)
+                syncs, peak, resident = gpu_profile.syncs_and_peak(
+                    torch, lambda: gpu.sql(sqls[q]).format_rows())
+                if rows != results[q]:
+                    fail(f"q{q} [{path}]: second run differs from the first")
+                log(f"# query q{q} [{path}]: rows={len(rows)} wall_ms={ms:.2f} "
+                    f"(second run) launches={json.dumps(counts)} syncs={syncs} "
+                    f"peak_mib={peak / 2**20:.1f} resident_mib="
+                    f"{resident / 2**20:.1f}")
+        log(f"# main path launches [{path}] (five queries, first run): "
+            f"{json.dumps(launches[path])}")
+    # the fused path once more (steady state), every kernel call held
+    # against its plain version on the same inputs
+    for q in QUERIES:
+        shapes: list = []
+        with checked_kernel_calls(torch, pg, shapes):
+            if gpu.sql(sqls[q]).format_rows() != want[q]:
+                fail(f"q{q} [fused, checked]: GPU rows differ from the CPU "
+                     "session's")
+        log(f"# fused kernel calls q{q} (each equal to its plain version): "
+            + ("; ".join(f"{k} {sh}" for k, sh in shapes) or "none"))
+        for k, _sh in shapes:
+            checked[k] = checked.get(k, 0) + 1
+    ex.Executor._try_fused_agg = orig_fused
+    missing = [k for k, p in MAIN_PATH.items()
+               if p == "fused" and launches["fused"][k] == 0]
+    if missing:
+        fail(f"kernels never launched by the fused path: {missing}")
+    unchecked = [k for k, p in MAIN_PATH.items()
+                 if p == "fused" and not checked.get(k)]
+    if unchecked:
+        fail(f"kernels never checked at the fused path's shapes: {unchecked}")
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 5")
     # ---- phase 5: the other 17 TPC-H queries, card against CPU session
     for q in [str(i) for i in range(1, 23) if str(i) not in QUERIES]:
         sql = open(f"queries/tpch/{q}.sql").read()
@@ -350,6 +471,7 @@ def main() -> int:
             fail(f"q{q}: GPU rows differ from the CPU session's")
         log(f"# extra query q{q}: rows={len(got)} wall_ms={ms:.2f} (first run)")
 
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 6")
     # ---- phase 6: SQL battery with every column on the tensor tier
     from lingodb_tpu_torch.runtime import device as dv
     from lingodb_tpu_torch.tools import sql_battery
@@ -365,15 +487,40 @@ def main() -> int:
             fail(f"battery: GPU rows differ from the CPU session's: {q}")
     log(f"# battery: {len(sql_battery.QUERIES)} statements equal on card and CPU")
 
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 7")
+    # ---- phase 7: the kernel bench, the entry point that runs segscan
+    t0 = time.perf_counter()
+    kb = subprocess.run([sys.executable, "-m", "lingodb_tpu_torch.tools.kbench",
+                         "--quick"], capture_output=True, text=True, timeout=900)
+    for line in kb.stdout.splitlines()[:-1]:
+        log(f"# kbench {line}")
+    if kb.returncode != 0:
+        fail(f"kbench exited {kb.returncode}: {kb.stderr[-2000:]}")
+    kb_out = json.loads(kb.stdout.splitlines()[-1])
+    launches["kbench"] = kb_out["launches"]
+    k4 = next(c for c in kb_out["cases"] if c["name"] == "k4_segscan_w2")
+    cases.append({"name": "segscan", "shape": f"n={kb_out['n']} W=2 runs of 4 "
+                  "(kernel bench)", "max_abs_err": 0, "ms": k4["ms"],
+                  "device_ms": k4["card_ms"], "plain_ms": k4["plain_ms"],
+                  "library_ms": None, "bound_ms": k4["bound_ms"],
+                  "bound_by": "bytes", "bytes": k4["bytes"]})
+    log(f"# kbench: {time.perf_counter() - t0:.1f}s, launches "
+        f"{json.dumps(launches['kbench'])}")
+    if not launches["kbench"]["segscan"]:
+        fail("segscan never launched by the kernel bench")
+
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",
-                "gather_chunked": "s=10000 n=%d C=1" % n_li}
+                "gather_chunked": "s=10000 n=%d C=1" % n_li,
+                "segscan": "kernel bench"}
     kernels = []
     for name, meta in KERNEL_META.items():
         mine = [c for c in cases if c["name"] == name]
         head = next(c for c in mine if headline[name] in c["shape"])
         kernels.append({
-            "name": name, **meta, "launches": launches[name],
+            "name": name, **meta,
+            "launches": launches[MAIN_PATH[name]][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": head["ms"], "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],

@@ -18,6 +18,8 @@ below.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -78,9 +80,32 @@ def view_as(x, dtype):
     return np.asarray(x).view(dtype)
 
 
+class HostRead(Exception):
+    """A tensor was read back to the host where no_host_reads() forbids it."""
+
+
+_no_host_reads = 0
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Within the block, to_host() of a tensor raises HostRead. The fused
+    program runs inside one: an expression that can only be computed on the
+    host (exact wide-decimal arithmetic, string formatting) makes it decline
+    instead of stalling the card with a read."""
+    global _no_host_reads
+    _no_host_reads += 1
+    try:
+        yield
+    finally:
+        _no_host_reads -= 1
+
+
 def to_host(x) -> np.ndarray:
     """Tensor or array -> numpy array on the host (a device sync)."""
     if isinstance(x, torch.Tensor):
+        if _no_host_reads:
+            raise HostRead("tensor read to the host inside a fused program")
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("compact_positions", "gather_sorted", "gather_chunked")
+SOURCES = ("compact_positions", "gather_sorted", "gather_chunked", "segscan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -101,6 +101,12 @@ def _declare(libs) -> None:
     f = libs["gather_chunked"].ldb_gather_chunked
     f.argtypes = [vp, vp, vp, vp, i32, i64, vp, i64, i32, vp]
     f.restype = i32
+    f = libs["segscan"].ldb_segscan
+    f.argtypes = [vp, i64, vp, vp, vp, vp, i32, vp, vp]
+    f.restype = i32
+    t = libs["segscan"].ldb_segscan_tile
+    t.argtypes = []
+    t.restype = i32
 
 
 def lib(name: str) -> ctypes.CDLL:

@@ -16,6 +16,10 @@ speed. Kernels (sources under csrc/, all int32 in-kernel; wrappers limb-split
                                       positions, sorted-FK probes): one index
                                       decode shared by all planes, reads
                                       coalesce because neighbours are near.
+  segscan_i32(gid, vals)              segmented inclusive sum of int32
+                                      planes over a sorted key: tile
+                                      aggregates, one scan, apply. No engine
+                                      caller; run by tools/kbench.py.
 
 Beside each kernel stands a plain PyTorch version (`*_plain`) of the same
 signature. A wrapper takes it only for tensors that lie on the CPU; for CUDA
@@ -37,7 +41,8 @@ CHUNK_TABLE_LIMIT = 16384
 _MAX_PLANES = 8  # per kernel call (the kernels' pointer tables hold 8)
 
 # launches per kernel since the last reset_counters()
-LAUNCHES = {"compact_positions": 0, "gather_sorted": 0, "gather_chunked": 0}
+LAUNCHES = {"compact_positions": 0, "gather_sorted": 0, "gather_chunked": 0,
+            "segscan": 0}
 
 
 def reset_counters() -> None:
@@ -253,6 +258,72 @@ def gather_sorted_planes(tables, idx, outs=None):
 def gather_sorted_i32(table, idx):
     """Single-plane gather_sorted_planes (kept for tests/direct callers)."""
     return gather_sorted_planes([table], idx)[0]
+
+
+# --------------------------------------------------------------------------
+# K4: segscan — segmented inclusive sum over a sorted int32 key
+# --------------------------------------------------------------------------
+
+_segscan_tile = 0  # rows per block, asked of the built library once
+
+
+def segscan_i32_plain(gid, vals):
+    """Plain PyTorch version of segscan_i32: an int64 cumulative sum read
+    back at each row's run start, wrapped to int32. gid is sorted, so a
+    row's run starts where a binary search for its own id lands."""
+    gid = gid.contiguous()
+    start = torch.searchsorted(gid, gid, side="left")
+    out = []
+    for v in vals:
+        v64 = v.to(torch.int64)
+        cs = torch.cumsum(v64, dim=0)
+        s = (cs - (cs - v64)[start]) & 0xFFFFFFFF
+        out.append(torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32))
+    return out
+
+
+def segscan_i32(gid, vals):
+    """Segmented inclusive scan (sum) of each (n,) int32 plane in `vals` over
+    sorted nondecreasing int32 `gid`: out[w][i] is the sum of vals[w] over
+    the run of equal gid that ends at row i (run totals land on each run's
+    last row). int32 adds wrap: callers limb-split to stay exact. The kernel
+    masks its own ragged edge, so nothing is padded; up to _MAX_PLANES
+    planes share one launch."""
+    if gid.ndim != 1 or gid.dtype != torch.int32:
+        raise ValueError("segscan: gid must be 1-D int32")
+    n = int(gid.shape[0])
+    for v in vals:
+        if v.dtype != torch.int32 or v.ndim != 1 or int(v.shape[0]) != n:
+            raise ValueError("segscan: planes must be 1-D int32 of gid's length")
+        if v.device != gid.device:
+            raise ValueError("segscan: planes and gid on different devices")
+    if not gid.is_cuda:
+        return segscan_i32_plain(gid, vals)
+    from . import cuda_build
+
+    if not vals or n == 0:
+        return [torch.empty((0,), dtype=torch.int32, device=gid.device)
+                for _ in vals]
+    if n >= 2147483647:
+        raise ValueError("segscan: gid too long")
+    lib = cuda_build.lib("segscan")
+    global _segscan_tile
+    if not _segscan_tile:
+        _segscan_tile = lib.ldb_segscan_tile()
+    gid = gid.contiguous()
+    outs = _alloc_outs(vals, n, None)
+    tiles = -(-n // _segscan_tile)
+    for g0 in range(0, len(vals), _MAX_PLANES):
+        grp, grp_out = vals[g0:g0 + _MAX_PLANES], outs[g0:g0 + _MAX_PLANES]
+        pin, sin, pout, sout = _plane_args(grp, grp_out)
+        scratch = torch.empty((tiles * (1 + 2 * len(grp)),), dtype=torch.int32,
+                              device=gid.device)
+        with torch.cuda.device(gid.device):
+            err = lib.ldb_segscan(gid.data_ptr(), n, pin, sin, pout, sout,
+                                  len(grp), scratch.data_ptr(), _stream(gid))
+        LAUNCHES["segscan"] += 1
+        _check(err, "segscan")
+    return outs
 
 
 # --------------------------------------------------------------------------

@@ -61,8 +61,8 @@ def vtable_device(vt: VTable):
 
 # ----------------------------------------------------------- packed transfer
 def fetch_arrays_np(arrays: dict) -> dict:
-    """Fetch a dict of equal-length 1-D tensors with ONE device->host copy.
-    Returns numpy arrays with the original dtypes."""
+    """Fetch a dict of tensors (any shapes) with ONE device->host copy.
+    Returns numpy arrays with the original dtypes and shapes."""
     if not arrays:
         return {}
     # host-resident planes (incl. object-dtype wide decimals) pass through;
@@ -72,24 +72,26 @@ def fetch_arrays_np(arrays: dict) -> dict:
     tens = {k: a for k, a in arrays.items() if isinstance(a, torch.Tensor)}
     if not tens:
         return out
-    keys = sorted(tens.keys())
-    ikeys = [k for k in keys if not tens[k].dtype.is_floating_point]
-    fkeys = [k for k in keys if tens[k].dtype.is_floating_point]
     if not any(t.is_cuda for t in tens.values()):
         out.update({k: t.numpy() for k, t in tens.items()})
         return out
-    parts = []
-    if ikeys:
-        parts.append(torch.stack([tens[k].to(torch.int64) for k in ikeys]))
-    if fkeys:
-        # float lanes travel as their bit patterns in the same int64 matrix
-        parts.append(torch.stack(
-            [tens[k].to(torch.float64) for k in fkeys]).view(torch.int64))
+    keys = sorted(tens.keys(), key=repr)
+    ikeys = [k for k in keys if not tens[k].dtype.is_floating_point]
+    fkeys = [k for k in keys if tens[k].dtype.is_floating_point]
+    # every lane is flattened into one int64 vector; float lanes travel as
+    # the bit patterns of their float64 values
+    parts = [tens[k].reshape(-1).to(torch.int64) for k in ikeys]
+    parts += [tens[k].reshape(-1).to(torch.float64).view(torch.int64)
+              for k in fkeys]
     host = torch.cat(parts).cpu().numpy()
-    for i, k in enumerate(ikeys):
-        out[k] = host[i].astype(_np_dtype(tens[k]))
-    for i, k in enumerate(fkeys):
-        out[k] = host[len(ikeys) + i].view(np.float64).astype(_np_dtype(tens[k]))
+    off = 0
+    for k in ikeys + fkeys:
+        t = tens[k]
+        seg = host[off: off + t.numel()]
+        off += t.numel()
+        if t.dtype.is_floating_point:
+            seg = seg.view(np.float64)
+        out[k] = seg.astype(_np_dtype(t)).reshape(tuple(t.shape))
     return out
 
 

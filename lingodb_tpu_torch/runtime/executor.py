@@ -6,13 +6,15 @@ LLVM JIT runs tuple-at-a-time; here each operator is a set of whole-column
 tensor ops). Dynamic result sizes surface as exactly one host sync per
 size-changing operator (filter compaction, join expansion, group count).
 
-This is the EAGER executor: one operator at a time, each materializing its
-result. The JAX package also has fused single-program pipelines
-(`_try_fused_agg`, `_try_fused_chain`, `_try_fused_topk`), sharded mesh
-operators and an out-of-core streaming aggregate; every one of those may
-decline there, and the eager operators below are what then runs. Here they
-exist as methods that always decline (return None) until they are ported —
-see ROADMAP.md, queue A.
+An Aggregate over a Scan -> Select/Map -> dimension-Join spine first goes to
+the fused aggregate program (`_try_fused_agg`, building blocks in
+runtime/fused.py): the whole spine and the grouping run as one function on
+the session's tensors, sized by static capacities, with one packed fetch at
+the end. Where it declines, the EAGER operators below run: one operator at a
+time, each materializing its result. The JAX package also has a fused chain
+and a fused TopK, sharded mesh operators and an out-of-core streaming
+aggregate; here those exist as methods that always decline (return None)
+until they are ported — see ROADMAP.md, queue A.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..ops import backend as be
 from ..ops.backend import xnp as jnp
@@ -33,14 +36,22 @@ from ..ops import strings as strmod
 from ..plan import exprs as E
 from ..plan import logical as L
 from ..plan.exprs import Call, ColRef
-from ..sql.types import Type
+from ..sql.types import K, Type
 from ..utils import tracer
 from .result import ResultTable
-from .vtable import SCol, VTable, is_obj, np_dtype
+from .vtable import SCol, VTable, dec_is_wide, is_obj, np_dtype
 
 
 class ExecError(Exception):
     pass
+
+
+# The fused aggregate's lead compaction capacity: the estimated survivor
+# count times 2, plus COMPACT_SLACK rows, rounded up to a multiple of
+# COMPACT_QUANTUM rows (the reference quantizes for its jit cache; the port
+# keeps the sizes so that both engines compact at the same points).
+COMPACT_SLACK = 8192
+COMPACT_QUANTUM = 65536
 
 
 class Executor:
@@ -54,6 +65,10 @@ class Executor:
         # (reference: the materialized relalg.tmp buffer, RelAlgOps.td:499)
         self._tmp_results: dict[int, VTable] = {}
         self._mode = "DEFAULT"
+        # spine bases that _try_fused_agg materialized before it declined:
+        # the eager operators consume them instead of running the subtree
+        # again (id(node) -> VTable)
+        self._materialized_bases: dict[int, VTable] = {}
 
     # ------------------------------------------------------------- dispatch
     def execute(self, plan: L.Materialize) -> ResultTable:
@@ -61,6 +76,7 @@ class Executor:
         from ..utils.settings import EXECUTION_MODE
 
         self._tmp_results.clear()
+        self._materialized_bases.clear()
         # execution modes (reference: ExecutionMode + CPULLVMDebugBackend,
         # src/execution/LLVMBackends.cpp:939-1010):
         #   DEFAULT  fast path
@@ -87,6 +103,9 @@ class Executor:
         return ResultTable(names, types, cols, valids, dicts, vt.num_rows)
 
     def run(self, op: L.LogicalOp) -> VTable:
+        stashed = self._materialized_bases.pop(id(op), None)
+        if stashed is not None:
+            return stashed
         method = getattr(self, "_run_" + type(op).__name__.lower(), None)
         if method is None:
             raise ExecError(f"no executor for {type(op).__name__}")
@@ -150,17 +169,14 @@ class Executor:
 
     # ------------------------------------------ paths that are not ported yet
     # Each declines, as the reference's own versions may, and the eager
-    # operator then runs (ROADMAP.md queue A7, A8, A11).
-    def _try_fused_agg(self, op, epi=None) -> Optional[VTable]:
-        return None
-
+    # operator then runs (ROADMAP.md queue A).
     def _try_fused_chain(self, op, epi=None) -> Optional[VTable]:
         return None
 
     def _try_fused_topk(self, op) -> Optional[VTable]:
         return None
 
-    def _try_chunked_agg(self, op) -> Optional[VTable]:
+    def _try_chunked_agg(self, op, steps, scan) -> Optional[VTable]:
         return None
 
     def _try_sharded_agg(self, op, vt) -> Optional[VTable]:
@@ -296,6 +312,974 @@ class Executor:
             self._tmp_results[id(op.holder)] = vt
         cols = {c.cid: vt.col(s) for s, c in op.mapping}
         return VTable(cols, vt.num_rows)
+
+    # ---------------------------------------------------- fused agg pipeline
+    # Scan -> Select/Map/dimension-Join chain -> Aggregate runs as ONE
+    # program (masked aggregation, compaction only at static capacities),
+    # the counterpart of the reference's fused per-morsel pipeline
+    # (SubOpToControlFlow emits one loop doing scan+filter+join+aggregate).
+    _FUSABLE_KEY_KINDS = (K.INT, K.BIGINT, K.DATE, K.TIMESTAMP, K.BOOL)
+
+    def _subtree_versions(self, node) -> list:
+        out = []
+
+        def walk(x):
+            if isinstance(x, L.Scan):
+                e = self.session.catalog.get_table(x.table)
+                if e is not None:
+                    out.append((x.table, e.storage.version))
+            if isinstance(x, L.Tmp):
+                walk(x.holder.plan)
+            for c in x.children():
+                walk(c)
+
+        walk(node)
+        return out
+
+    def _has_hash_index(self, build_plan, key_pair, key_pair2):
+        """True when the build side is a base-table scan carrying a declared
+        hash index whose key set equals the join key columns."""
+        node = build_plan
+        while isinstance(node, (L.Select, L.Map)):
+            node = node.children()[0]
+        if not isinstance(node, L.Scan):
+            return False
+        entry = self.session.catalog.get_table(node.table)
+        if entry is None or not entry.indexes:
+            return False
+        cid_to_name = {c.cid: c.name for c in node.cols}
+        names = []
+        for kp in (key_pair, key_pair2):
+            if kp is None:
+                continue
+            bexpr = kp[1]
+            if not isinstance(bexpr, ColRef) or bexpr.cid not in cid_to_name:
+                return False
+            names.append(cid_to_name[bexpr.cid])
+        return bool(names) and entry.index_on(names) is not None
+
+    def _prep_fused_join(self, jop, build_plan, build_is_right, needed_cids,
+                         sorted_cids=frozenset()):
+        """Validate + materialize one dimension join for the fused program.
+        Returns None when the join can't be a static-shape unique-key lookup.
+        sorted_cids: spine columns known to be physically nondecreasing
+        (clustered base-table order); probes on them read the LUT in order.
+        The build side runs eagerly (it is small); its arrays are uploaded
+        once and cached with the prep."""
+        from . import device as dv
+
+        dev = self.session.device
+        lcids = {c.cid for c in jop.left.output_cols()}
+        rcids = {c.cid for c in jop.right.output_cols()}
+        probe_cids = lcids if build_is_right else rcids
+        build_cids = rcids if build_is_right else lcids
+
+        def to_np(a):
+            return np.asarray(be.to_host(a))
+
+        if jop.predicate is None:
+            if jop.kind != "single":
+                return None
+            # scalar-subquery broadcast: the build side is a 1-row relation
+            # (global aggregate) whose values broadcast to every probe row
+            # (reference: GetScalarOp lowering via a single join)
+            bvt = self.run(build_plan).dense()
+            if bvt.num_rows > 1:
+                return None
+            payloads, arrays = [], []
+            present = bvt.num_rows == 1
+            for cid in sorted(needed_cids & build_cids):
+                c = bvt.col(cid)
+                if is_obj(c.data):
+                    return None  # wide-decimal scalar: host-only value
+                data = to_np(c.data).reshape(-1)[:1]
+                if not present:
+                    data = np.zeros((1,), data.dtype)
+                valid = None
+                if c.valid is not None:
+                    valid = (to_np(c.valid).reshape(-1)[:1] if present
+                             else np.zeros((1,), bool))
+                arrays.append(data)
+                if valid is not None:
+                    arrays.append(valid)
+                payloads.append((cid, c.type, valid is not None, c.dictionary))
+            return {"kind": "single_broadcast", "present": present,
+                    "payloads": payloads,
+                    "arrays": [be.to_device(a, dev) for a in arrays]}
+        conjs = E.conjuncts(jop.predicate)
+        pairs = []
+        residual = []
+        for c in conjs:
+            if isinstance(c, Call) and c.op == "eq" and len(pairs) < 2:
+                a, b = c.args
+                ua, ub = E.used_cols(a), E.used_cols(b)
+                if ua and ub:
+                    if ua <= probe_cids and ub <= build_cids:
+                        pairs.append((a, b))
+                        continue
+                    if ua <= build_cids and ub <= probe_cids:
+                        pairs.append((b, a))
+                        continue
+            residual.append(c)
+        key_pair = pairs[0] if pairs else None
+        key_pair2 = None
+        if len(pairs) == 2:
+            # composite key: pack two 32-bit images into one int64
+            w32 = (K.INT, K.DATE, K.BOOL)
+            if all(p.type.kind in w32 and b.type.kind in w32 for p, b in pairs):
+                key_pair2 = pairs[1]
+            else:
+                residual.append(Call("eq", list(pairs[1]), Type.bool_(True)))
+        if key_pair is None:
+            # Q19 pattern: equality common to all OR branches is the lookup
+            # key, the entire predicate is re-checked as residual
+            lk, rk, ns = extract_equi_keys(jop.predicate, lcids, rcids)
+            if lk and not any(ns):
+                lexpr, rexpr = lk[0], rk[0]
+                key_pair = (lexpr, rexpr) if build_is_right else (rexpr, lexpr)
+                residual = [jop.predicate]
+            else:
+                return None
+        probe_expr, build_expr = key_pair
+        pt, bt = probe_expr.type, build_expr.type
+        ik = self._FUSABLE_KEY_KINDS
+        ok_int = pt.kind in ik and bt.kind in ik
+        ok_dec = pt.kind == K.DECIMAL and bt.kind == K.DECIMAL and pt.s == bt.s
+        if not (ok_int or ok_dec):
+            return None
+        probe_expr2 = build_expr2 = None
+        if key_pair2 is not None:
+            probe_expr2, build_expr2 = key_pair2
+
+        bvt = self.run(build_plan).dense()
+        bk = sc._bcast(sc.eval_expr(build_expr, bvt.cols), bvt.num_rows)
+        if is_obj(bk.data):
+            return None
+        kdata = to_np(bk.data).astype(np.int64)
+        kvalid = None if bk.valid is None else to_np(bk.valid)
+        if build_expr2 is not None:
+            bk2 = sc._bcast(sc.eval_expr(build_expr2, bvt.cols), bvt.num_rows)
+            kd1, kv1 = kdata, kvalid
+            kdata = (kd1 << 32) | (to_np(bk2.data).astype(np.int64) & 0xFFFFFFFF)
+            if bk2.valid is not None:
+                v2 = to_np(bk2.valid)
+                kvalid = v2 if kvalid is None else (kvalid & v2)
+            k1 = kd1 if kv1 is None else kd1[kv1]
+            if len(k1) == len(np.unique(k1)):
+                # the FIRST key alone is unique on the build side (q5/q7/q8:
+                # supplier joins add a nationkey equality to a unique
+                # suppkey): probe single-key, direct-LUT eligible, and check
+                # the second equality as a residual on the gathered payload
+                residual = residual + [
+                    Call("eq", [probe_expr2, build_expr2], Type.bool_(True))]
+                kdata, kvalid = kd1, kv1
+                probe_expr2 = build_expr2 = None
+        keep = np.ones(len(kdata), bool) if kvalid is None else kvalid.copy()
+        kept = kdata[keep]
+        order = np.argsort(kept, kind="stable")
+        skeys = kept[order]
+        row_ids = np.flatnonzero(keep)[order]
+        maxdup = 1
+        if len(skeys) > 1 and not np.all(np.diff(skeys) > 0):
+            if jop.kind in ("semi", "anti") and not residual:
+                # existence joins only need the key SET
+                skeys, first = np.unique(skeys, return_index=True)
+                row_ids = row_ids[first]
+            elif jop.kind in ("semi", "anti"):
+                # duplicate keys + residual: bounded candidate expansion
+                _u, counts = np.unique(skeys, return_counts=True)
+                maxdup = int(counts.max())
+                if maxdup > 16:
+                    return None
+            else:
+                return None  # duplicate build keys: not a unique-key lookup
+
+        # direct-mapped position table when the key span is dense (FK joins
+        # on contiguous surrogate keys), or when a declared hash index makes
+        # the table worth its memory: ONE gather per probe instead of a
+        # binary search
+        direct = None
+        skeys_or_lut = skeys
+        if len(skeys) and maxdup == 1:
+            kmin = int(skeys[0])
+            span = int(skeys[-1]) - kmin + 1
+            cap = max(4 * len(skeys), 1024)
+            if self._has_hash_index(build_plan, key_pair, key_pair2):
+                cap = 1 << 26
+            if span <= (1 << 26) and len(skeys) >= (span >> 7):
+                cap = 1 << 26
+            if span <= cap and span <= (1 << 26):
+                lut = np.full(span, -1, np.int32)
+                # reversed assignment: first occurrence wins
+                lut[(skeys - kmin).astype(np.int64)[::-1]] = np.arange(
+                    len(skeys), dtype=np.int32)[::-1]
+                direct = (kmin, span)
+                skeys_or_lut = lut
+
+        # payload columns referenced downstream; existence joins without a
+        # residual emit none
+        needed = needed_cids & build_cids
+        if jop.kind in ("semi", "anti") and not residual:
+            needed = set()
+        payloads = []
+        arrays = [skeys_or_lut]
+        for cid in sorted(needed):
+            c = bvt.col(cid)
+            if is_obj(c.data):
+                return None  # wide-decimal payload: host-only values
+            arrays.append(to_np(c.data)[row_ids])
+            if c.valid is not None:
+                arrays.append(to_np(c.valid)[row_ids])
+            payloads.append((cid, c.type, c.valid is not None, c.dictionary))
+        return {
+            "kind": jop.kind,
+            "probe_expr": probe_expr,
+            "probe_expr2": probe_expr2,
+            "probe_sorted": (isinstance(probe_expr, ColRef)
+                             and probe_expr.cid in sorted_cids
+                             and probe_expr2 is None),
+            "probe_cid": (probe_expr.cid
+                          if isinstance(probe_expr, ColRef) else None),
+            "build_cid": (build_expr.cid
+                          if isinstance(build_expr, ColRef) else None),
+            "maxdup": maxdup,
+            "direct": direct,
+            "residual": residual,
+            "payloads": payloads,
+            "nb": len(skeys),
+            # pinned on the device ONCE: the prep is cached per plan and
+            # table versions
+            "arrays": [be.to_device(a, dev) for a in arrays],
+        }
+
+    def _agg_subtree_used_cids(self, op) -> set:
+        used = set(op.group_by)
+        used.update(a.arg for a in op.aggs if a.arg is not None)
+
+        def walk(x):
+            if isinstance(x, L.Select):
+                used.update(E.used_cols(x.predicate))
+            elif isinstance(x, L.Map):
+                for _c, e in x.computed:
+                    used.update(E.used_cols(e))
+            elif isinstance(x, L.Join) and x.predicate is not None:
+                used.update(E.used_cols(x.predicate))
+            for c in x.children():
+                walk(c)
+
+        walk(op.child)
+        return used
+
+    def _propagate_sorted_probe(self, join_preps, sorted_cids) -> None:
+        """A probe key that is a payload of an EARLIER unique-key INNER join
+        whose own probe rides a sorted base column equals that base column on
+        every unmasked row; probe with the base column instead, so that the
+        sorted-probe paths engage (q18's semi probes o_orderkey, which IS
+        l_orderkey on surviving rows)."""
+        inner_by_build = {}
+        for si in sorted(join_preps):
+            p = join_preps[si]
+            if (p.get("kind") == "inner" and p.get("build_cid") is not None
+                    and p.get("probe_cid") in sorted_cids
+                    and p.get("probe_expr2") is None):
+                inner_by_build[p["build_cid"]] = (si, p["probe_expr"])
+        for si in sorted(join_preps):
+            p = join_preps[si]
+            pe = p.get("probe_expr")
+            if (isinstance(pe, ColRef) and not p.get("probe_sorted")
+                    and p.get("probe_expr2") is None
+                    and pe.cid in inner_by_build):
+                src_si, src_expr = inner_by_build[pe.cid]
+                if src_si < si:
+                    p["probe_expr"] = src_expr
+                    p["probe_cid"] = src_expr.cid
+                    p["probe_sorted"] = True
+
+    def _subtree_max_rows(self, node):
+        if isinstance(node, L.Scan):
+            e = self.session.catalog.get_table(node.table)
+            return e.storage.num_rows if e is not None else 0
+        if isinstance(node, L.Tmp):
+            return self._subtree_max_rows(node.holder.plan)
+        return max((self._subtree_max_rows(c) for c in node.children()),
+                   default=0)
+
+    def _walk_spine(self, root):
+        """Select/Map chain, passing through dimension joins whose build
+        side is the smaller subtree (the probe side continues the spine).
+        Returns (steps bottom-up, base node)."""
+        steps = []
+        cur = root
+        while True:
+            if isinstance(cur, (L.Select, L.Map)):
+                steps.append(("sm", cur))
+                cur = cur.children()[0]
+                continue
+            if (isinstance(cur, L.Join)
+                    and cur.kind in ("inner", "semi", "anti", "left", "single")
+                    and getattr(cur, "null_aware", None) is None):
+                lrows = self._subtree_max_rows(cur.left)
+                rrows = self._subtree_max_rows(cur.right)
+                if cur.kind in ("semi", "anti", "left", "single"):
+                    spine, build = cur.left, cur.right  # semantics fix sides
+                elif lrows >= rrows:
+                    spine, build = cur.left, cur.right
+                else:
+                    spine, build = cur.right, cur.left
+                steps.append(("join", cur, build, build is cur.right))
+                cur = spine
+                continue
+            break
+        steps.reverse()
+        return steps, cur
+
+    def _try_fused_agg(self, op: L.Aggregate, epi=None) -> Optional[VTable]:
+        """Run the aggregate and its spine as ONE program, or return None
+        (the eager operators then run). `epi` (a TopK epilogue to fold in)
+        stays None until the fused TopK is ported.
+
+        The program is built from static capacities learned per plan and
+        table versions and kept in session.stage_cache: the group capacity
+        `kg` (a count-only calibration run learns it), the lead compaction
+        size (a selectivity estimate), post-join compaction caps (learned
+        survivor counts) and key bounds for the sort-free dense path. A run
+        that outgrows one of them raises, the executor records what it
+        saw, and the program runs again (the rebuild contracts below)."""
+        from ..plan.serial import plan_key
+        from . import device as dv
+        from . import fused as F
+
+        if any(a.distinct for a in op.aggs):
+            return None
+        # any_value evaluates as a reduction of any kind: within a group the
+        # value is arbitrary (SQL any_value) or constant (FD-reduced keys)
+        if any(a.fn not in ("sum", "count", "count_star", "min", "max",
+                            "any_value") for a in op.aggs):
+            return None
+        steps, cur = self._walk_spine(op.child)
+        if isinstance(cur, L.Scan) and all(st[0] == "sm" for st in steps):
+            ck = self._try_chunked_agg(op, steps, cur)  # out-of-core
+            if ck is not None:
+                return ck
+        if isinstance(cur, L.Scan):
+            entry = self.session.catalog.get_table(cur.table)
+            if entry.storage.num_rows == 0:
+                return None
+            dev_t = self.session.device_table(cur.table)
+            n = dev_t["__num_rows__"]
+            if n < dv.SMALL_ROWS:
+                return None  # host tier: the eager numpy operators run
+            base_cols = [(c.cid, dev_t[c.name]) for c in cur.cols]
+            base_restrictions = cur.restrictions
+        else:
+            # materialized spine base (a shared Tmp, a finished aggregate):
+            # it runs eagerly ONCE and feeds the program like a scan; it is
+            # stashed at once, so that a later decline does not run it again
+            base_vt = self.run(cur).dense()
+            self._materialized_bases[id(cur)] = base_vt
+            n = base_vt.num_rows
+            if n < dv.SMALL_ROWS:
+                return None
+            base_cols = sorted(base_vt.cols.items())
+            base_restrictions = []
+        if any(not be.is_torch(t.data) or (t.valid is not None
+                                           and not be.is_torch(t.valid))
+               for _cid, t in base_cols):
+            return None  # host-only (wide-decimal) columns stay eager
+        versions = tuple(sorted(self._subtree_versions(op)))
+        basekey = ("fused_agg", plan_key(op), versions)
+        key = basekey  # the epilogue variant would extend it
+        cache = self.session.stage_cache
+        if cache.get(key) == "eager":
+            return None
+
+        # dimension builds (eager, small), cached per plan and versions
+        sorted_cids = frozenset()
+        if isinstance(cur, L.Scan):
+            snames = set(entry.storage.sorted_cols)
+            sorted_cids = frozenset(c.cid for c in cur.cols if c.name in snames)
+        prep_key = ("fused_prep", basekey)
+        join_preps = cache.get(prep_key)
+        if join_preps is None:
+            join_preps = {}
+            for si, st in enumerate(steps):
+                if st[0] != "join":
+                    continue
+                prep = self._prep_fused_join(
+                    st[1], st[2], st[3], self._agg_subtree_used_cids(op),
+                    sorted_cids)
+                if prep is None:
+                    cache[key] = "eager"
+                    return None
+                join_preps[si] = prep
+            self._propagate_sorted_probe(join_preps, sorted_cids)
+            cache[prep_key] = join_preps
+
+        # a single group key riding the spine's clustered order (directly,
+        # or through an inner unique-key join whose build key is the group
+        # key while its probe is the sorted column) needs no sort
+        def _base_col_nonnull(cid):
+            t = next((t for c, t in base_cols if c == cid), None)
+            return t is not None and t.valid is None
+
+        presorted_group = len(op.group_by) == 1 and (
+            (op.group_by[0] in sorted_cids
+             and _base_col_nonnull(op.group_by[0]))
+            or any(p.get("kind") == "inner"
+                   and p.get("build_cid") == op.group_by[0]
+                   and p.get("probe_cid") in sorted_cids
+                   and p.get("probe_expr2") is None
+                   for p in join_preps.values()))
+
+        # lead compaction: when the leading filters keep a small fraction of
+        # the base rows, gather the survivors once so that every join step
+        # and the reduction run at the compacted size. The size is a
+        # selectivity estimate with 2x headroom; an overflow rebuilds
+        # without it (CompactOverflow)
+        first_join = next(
+            (si for si, st in enumerate(steps) if st[0] == "join"), None)
+        lead = first_join if first_join is not None else 0
+        compact_k = None
+        if (first_join is not None and isinstance(cur, L.Scan)
+                and n >= dv.SMALL_ROWS * 8
+                and not cache.get(("fused_nocompact", basekey))):
+            from ..opt.cardinality import scan_selectivity
+
+            sel = scan_selectivity(entry, cur, list(base_restrictions))
+            for st in steps[:lead]:
+                if st[0] == "sm" and isinstance(st[1], L.Select):
+                    sel *= scan_selectivity(
+                        entry, cur, E.conjuncts(st[1].predicate))
+            est = int(n * sel * 2) + COMPACT_SLACK
+            k = -(-est // COMPACT_QUANTUM) * COMPACT_QUANTUM
+            if k <= n // 2:
+                compact_k = k
+        # columns each step suffix still reads (the rest is dropped, not
+        # gathered, at a compaction point)
+        used_from = [set() for _ in range(len(steps) + 1)]
+        used_from[len(steps)] = set(op.group_by) | {
+            a.arg for a in op.aggs if a.arg is not None}
+        for si in range(len(steps) - 1, -1, -1):
+            u = set(used_from[si + 1])
+            st = steps[si]
+            if st[0] == "sm":
+                if isinstance(st[1], L.Select):
+                    u |= E.used_cols(st[1].predicate)
+                else:
+                    for _info, e in st[1].computed:
+                        u |= E.used_cols(e)
+            else:
+                p = join_preps[si]
+                if p.get("probe_expr") is not None:
+                    u |= E.used_cols(p["probe_expr"])
+                if p.get("probe_expr2") is not None:
+                    u |= E.used_cols(p["probe_expr2"])
+                for r in p.get("residual", ()):
+                    u |= E.used_cols(r)
+            used_from[si] = u
+        used_after = used_from[lead]
+
+        # post-join compaction where a narrowing join was observed to keep a
+        # small fraction of the spine: caps are learned survivor counts with
+        # 2x pow2 headroom
+        join_sis = [si for si, st in enumerate(steps)
+                    if st[0] == "join" and st[1].kind in ("inner", "semi", "anti")]
+        stepcaps = cache.get(("fused_stepcaps", basekey))
+        mid_caps = {}
+        if stepcaps:
+            size = compact_k or n
+            for si in join_sis:
+                obs = stepcaps.get(si)
+                if obs is None:
+                    continue
+                capv = 1 << (max(2 * obs, dv.SMALL_ROWS) - 1).bit_length()
+                if capv <= size // 4:
+                    mid_caps[si] = capv
+                    size = capv
+
+        # learned per-key value bounds: tiny-RANGE integer/date keys (q7/q9's
+        # year x nation) take the sort-free dense path once calibrated
+        kbounds = None
+        force_cal = False
+        if not cache.get(("fused_kbounds_dead", basekey)):
+            kbounds = cache.get(("fused_kbounds", basekey))
+            if kbounds is None and op.group_by and not presorted_group:
+                ktypes = {c.cid: c.type for c in op.child.output_cols()}
+                force_cal = any(
+                    ktypes[cid].kind in (K.INT, K.BIGINT, K.DATE)
+                    and not ktypes[cid].is_string
+                    for cid in op.group_by if cid in ktypes)
+
+        dev = self.session.device
+        kg_learned = None if force_cal else cache.get(("fused_kg", basekey))
+        meta = {}
+        try:
+            with be.no_host_reads():
+                res = self._fused_program(
+                    op, steps, join_preps, base_cols, base_restrictions, n,
+                    dev, meta, compact_k=compact_k, lead=lead,
+                    used_after=used_after, used_from=used_from,
+                    mid_caps=mid_caps, join_sis=join_sis, kbounds=kbounds,
+                    presorted=presorted_group, kg=kg_learned)
+        except (F.NotDense, be.HostRead, NotImplementedError):
+            # a column or expression the program cannot carry on the device
+            # (the reference's trace fails on the same ones): eager, for
+            # this plan and these versions
+            cache[key] = "eager"
+            return None
+        try:
+            if meta.get("calibrating"):
+                self._learn_calibration(basekey, cache, meta, res)
+                return self._try_fused_agg(op, epi)
+            if meta["mode"] == "general":
+                vt_out = self._finish_fused_general(op, res, meta)
+            else:
+                vt_out = self._finish_fused_dense(op, res, meta)
+            self._learn_stepcaps(basekey, cache, meta)
+            if meta.get("kbounds_useless"):
+                cache[("fused_kbounds_dead", basekey)] = True
+            self._materialized_bases.pop(id(cur), None)
+            return vt_out
+        except F.CompactOverflow:
+            # the estimated survivor bound was too small: no lead compaction
+            # for this plan and these versions
+            cache[("fused_nocompact", basekey)] = True
+            return self._try_fused_agg(op, epi)
+        except F.MidCompactOverflow as mo:
+            # a learned post-join cap was outgrown: record the observed count;
+            # the rebuild re-derives the cap or drops the compaction
+            si_o, v_o = mo.args
+            stepcaps2 = dict(cache.get(("fused_stepcaps", basekey)) or {})
+            stepcaps2[si_o] = int(v_o)
+            cache[("fused_stepcaps", basekey)] = stepcaps2
+            return self._try_fused_agg(op, epi)
+        except F.CapacityOverflow as ce:
+            # the learned group capacity was outgrown: twice the true count
+            g_real = ce.args[0]
+            cache[("fused_kg", basekey)] = 1 << (2 * g_real - 1).bit_length()
+            return self._try_fused_agg(op, epi)
+        except F.KBoundsOverflow:
+            # key values outside the calibrated bounds: drop the bounded
+            # dense path for this plan and rebuild general
+            cache[("fused_kbounds_dead", basekey)] = True
+            cache.pop(("fused_kbounds", basekey), None)
+            return self._try_fused_agg(op, epi)
+
+    def _fused_program(self, op, steps, join_preps, base_cols,
+                       base_restrictions, n, dev, meta, *, compact_k, lead,
+                       used_after, used_from, mid_caps, join_sis, kbounds,
+                       presorted, kg) -> dict:
+        """The fused program itself: every operation on the session's
+        tensors, nothing read back to the host. Returns its outputs by name
+        and fills `meta` with what the finish needs to read them."""
+        from . import fused as F
+
+        env = {cid: SCol(t.type, t.data, t.valid, t.dictionary)
+               for cid, t in base_cols}
+        mask = None
+        for r in base_restrictions:
+            m = sc.truth_mask(sc.eval_expr(r, env))
+            mask = m if mask is None else mask & m
+        cur_n = n
+        extras = []       # (descriptor, survivor count) per compaction
+        step_counts = []  # survivors after each narrowing join
+        for si, step in enumerate(steps):
+            if (compact_k is not None and si == lead
+                    and mask is not None and mask.ndim != 0):
+                env, mask, sel_count = F.compact(env, mask, compact_k,
+                                                 used_after, dev)
+                cur_n = compact_k
+                extras.append((("lead", compact_k), sel_count))
+            if step[0] == "sm" and isinstance(step[1], L.Select):
+                m = sc.truth_mask(sc.eval_expr(step[1].predicate, env))
+                mask = m if mask is None else mask & m
+            elif step[0] == "sm":
+                for info, e in step[1].computed:
+                    env[info.cid] = sc.eval_expr(e, env)
+            else:
+                prep = join_preps[si]
+                rsc = None
+                if si in mid_caps:
+                    rsc = F.sorted_semi_compact(prep, env, mask, cur_n,
+                                                mid_caps[si],
+                                                used_from[si + 1], dev)
+                if rsc is not None:
+                    env, mask, survivors, total = rsc
+                    if si in join_sis:
+                        step_counts.append(survivors)
+                    cur_n = mid_caps[si]
+                    extras.append((("mid", si, mid_caps[si]), total))
+                    continue
+                mask = F.join_step(prep, env, mask, cur_n, dev)
+                if si in join_sis:
+                    # survivors after every narrowing join: the engine LEARNS
+                    # where to compact from them
+                    if mask is None:
+                        step_counts.append(torch.tensor(cur_n, device=dev))
+                    elif mask.ndim == 0:
+                        step_counts.append(
+                            torch.where(F.on_device(mask, 1, dev)[0], cur_n, 0))
+                    else:
+                        step_counts.append(mask.sum(dtype=torch.int64))
+                if si in mid_caps and mask is not None and mask.ndim != 0:
+                    capv = mid_caps[si]
+                    env, mask, sel_count = F.compact(env, mask, capv,
+                                                     used_from[si + 1], dev)
+                    cur_n = capv
+                    extras.append((("mid", si, capv), sel_count))
+        meta["extras"] = tuple(d for d, _c in extras)
+        meta["join_sis"] = tuple(join_sis)
+        out = {"extras": [c for _d, c in extras], "step_counts": step_counts}
+        if mask is not None and mask.ndim == 0:
+            mask = F.on_device(mask, cur_n, dev)
+        oob_cnt = None
+        offsets = None
+        if op.group_by:
+            key_cols = [sc._bcast(env[c], cur_n) for c in op.group_by]
+            gid, domain = gb.dense_gid(key_cols)
+            radices = None
+            if gid is None and kbounds is not None:
+                # learned-bounds dense path: codes are value - kmin; rows
+                # outside the bounds are counted and force a rebuild
+                gid, domain, radices, offsets, oob = gb.bounded_gid(
+                    key_cols, kbounds)
+                if gid is not None:
+                    ob = oob if mask is None else (oob & mask)
+                    oob_cnt = ob.sum(dtype=torch.int64)
+                else:
+                    meta["kbounds_useless"] = True
+            if gid is None:
+                meta["mode"] = "general"
+                meta["key_templates"] = [
+                    (c.type, c.dictionary, c.valid is not None)
+                    for c in key_cols]
+                grp = F.general_group(op, key_cols, env, mask, cur_n, meta,
+                                      dev, presorted=presorted, kg=kg)
+                out.update(grp)
+                if meta["calibrating"]:
+                    # per-key value bounds ride the count-only run: a later
+                    # run may take the bounded dense path
+                    kb, kinds = [], []
+                    for c in key_cols:
+                        if (gb.small_domain(c) is None
+                                and c.type.kind in (K.INT, K.BIGINT, K.DATE)
+                                and be.is_torch(c.data)
+                                and c.data.dtype in (torch.int32, torch.int64)):
+                            k64 = c.data.to(torch.int64)
+                            keep = mask
+                            if c.valid is not None:
+                                keep = c.valid if keep is None else keep & c.valid
+                            big = 1 << 62
+                            if keep is not None:
+                                kb.append(torch.where(keep, k64, big).min())
+                                kb.append(torch.where(keep, k64, -big).max())
+                            else:
+                                kb.extend([k64.min(), k64.max()])
+                            kinds.append(True)
+                        else:
+                            kinds.append(False)
+                    meta["kb_kinds"] = kinds
+                    out["kb"] = kb
+                return out
+            if radices is None:
+                radices = [gb.small_domain(c) for c in key_cols]
+            gid = F.on_device(gid, cur_n, dev)
+        else:
+            gid = torch.zeros((cur_n,), dtype=torch.int32, device=dev)
+            domain, radices = 1, []
+        meta["calibrating"] = False
+        meta["mode"] = "dense"
+        meta["domain"], meta["radices"] = domain, radices
+        meta["key_offsets"] = offsets
+        meta["key_templates"] = [
+            (env[c].type, env[c].dictionary, env[c].valid is not None)
+            for c in op.group_by]
+
+        def msum(w):
+            wm = w if mask is None else torch.where(mask, w, torch.zeros_like(w))
+            if domain == 1 and not wm.dtype.is_floating_point:
+                # one group (a global aggregate): a reduction, not a
+                # scatter-add of every row into one slot; exact for integers
+                return wm.sum(dtype=wm.dtype).reshape(1)
+            return be.segment_sum(wm, gid, num_segments=domain)
+
+        ones = torch.ones((cur_n,), dtype=torch.int64, device=dev)
+        present = msum(ones)
+        lanes = [present]
+        meta["agg_dicts"] = {}
+        meta["agg_limbs"] = set()
+        for spec in op.aggs:
+            if spec.fn == "count_star":
+                lanes += [present, present]
+                continue
+            arg = sc._bcast(env[spec.arg], cur_n)
+            avalid = None if arg.valid is None else F.on_device(arg.valid, cur_n, dev)
+            cnt = msum(ones if avalid is None else avalid.to(torch.int64))
+            if spec.fn == "count":
+                lanes += [cnt, cnt]
+                continue
+            adata = F.on_device(arg.data, cur_n, dev)
+            if spec.fn == "sum":
+                data = adata.to(be.tdtype(np_dtype(spec.out.type)))
+                if avalid is not None:
+                    data = torch.where(avalid, data, torch.zeros_like(data))
+                if (spec.out.type.kind == K.DECIMAL
+                        and dec_is_wide(spec.out.type)
+                        and data.dtype == torch.int64):
+                    # exact wide sum: 32-bit-split accumulators (lo in
+                    # [0, 2^32), hi signed), recombined on the host
+                    meta["agg_limbs"].add(spec.out.cid)
+                    lanes += [msum(data >> 32), msum(data & 0xFFFFFFFF), cnt]
+                    continue
+                lanes += [msum(data), cnt]
+                continue
+            # min / max / any_value with full masking
+            sentinel = gb._extreme(be.dt(adata), maximum=(spec.fn == "min"))
+            keep = mask if avalid is None else (
+                avalid if mask is None else (mask & avalid))
+            data = adata if keep is None else torch.where(
+                keep, adata, sentinel.item())
+            red = (be.segment_min if spec.fn == "min" else be.segment_max)(
+                data, gid, num_segments=domain)
+            meta["agg_dicts"][spec.out.cid] = arg.dictionary
+            lanes += [red, cnt]
+        out["lanes"] = lanes
+        out["oob"] = oob_cnt
+        return out
+
+    def _learn_calibration(self, basekey, cache, meta, res) -> None:
+        """Count-only calibration run: learn the group capacity, the per-step
+        survivor counts and the per-key value bounds (one fetch), once every
+        compaction is known to have held its survivors."""
+        from . import device as dv
+
+        fetch = {"g": res["g"].reshape(1)}
+        for j, c in enumerate(res.get("kb", ())):
+            fetch[f"kb{j}"] = c.reshape(1)
+        for j, c in enumerate(res["step_counts"]):
+            fetch[f"sc{j}"] = c.reshape(1)
+        for j, c in enumerate(res["extras"]):
+            fetch[f"x{j}"] = c.reshape(1)
+        host = {k: int(v[0]) for k, v in dv.fetch_arrays_np(fetch).items()}
+        # a compaction that overflowed truncated what the run counted: learn
+        # nothing from it (the reference learns from the truncated run and
+        # then overflows on every learned value in turn)
+        self._check_fused_extras(meta, [host[f"x{j}"]
+                                        for j in range(len(res["extras"]))])
+        g = host["g"]
+        tight = 1 << (max(4 * g, dv.SMALL_ROWS) - 1).bit_length()
+        cache[("fused_kg", basekey)] = min(tight, meta.get("n", tight))
+        n_kb = len(res.get("kb", ()))
+        if n_kb:
+            it = iter(host[f"kb{j}"] for j in range(n_kb))
+            bounds = [(next(it), next(it)) if flagk else None
+                      for flagk in meta["kb_kinds"]]
+            cache[("fused_kbounds", basekey)] = bounds
+        elif meta.get("kb_kinds") is not None:
+            # calibrated with bounds support but no key qualified
+            cache[("fused_kbounds_dead", basekey)] = True
+        if meta["join_sis"]:
+            counts = {si: host[f"sc{j}"]
+                      for j, si in enumerate(meta["join_sis"])}
+            cache[("fused_stepcaps", basekey)] = counts
+
+    def _check_fused_extras(self, meta, vals) -> None:
+        """Each compaction's true survivor count against its static
+        capacity (vals: fetched ints, one per extras slot, in order)."""
+        from . import fused as F
+
+        for desc, v in zip(meta.get("extras", ()), vals):
+            if desc[0] == "lead" and v > desc[1]:
+                raise F.CompactOverflow()
+            if desc[0] == "mid" and v > desc[2]:
+                raise F.MidCompactOverflow(desc[1], v)
+
+    def _learn_stepcaps(self, basekey, cache, meta) -> None:
+        """After a full run that recorded per-join-step survivor counts with
+        none learned before (no calibration ran): keep them, so that the
+        next execution compacts where a join narrows the spine."""
+        counts = meta.get("last_stepcounts")
+        if not counts or cache.get(("fused_stepcaps", basekey)):
+            return
+        cache[("fused_stepcaps", basekey)] = counts
+
+    def _finish_fused_dense(self, op, res, meta) -> VTable:
+        """Dense mode: ONE packed fetch of every (domain,)-sized lane and
+        the scalars; group slots are extracted and keys decoded on the host,
+        and the (small) result lives on the host tier."""
+        from . import device as dv
+        from . import fused as F
+
+        fetch = {("l", i): a for i, a in enumerate(res["lanes"])}
+        for j, c in enumerate(res["extras"]):
+            fetch[("x", j)] = c.reshape(1)
+        for j, c in enumerate(res["step_counts"]):
+            fetch[("s", j)] = c.reshape(1)
+        if res["oob"] is not None:
+            fetch[("o", 0)] = res["oob"].reshape(1)
+        host = dv.fetch_arrays_np(fetch)
+        self._check_fused_extras(meta, [
+            int(host[("x", j)][0]) for j in range(len(res["extras"]))])
+        if res["oob"] is not None and int(host[("o", 0)][0]) > 0:
+            raise F.KBoundsOverflow(int(host[("o", 0)][0]))
+        if meta["join_sis"]:
+            meta["last_stepcounts"] = {
+                si: int(host[("s", j)][0])
+                for j, si in enumerate(meta["join_sis"])}
+        lanes = [host[("l", i)] for i in range(len(res["lanes"]))]
+        present = lanes[0]
+        radices = meta["radices"]
+
+        def cpu_col(t, data_np, valid_np, dictionary=None):
+            return SCol(t, np.asarray(data_np),
+                        None if valid_np is None else np.asarray(valid_np),
+                        dictionary)
+
+        if op.group_by:
+            slots_np = np.flatnonzero(present > 0)
+            g = len(slots_np)
+            if g == 0:
+                return VTable({c.cid: _empty_scol(c.type)
+                               for c in op.output_cols()}, 0)
+            rem = slots_np
+            codes = []
+            for r in reversed(radices):
+                codes.append(rem % r)
+                rem = rem // r
+            codes.reverse()
+            agg_cols: dict[int, SCol] = {}
+            offsets = meta.get("key_offsets") or [None] * len(op.group_by)
+            for pos, cid in enumerate(op.group_by):
+                ktype, kdict, knullable = meta["key_templates"][pos]
+                code = codes[pos]
+                valid = (code != (radices[pos] - 1)) if knullable else None
+                if offsets[pos] is not None:
+                    code = code + offsets[pos]  # bounded codes: value - kmin
+                agg_cols[cid] = cpu_col(
+                    ktype, code.astype(np.dtype(np_dtype(ktype))), valid, kdict)
+            sel = slots_np
+        else:
+            g = 1
+            agg_cols = {}
+            sel = slice(None)
+        idx = 1
+        for spec in op.aggs:
+            if spec.out.cid in meta["agg_limbs"]:
+                from ..ops import decwide
+
+                val = decwide.demote_if_possible(decwide.combine_limbs(
+                    lanes[idx][sel], lanes[idx + 1][sel]))
+                cnt = lanes[idx + 2][sel]
+                idx += 3
+            else:
+                val, cnt = lanes[idx][sel], lanes[idx + 1][sel]
+                idx += 2
+            agg_cols[spec.out.cid] = self._finish_fused_agg(
+                spec, val, cnt, cpu_col, meta["agg_dicts"].get(spec.out.cid))
+        out = {c.cid: agg_cols[c.cid] for c in op.group_cols}
+        for spec in op.aggs:
+            out[spec.out.cid] = agg_cols[spec.out.cid]
+        return VTable(out, g)
+
+    def _finish_fused_general(self, op, res, meta) -> VTable:
+        """General mode: ONE small fetch (group count, compaction survivor
+        counts, step counts, wide-sum limb flag), then the kg-slot lanes are
+        sliced to the group count ON THE DEVICE: group results never round
+        trip through the host."""
+        from . import device as dv
+        from . import fused as F
+
+        lanes = res["lanes"]
+        limb_slots = []  # (hi, lo) lane positions of wide sums
+        i = sum(1 + (1 if t[2] else 0) for t in meta["key_templates"])
+        for spec in op.aggs:
+            if spec.out.cid in meta["agg_limbs"]:
+                limb_slots.append(i)
+                i += 3
+            else:
+                i += 2
+        fetch = {"g": res["g"].reshape(1)}
+        for j, c in enumerate(res["extras"]):
+            fetch[f"x{j}"] = c.reshape(1)
+        for j, c in enumerate(res["step_counts"]):
+            fetch[f"s{j}"] = c.reshape(1)
+        if limb_slots:
+            # wide sums combine exactly into one int64 unless a group's high
+            # limb leaves the safe band; checked on the device (slots past
+            # the group count hold gather garbage and are masked) and
+            # fetched with the scalars
+            rows_ok = (torch.arange(lanes[0].shape[0], device=lanes[0].device)
+                       < res["g"])
+            flag = torch.zeros((), dtype=torch.bool, device=lanes[0].device)
+            for hi_s in limb_slots:
+                flag = flag | (((lanes[hi_s].abs() >> 30) > 0) & rows_ok).any()
+            fetch["limbflag"] = flag.reshape(1)
+        scalars = dv.fetch_arrays_np(fetch)
+        self._check_fused_extras(meta, [
+            int(scalars[f"x{j}"][0]) for j in range(len(res["extras"]))])
+        if meta["join_sis"]:
+            meta["last_stepcounts"] = {
+                si: int(scalars[f"s{j}"][0])
+                for j, si in enumerate(meta["join_sis"])}
+        g = int(scalars["g"][0])
+        if g > meta["kg"]:
+            raise F.CapacityOverflow(g)
+        if g == 0:
+            return VTable({c.cid: _empty_scol(c.type, lanes[0] if lanes else None)
+                           for c in op.output_cols()}, 0)
+        limb_overflow = bool(scalars["limbflag"][0]) if limb_slots else False
+        sliced = [a[:g] for a in lanes]
+
+        def dev_col(t, data, valid, dictionary=None):
+            return SCol(t, data, valid, dictionary)
+
+        agg_cols: dict[int, SCol] = {}
+        i = 0
+        for pos, cid in enumerate(op.group_by):
+            ktype, kdict, knull = meta["key_templates"][pos]
+            data = sliced[i]
+            i += 1
+            valid = None
+            if knull:
+                valid = sliced[i]
+                i += 1
+            agg_cols[cid] = dev_col(ktype, data, valid, kdict)
+        for spec in op.aggs:
+            if spec.out.cid in meta["agg_limbs"]:
+                hi, lo, cnt = sliced[i], sliced[i + 1], sliced[i + 2]
+                i += 3
+                if limb_overflow:
+                    # pathological magnitude: exact host path (object ints)
+                    from ..ops import decwide
+
+                    h = dv.fetch_arrays_np({0: hi, 1: lo, 2: cnt})
+                    val = decwide.demote_if_possible(
+                        decwide.combine_limbs(h[0], h[1]))
+                    valid = np.asarray(h[2]) > 0
+                    if not is_obj(val):
+                        val, valid = be.like(val, hi), be.like(valid, hi)
+                    agg_cols[spec.out.cid] = SCol(
+                        spec.out.type, val, valid,
+                        meta["agg_dicts"].get(spec.out.cid))
+                    continue
+                agg_cols[spec.out.cid] = dev_col(
+                    spec.out.type, (hi << 32) + lo, cnt > 0,
+                    meta["agg_dicts"].get(spec.out.cid))
+                continue
+            val, cnt = sliced[i], sliced[i + 1]
+            i += 2
+            agg_cols[spec.out.cid] = self._finish_fused_agg(
+                spec, val, cnt, dev_col, meta["agg_dicts"].get(spec.out.cid))
+        out = {c.cid: agg_cols[c.cid] for c in op.group_cols}
+        for spec in op.aggs:
+            out[spec.out.cid] = agg_cols[spec.out.cid]
+        return VTable(out, g)
+
+    def _finish_fused_agg(self, spec, val, cnt, make_col, dictionary) -> SCol:
+        t = spec.out.type
+        if spec.fn in ("count", "count_star"):
+            return make_col(t, be.astype(val, np.int64), None)
+        return make_col(t, val, cnt > 0, dictionary)
 
     # ------------------------------------------------------------- aggregate
     def _run_aggregate(self, op: L.Aggregate) -> VTable:

@@ -90,7 +90,9 @@ def _host_idx(idx) -> np.ndarray:
     if isinstance(idx, np.ndarray):
         return idx
     if isinstance(idx, torch.Tensor):
-        return idx.detach().cpu().numpy()
+        from ..ops.backend import to_host
+
+        return to_host(idx)
     return np.asarray(idx)
 
 

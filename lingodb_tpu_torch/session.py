@@ -41,6 +41,10 @@ class Session:
         self.catalog = Catalog(db_dir)
         self.executor = Executor(self)
         self._device_cache: dict[str, tuple[int, dict]] = {}
+        # the fused aggregate's per-plan state, keyed by plan and table
+        # versions: join preps (uploaded LUTs + payloads), learned
+        # capacities, decline markers
+        self.stage_cache: dict = {}
 
     # ----------------------------------------------------------- public API
     def sql(self, query: str):
@@ -314,11 +318,16 @@ class Session:
     # ----------------------------------------------------------- device data
     def _evict_device_memory(self) -> None:
         """Drop every cached device buffer this session pins: uploaded table
-        columns and one-shot materializations. Everything is rebuildable;
-        the next query re-uploads what it actually touches."""
+        columns, fused join preps (LUTs + payloads) and one-shot
+        materializations. Everything is rebuildable; the next query
+        re-uploads what it actually touches."""
         for _version, dev in self._device_cache.values():
             dev.evict()
+        for k in [k for k in self.stage_cache
+                  if isinstance(k, tuple) and k and k[0] == "fused_prep"]:
+            del self.stage_cache[k]
         self.executor._tmp_results.clear()
+        self.executor._materialized_bases.clear()
         import gc
 
         gc.collect()

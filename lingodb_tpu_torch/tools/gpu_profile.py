@@ -1,27 +1,77 @@
 """Where a query's time goes on the card: torch.profiler over TPC-H queries.
 
     python3 -m lingodb_tpu_torch.tools.gpu_profile --sf 1 --queries 6,1,3 \\
-        --out out/gpu_profile.json
+        --paths fused,eager --out out/gpu_profile.json
 
-For each query (tables already uploaded, one warm run first) it reports the
-wall time of `Session.sql` + `format_rows`, the summed device time of all
-kernels and copies, the device's idle share of the wall time, how many
-kernels were launched, how many host<->device scalar reads (`aten::item`)
-the query made, and the kernels that took the most device time. Needs a
-CUDA device; fails without one."""
+For each path (the fused aggregate program, or the eager operators with the
+fused program declined) and each query (tables already uploaded, one warm
+run first) it reports the wall time of `Session.sql` + `format_rows`, the
+summed device time of all kernels and copies, the device's idle share of the
+wall time, how many kernels were launched, how many host<->device scalar
+reads (`aten::item`) the query made, the kernels that took the most device
+time, and from one more run outside the profiler the host syncs
+(torch.cuda.set_sync_debug_mode) and the peak of allocated device memory.
+Needs a CUDA device; fails without one."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import re
 import sys
 import time
+import warnings
 
 
-# names of the kernels in lingodb_tpu_torch/csrc/
+# names of the kernels in lingodb_tpu_torch/csrc/ (each in an anonymous
+# namespace, which tells them apart from PyTorch's own reduce/scan kernels)
 PORT_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
-                "gather_sorted_kernel", "gather_chunked_kernel")
+                "gather_sorted_kernel", "gather_chunked_kernel",
+                "segscan_reduce_kernel", "segscan_scan_kernel",
+                "segscan_apply_kernel")
+_PORT_KERNEL_RE = re.compile(r"\(anonymous namespace\)::(%s)[<(]"
+                             % "|".join(PORT_KERNELS))
+
+
+@contextlib.contextmanager
+def eager_path():
+    """Within the block, the fused aggregate program declines and every
+    aggregate runs the eager operators."""
+    from ..runtime.executor import Executor
+
+    orig = Executor._try_fused_agg
+    Executor._try_fused_agg = lambda self, op, epi=None: None
+    try:
+        yield
+    finally:
+        Executor._try_fused_agg = orig
+
+
+def path_context(path: str):
+    if path not in ("fused", "eager"):
+        raise ValueError(f"unknown path {path!r}")
+    return eager_path() if path == "eager" else contextlib.nullcontext()
+
+
+def syncs_and_peak(torch, fn):
+    """(host syncs, peak allocated device bytes, bytes allocated before) of
+    one call of fn: every synchronizing CUDA operation warns under sync
+    debug mode."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+    return syncs, torch.cuda.max_memory_allocated(), before
 
 
 def _device_us(evt) -> float:
@@ -48,14 +98,19 @@ def profile_query(torch, session, sql: str) -> dict:
     dev = [(e.key, _device_us(e), e.count) for e in events
            if e.device_type == on_device and _device_us(e) > 0]
     dev.sort(key=lambda x: -x[1])
-    own = [d for d in dev if any(k in d[0] for k in PORT_KERNELS)]
+    own = [d for d in dev if _PORT_KERNEL_RE.search(d[0])]
     device_ms = sum(d[1] for d in dev) / 1e3
     if device_ms > wall_ms:
         raise RuntimeError(
             f"device time {device_ms:.3f} ms exceeds wall time {wall_ms:.3f} ms: "
             "some device rows were counted twice")
     by_name = {e.key: e.count for e in events}
+    syncs, peak, before = syncs_and_peak(
+        torch, lambda: session.sql(sql).format_rows())
     return {
+        "syncs": syncs,
+        "peak_bytes": peak,
+        "resident_bytes": before,
         "rows": len(rows),
         "wall_ms": wall_ms,
         "device_ms": device_ms,
@@ -75,6 +130,7 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=19920601)
     ap.add_argument("--queries", default="6,1,14,3,4")
+    ap.add_argument("--paths", default="fused,eager")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
@@ -88,18 +144,24 @@ def main() -> int:
     s = ldb.create_in_memory()
     tpchgen.install(s, tpchgen.generate(args.sf, args.seed))
     report = {"device": torch.cuda.get_device_name(0), "sf": args.sf,
-              "queries": {}}
-    for q in args.queries.split(","):
-        sql = open(os.path.join("queries", "tpch", f"{q}.sql")).read()
-        r = profile_query(torch, s, sql)
-        report["queries"][q] = r
-        print(f"q{q}: wall {r['wall_ms']:.2f} ms, device {r['device_ms']:.2f} ms, "
-              f"idle share {r['device_idle_share']:.3f}, "
-              f"{r['device_kernels']} kernels, {r['scalar_reads']} scalar reads")
-        for t in r["top_device"][:6]:
-            print(f"    {t['ms']:.3f} ms x{t['count']}  {t['name']}")
-        for t in r["port_kernels"]:
-            print(f"    own: {t['ms']:.4f} ms x{t['count']}  {t['name']}")
+              "paths": {}}
+    for path in args.paths.split(","):
+        report["paths"][path] = {}
+        with path_context(path):
+            for q in args.queries.split(","):
+                sql = open(os.path.join("queries", "tpch", f"{q}.sql")).read()
+                r = profile_query(torch, s, sql)
+                report["paths"][path][q] = r
+                print(f"[{path}] q{q}: wall {r['wall_ms']:.2f} ms, device "
+                      f"{r['device_ms']:.2f} ms, idle share "
+                      f"{r['device_idle_share']:.3f}, {r['device_kernels']} "
+                      f"kernels, {r['scalar_reads']} scalar reads, "
+                      f"{r['syncs']} syncs, peak {r['peak_bytes'] / 2**20:.1f} MiB "
+                      f"({r['resident_bytes'] / 2**20:.1f} resident before)")
+                for t in r["top_device"][:6]:
+                    print(f"    {t['ms']:.3f} ms x{t['count']}  {t['name']}")
+                for t in r["port_kernels"]:
+                    print(f"    own: {t['ms']:.4f} ms x{t['count']}  {t['name']}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,0 +1,224 @@
+"""Correctness and timing of the four hand-written CUDA kernels on the card,
+case by case, at stream sizes beyond one query's (the port's counterpart of
+the JAX package's kernel bench, benchtools/tools_kbench2.py).
+
+    python3 -m lingodb_tpu_torch.tools.kbench [--quick]
+
+N = 60,000,000 rows (6,000,000 with --quick). Cases:
+
+  k1_chunked_S1024, _S8192  gather_chunked_i32: random idx into a small table
+  k3_compact_p0.01, _p0.5   compact_positions: random mask, capacity 1.5x
+  k2_sorted_dense           gather_sorted_i32: monotone idx, steps of 0 or 1
+  k2_sorted_sparse1pct      gather_sorted_i32: 1 % of the rows, sorted
+  k4_segscan_w2             segscan_i32: runs of 4, two planes
+  torch_index_sorted        plain torch indexing of the dense case (baseline)
+  torch_cumsum_*, torch_cummax_*
+                            the fused grouping's prefix sum and running max
+                            over N int64: one flat torch call against the
+                            blocked form (1,024-wide rows, then the row
+                            totals); runtime/fused.py keeps the faster of
+                            the two for each
+
+Each kernel case is checked bit for bit against the wrapper's plain PyTorch
+version on the same inputs. Per case it prints the check, ms per call by CUDA
+events around 10 calls ("call", host launch cost included), the kernels' own
+time per call from torch.profiler ("card"), the plain version's call time
+("plain") and the bytes bound: each input read once and each output written
+once, over the H100 SXM data-sheet rate of 3.35 TB/s. The last line is one
+JSON object with every case. Any failed check exits non-zero. Needs a CUDA
+device: without one it fails and never runs on the CPU."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+HBM_BYTES_PER_S = 3.35e12
+
+
+def call_ms(torch, fn, reps: int = 10) -> float:
+    """Mean time of fn() in ms over `reps` calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def card_ms(torch, fn, reps: int = 5) -> float:
+    """Mean time per fn() that the card spent in kernels and copies
+    (torch.profiler, device rows only): unlike call_ms it leaves out the gaps
+    in which the card waits for the host to launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+    return us / 1e3 / reps
+
+
+def blocked_cumsum(v, width: int = 1024):
+    """Inclusive prefix sum of 1-D v in the reference's hierarchical form
+    (sums within `width`-wide rows, the row totals scanned recursively),
+    timed here against the flat torch.cumsum that runtime/fused.py keeps."""
+    import torch
+
+    n = v.shape[0]
+    if n <= 4 * width:
+        return torch.cumsum(v, 0, dtype=v.dtype)
+    pad = (-n) % width
+    if pad:
+        v = torch.cat([v, v.new_zeros((pad,))])
+    within = torch.cumsum(v.view(-1, width), 1, dtype=v.dtype)
+    tot = blocked_cumsum(within[:, -1].contiguous(), width)
+    offs = torch.cat([tot.new_zeros((1,)), tot[:-1]])
+    return (within + offs[:, None]).reshape(-1)[:n]
+
+
+def _equal(torch, got, want) -> bool:
+    return all(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="N = 6,000,000 instead of 60,000,000")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kbench: FAILED: no CUDA device", file=sys.stderr)
+        return 1
+    from ..ops import pgather as pg
+
+    pg.reset_counters()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    n = 6_000_000 if args.quick else 60_000_000
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    print(f"# kbench: {smi.stdout.strip() or torch.cuda.get_device_name(0)} "
+          f"N={n}", flush=True)
+    cases = []
+
+    def rep(name, ok, fn, nbytes, rows, plain=None):
+        ms = call_ms(torch, fn)
+        card = card_ms(torch, fn)
+        plain_ms = None if plain is None else call_ms(torch, plain, 3)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        cases.append({"name": name, "correct": bool(ok), "rows": rows,
+                      "ms": ms, "card_ms": card, "plain_ms": plain_ms,
+                      "bound_ms": bound, "bytes": nbytes})
+        plain_txt = "" if plain is None else f" plain={plain_ms:.4f}ms"
+        print(f"{name}: call={ms:.4f}ms card={card:.4f}ms{plain_txt} "
+              f"bound={bound:.4f}ms card/bound={card / max(bound, 1e-9):.2f} "
+              f"rate={rows / ms / 1e6:.2f}Ge/s correct={bool(ok)}", flush=True)
+
+    def rand_i32(lo, hi, size):
+        return torch.randint(lo, hi, (size,), device=dev, generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+
+    # K1 gather_chunked
+    for s in (1024, 8192):
+        table = rand_i32(0, 1 << 30, s)
+        idx = rand_i32(0, s, n)
+        ok = _equal(torch, [pg.gather_chunked_i32(table, idx)],
+                    pg.gather_chunked_planes_plain([table], idx))
+        rep(f"k1_chunked_S{s}", ok, lambda t=table, i=idx: pg.gather_chunked_i32(t, i),
+            4 * n + 4 * n + 4 * s, n,
+            lambda t=table, i=idx: pg.gather_chunked_planes_plain([t], i))
+        del idx
+
+    # K3 compact_positions
+    u = torch.rand(n, device=dev, generator=gen)
+    for p in (0.01, 0.5):
+        mask = u < p
+        k = int(n * p * 1.5) + 8192
+        cnt, pos = pg.compact_positions(mask, k)
+        pcnt, ppos = pg.compact_positions_plain(mask, k)
+        ok = int(cnt) == int(pcnt) and torch.equal(pos, ppos)
+        rep(f"k3_compact_p{p}", ok, lambda m=mask, kk=k: pg.compact_positions(m, kk),
+            n + 4 * k + 4, n,
+            lambda m=mask, kk=k: pg.compact_positions_plain(m, kk))
+    del u, mask
+
+    # K2 gather_sorted: dense monotone (FK probe shape), table as long as
+    # the stream
+    table = rand_i32(0, 1 << 30, n)
+    steps = torch.randint(0, 2, (n,), device=dev, generator=gen)
+    idx = torch.cumsum(steps, 0).clamp(max=n - 1).to(torch.int32)
+    del steps
+    distinct = int(torch.unique_consecutive(idx).numel())
+    ok = _equal(torch, [pg.gather_sorted_i32(table, idx)],
+                pg.gather_sorted_planes_plain([table], idx))
+    rep("k2_sorted_dense", ok, lambda: pg.gather_sorted_i32(table, idx),
+        4 * n + 4 * n + 4 * distinct, n,
+        lambda: pg.gather_sorted_planes_plain([table], idx))
+
+    # K2 sparse monotone: post-filter positions at 1 % selectivity
+    nsel = n // 100
+    sel = torch.sort(torch.randperm(n, device=dev, generator=gen)[:nsel]).values
+    sel = sel.to(torch.int32)
+    ok = _equal(torch, [pg.gather_sorted_i32(table, sel)],
+                pg.gather_sorted_planes_plain([table], sel))
+    rep("k2_sorted_sparse1pct", ok, lambda: pg.gather_sorted_i32(table, sel),
+        4 * nsel * 3, nsel, lambda: pg.gather_sorted_planes_plain([table], sel))
+
+    # K4 segscan: runs of 4, two planes
+    gid = (torch.arange(n, device=dev, dtype=torch.int32) // 4)
+    v1 = rand_i32(-1000, 1000, n)
+    ones = torch.ones(n, device=dev, dtype=torch.int32)
+    ok = _equal(torch, pg.segscan_i32(gid, [v1, ones]),
+                pg.segscan_i32_plain(gid, [v1, ones]))
+    rep("k4_segscan_w2", ok, lambda: pg.segscan_i32(gid, [v1, ones]),
+        4 * n + 2 * 4 * n * 2, n, lambda: pg.segscan_i32_plain(gid, [v1, ones]))
+    del gid, v1, ones
+
+    # baseline: plain torch indexing of the dense monotone case
+    idx64 = idx.to(torch.int64)
+    rep("torch_index_sorted", True, lambda: table[idx64], 8 * n + 4 * n + 4 * distinct, n)
+
+    # the fused grouping's scans over n int64 (its packed running maximum
+    # and its prefix sums), flat against blocked
+    from ..runtime import fused
+
+    vals = torch.randint(-(1 << 40), 1 << 40, (n,), device=dev, generator=gen)
+    forms = {"sum": (lambda: torch.cumsum(vals, 0), lambda: blocked_cumsum(vals)),
+             "max": (lambda: torch.cummax(vals, 0).values,
+                     lambda: fused.cummax1d(vals))}
+    for op, (flat, blocked) in forms.items():
+        ok = torch.equal(flat(), blocked())
+        rep(f"torch_cum{op}_flat", ok, flat, 16 * n, n)
+        rep(f"torch_cum{op}_blocked", ok, blocked, 16 * n, n)
+
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "n": n,
+                      "cases": cases, "launches": dict(pg.LAUNCHES)}),
+          flush=True)
+    bad = [c["name"] for c in cases if not c["correct"]]
+    if bad:
+        print(f"kbench: FAILED: {bad} differ from their plain versions",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

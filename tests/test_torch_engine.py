@@ -17,6 +17,7 @@ from lingodb_tpu.tools import tpchgen as ref_tpchgen
 import lingodb_tpu_torch as ldb
 from lingodb_tpu_torch.ops import pgather
 from lingodb_tpu_torch.runtime import device as dv
+from lingodb_tpu_torch.runtime import executor as ex
 from lingodb_tpu_torch.tools import carry, tpchgen
 from lingodb_tpu_torch.utils.settings import EXECUTION_MODE
 
@@ -27,6 +28,10 @@ pytestmark = pytest.mark.filterwarnings("error:__array_wrap__")
 
 SF = 0.005
 TIERS = [dv.SMALL_ROWS, 2]
+# tier -> (storage threshold, fused aggregate on): the eager tier declines
+# the fused program, so that every query runs the eager operators on tensors
+RUNS = {"two_tier": (TIERS[0], True), "all_tensor": (TIERS[1], True),
+        "eager": (TIERS[1], False)}
 SEED = 19920601
 QUERIES = [str(i) for i in range(1, 23)]  # q6, q1, q14, q3, q4 are the slice
 
@@ -71,11 +76,15 @@ def pair():
 _WANT: dict = {}  # reference rows per query, computed once
 
 
-@pytest.mark.parametrize("small_rows", TIERS, ids=["two_tier", "all_tensor"])
+@pytest.mark.parametrize("tier", list(RUNS))
 @pytest.mark.parametrize("q", QUERIES)
-def test_tpch_query_equals_reference(pair, q, small_rows, monkeypatch):
+def test_tpch_query_equals_reference(pair, q, tier, monkeypatch):
     rs, ps = pair
+    small_rows, fused = RUNS[tier]
     monkeypatch.setattr(dv, "SMALL_ROWS", small_rows)
+    if not fused:
+        monkeypatch.setattr(ex.Executor, "_try_fused_agg",
+                            lambda self, op, epi=None: None)
     sql = open(f"queries/tpch/{q}.sql").read()
     if q not in _WANT:
         _WANT[q] = rs.sql(sql).format_rows()
@@ -86,9 +95,12 @@ def test_tpch_query_equals_reference(pair, q, small_rows, monkeypatch):
         assert len(got) > 0
 
 
-def test_kernel_route_was_taken(pair):
-    """q3 goes through all three wrappers (compaction, sorted gather, and
-    the small-table gather of a dimension LUT)."""
+def test_kernel_route_was_taken(pair, monkeypatch):
+    """The eager operators of q3 go through all three wrappers (compaction,
+    sorted gather, and the small-table gather of a dimension LUT); the fused
+    program's route to them is held in tests/test_torch_fused.py."""
+    monkeypatch.setattr(ex.Executor, "_try_fused_agg",
+                        lambda self, op, epi=None: None)
     _rs, sessions = pair
     ps = sessions[TIERS[0]]
     calls = {"compact": 0, "sorted": 0, "chunked": 0}

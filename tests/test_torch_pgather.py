@@ -226,3 +226,62 @@ def test_kernel_route_at_every_size(monkeypatch):
     rnd = np.array([9, 3, 19_999], np.int32)  # unsorted, big table: indexing
     np.testing.assert_array_equal(pg.take_fast(_t(big), _t(rnd)).numpy(), big[rnd])
     assert seen == []
+
+
+def _runs_gid(rng, n_runs, lo, hi, first=0):
+    runs = rng.integers(lo, hi, n_runs)
+    return (np.repeat(np.arange(n_runs), runs) + first).astype(np.int32)
+
+
+def _segscan_cases():
+    rng = _rng(21)
+    gid = _runs_gid(rng, 6000, 1, 9)  # short random runs, W = 2
+    yield "short_runs_w2", gid, [rng.integers(-1000, 1000, gid.size, np.int32),
+                                 np.ones(gid.size, np.int32)]
+    yield "one_run_20000", np.zeros(20_000, np.int32), [np.ones(20_000, np.int32)]
+    # n = 10,001 is not a multiple of the reference's 8,192-row tile, and a
+    # leading run of the reference's first-tile sentinel id picks up nothing
+    gid = np.sort(rng.integers(-5, 400, 10_001)).astype(np.int32)
+    gid[:37] = -2147483647
+    yield "ragged_w1", gid, [rng.integers(-(1 << 20), 1 << 20, gid.size, np.int32)]
+    # sums wrap int32: long runs of values near 2^30
+    gid = _runs_gid(rng, 40, 100, 900)
+    yield "wraps_w3", gid, [rng.integers(1 << 29, 1 << 30, gid.size, np.int32),
+                            rng.integers(-(1 << 30), -(1 << 29), gid.size, np.int32),
+                            np.full(gid.size, 2147483647, np.int32)]
+    gid = _runs_gid(rng, 3000, 1, 6, first=-1500)
+    yield "w8", gid, [rng.integers(-(1 << 31), (1 << 31) - 1, gid.size,
+                                   dtype=np.int64).astype(np.int32)
+                      for _ in range(8)]
+
+
+@pytest.mark.parametrize("entry", ["wrapper", "plain"])
+@pytest.mark.parametrize("case", list(_segscan_cases()), ids=lambda c: c[0])
+def test_segscan(case, entry):
+    """segscan_i32 against the reference's Pallas kernel in interpret mode,
+    bit for bit: the wrapper (its input checks, then on CPU tensors its
+    plain version), here given strided views, and the plain version."""
+    _name, gid, vals = case
+    want = ref.segscan_i32(jnp.asarray(gid), [jnp.asarray(v) for v in vals])
+    if entry == "wrapper":
+        # every input a view with stride 2 into a wider buffer
+        strided = [_t(np.stack([a, a], axis=1))[:, 0] for a in (gid, *vals)]
+        assert all(t.stride(0) == 2 for t in strided)
+        got = pg.segscan_i32(strided[0], strided[1:])
+    else:
+        got = pg.segscan_i32_plain(_t(gid), [_t(v) for v in vals])
+    assert len(got) == len(vals)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (gid.size,)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_segscan_matches_a_loop_and_rejects_bad_input():
+    gid = np.array([3, 3, 3, 7, 9, 9], np.int32)
+    v = np.array([1, 2, 2147483647, 5, -1, -2], np.int32)
+    (o,) = pg.segscan_i32(_t(gid), [_t(v)])
+    assert o.tolist() == [1, 3, -2147483646, 5, -1, -3]
+    with pytest.raises(ValueError):
+        pg.segscan_i32(_t(gid.astype(np.int64)), [_t(v)])
+    with pytest.raises(ValueError):
+        pg.segscan_i32(_t(gid), [_t(v[:5])])
