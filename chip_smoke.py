@@ -15,7 +15,8 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               bit-equality with its plain PyTorch version, time both (and one
               PyTorch library call computing the same function) with CUDA
               events around 10 calls, read the kernels' own time on the card
-              from torch.profiler, compute the bytes bound; segscan is only
+              (and the library call's) from torch.profiler, compute the bytes
+              bound; segscan is only
               checked here (at lineitem's length, runs of 4 and one run over
               the whole array) and timed by the kernel bench of phase 7
   4. queries  TPC-H q6, q1, q14, q3, q4 through Session.sql on the card over
@@ -39,6 +40,15 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               caller): every kernel at 6M rows, held against its plain
               version; segscan must have been launched there, and its times
               in the kernels line are that run's
+  8. substrate `python -m lingodb_tpu_torch.tools.substrate_bench --quick` as
+              a subprocess, the entry point that runs the seven substrate
+              kernels T1-T7 (no engine caller): every case at the reference
+              bench's shapes held bit for bit against its plain version, each
+              kernel launched there; their times in the kernels line are that
+              run's. Before it, in this process, the same kernels on the edges
+              of their contracts (ragged and unaligned index arrays, indices
+              out of range, int32 wrap, one-hot tiles whose lane 0 is all ones
+              or all zeros), against their plain versions
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -78,11 +88,61 @@ KERNEL_META = {
         "source": "lingodb_tpu_torch/csrc/segscan.cu",
         "replaces": "lingodb_tpu/ops/pgather.py:606",
     },
+    # the substrate kernels, T1-T7 (ops/substrate.py); T5 and T6 are one
+    # kernel, since the two reference probes compute one function
+    "gather_shift": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/table_gather.cu",
+        "replaces": "benchtools/tools_pallas_gather.py:42",
+    },
+    "gather_small": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/table_gather.cu",
+        "replaces": "benchtools/tools_pallas_gather.py:89",
+    },
+    "lane_gather": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/tile_gather.cu",
+        "replaces": "benchtools/tools_kbench.py:76",
+    },
+    "sublane_gather": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/tile_gather.cu",
+        "replaces": "benchtools/tools_kbench.py:97",
+    },
+    "lane_rotsum_k_roll": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/lane_rotsum.cu",
+        "replaces": "benchtools/tools_kbench.py:118",
+    },
+    "lane_rotsum_k_roll2": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/lane_rotsum.cu",
+        "replaces": "benchtools/tools_kbench.py:141",
+    },
+    "onehot_compact": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/onehot_compact.cu",
+        "replaces": "benchtools/tools_kbench.py:209",
+    },
+}
+# each substrate row: its row in the substrate bench, its kernel there, and
+# the bench case that heads its entry in the kernels line
+SUBSTRATE_ROWS = {
+    "gather_shift": ("T1", "gather_shift", "gather_shift_S65536_n"),
+    "gather_small": ("T2", "gather_small", "gather_small_S1024_n"),
+    "lane_gather": ("T3", "lane_gather", "calib_lane"),
+    "sublane_gather": ("T4", "sublane_gather", "calib_sub_R4096"),
+    "lane_rotsum_k_roll": ("T5", "lane_rotsum", "calib_roll"),
+    "lane_rotsum_k_roll2": ("T6", "lane_rotsum", "calib_pltpuroll"),
+    "onehot_compact": ("T7", "onehot_compact", "mm_compact"),
 }
 # the path whose run counts each kernel's launches: the fused aggregate for
-# the engine's kernels, the kernel bench for segscan (no engine caller)
+# the engine's kernels, the kernel bench for segscan and the substrate bench
+# for T1-T7 (none of them has an engine caller)
 MAIN_PATH = {"compact_positions": "fused", "gather_sorted": "fused",
-             "gather_chunked": "fused", "segscan": "kbench"}
+             "gather_chunked": "fused", "segscan": "kbench",
+             **{name: "substrate" for name in SUBSTRATE_ROWS}}
 
 
 def fail(msg: str):
@@ -108,9 +168,11 @@ def max_abs_err(torch, got, want) -> int:
     return worst
 
 
-def case_entry(name, shape, err, ms, dev_ms, plain_ms, library_ms, nbytes):
+def case_entry(name, shape, err, ms, dev_ms, plain_ms, library_ms,
+               library_dev_ms, nbytes):
     return {"name": name, "shape": shape, "max_abs_err": err, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_dev_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bytes": nbytes}
 
@@ -139,8 +201,10 @@ def check_compact(torch, pg, n, cases):
         dev = device_ms(torch, lambda: pg.compact_positions(mask, k))
         plain = time_ms(torch, lambda: pg.compact_positions_plain(mask, k), 3)
         lib = time_ms(torch, lambda: torch.nonzero(mask), 5)
+        lib_dev = device_ms(torch, lambda: torch.nonzero(mask))
         cases.append(case_entry("compact_positions", f"n={rows} sel={sel} k={k}",
-                                err, ms, dev, plain, lib, rows + 4 * k + 4))
+                                err, ms, dev, plain, lib, lib_dev,
+                                rows + 4 * k + 4))
         if err:
             fail(f"compact_positions differs from plain version (sel {sel})")
     # count > k: the count stays exact, the k slots hold the first k positions
@@ -186,9 +250,10 @@ def check_sorted(torch, pg, s, mask, cases):
         dev = device_ms(torch, lambda: pg.gather_sorted_planes(planes, idx))
         plain = time_ms(torch, lambda: pg.gather_sorted_planes_plain(planes, idx), 3)
         lib = time_ms(torch, lambda: torch.index_select(stacked, 1, idx64), 5)
+        lib_dev = device_ms(torch, lambda: torch.index_select(stacked, 1, idx64))
         cases.append(case_entry(
             "gather_sorted", f"s={s} n={n} C={c}", err, ms, dev, plain, lib,
-            4 * n + 4 * c * n + 4 * c * distinct))
+            lib_dev, 4 * n + 4 * c * n + 4 * c * distinct))
         if err:
             fail(f"gather_sorted differs from plain version (C={c}, n={n})")
     # 64-bit column through strided limb planes, unsorted + out-of-range idx
@@ -222,8 +287,10 @@ def check_chunked(torch, pg, n, cases):
         dev = device_ms(torch, lambda: pg.gather_chunked_planes(planes, idx))
         plain = time_ms(torch, lambda: pg.gather_chunked_planes_plain(planes, idx), 3)
         lib = time_ms(torch, lambda: torch.index_select(stacked, 1, idx64), 5)
+        lib_dev = device_ms(torch, lambda: torch.index_select(stacked, 1, idx64))
         cases.append(case_entry("gather_chunked", f"s={s} n={n} C={c}", err, ms,
-                                dev, plain, lib, 4 * n + 4 * c * n + 4 * c * s))
+                                dev, plain, lib, lib_dev,
+                                4 * n + 4 * c * n + 4 * c * s))
         if err:
             fail(f"gather_chunked differs from plain version (s={s}, C={c})")
     table = torch.arange(100, device="cuda", dtype=torch.int32)
@@ -252,6 +319,53 @@ def check_segscan(torch, pg, n, cases):
             fail(f"segscan differs from plain version ({label})")
     if int(got[1][-1]) != n:
         fail("segscan: one run over the whole array does not count every row")
+
+
+def check_substrate_edges(torch, sb):
+    """The substrate kernels at small shapes on the edges of their
+    contracts, bit for bit against their plain versions: index arrays that
+    are not 16-byte aligned or a multiple of four long, indices out of
+    range (clamped, or taken modulo 128), sums that wrap in int32, and
+    one-hot tiles whose lane 0 is all ones (the last row is dropped) or all
+    zeros (every row goes to slot 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(lo, hi, shape):
+        return torch.randint(lo, hi, shape, device="cuda", generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        if max_abs_err(torch, [got], [want]):
+            fail(f"substrate edge case differs from plain version: {label}")
+
+    for fn, s in ((sb.gather_shift, 5000), (sb.gather_shift, 1 << 21),
+                  (sb.gather_small, 1000), (sb.gather_small, sb.SMALL_TABLE_LIMIT)):
+        table = rand(-(1 << 31), (1 << 31) - 1, (s,))
+        idx = rand(-3, s + 3, (100_003,))
+        for label, i in (("aligned", idx[:100_000]), ("unaligned", idx[1:]),
+                         ("seven", idx[1:8])):
+            same(f"{fn.__name__} S={s} {label}", fn(table, i),
+                 sb.table_gather_plain(table, i))
+    d = rand(-(1 << 31), (1 << 31) - 1, (3000, 128))
+    lanes = rand(-300, 300, (3000, 128))
+    same("lane_gather, l outside [0, 128)", sb.lane_gather(d, lanes),
+         sb.lane_gather_plain(d, lanes))
+    for r in (1, 8, 300):
+        tab = rand(-(1 << 31), (1 << 31) - 1, (r, 128))
+        rows = rand(-2, r + 2, (1001, 128))
+        same(f"sublane_gather R={r}", sb.sublane_gather(tab, rows),
+             sb.sublane_gather_plain(tab, rows))
+    near = rand((1 << 31) - 1000, (1 << 31) - 1, (33, 128))
+    same("lane_rotsum wrapping", sb.lane_rotsum(near), sb.lane_rotsum_plain(near))
+    x = rand(0, 1 << 15, (4 * sb.TILE_ROWS, 128))
+    m = (torch.rand((4 * sb.TILE_ROWS, 128), device="cuda", generator=gen)
+         < 0.2).to(torch.int32)
+    m[: sb.TILE_ROWS, 0] = 1                      # tile 0: lane 0 all ones
+    m[sb.TILE_ROWS: 2 * sb.TILE_ROWS, 0] = 0      # tile 1: lane 0 all zeros
+    m[3 * sb.TILE_ROWS - 1, :] = 1                # tile 2: last row all set
+    same("onehot_compact edge tiles", sb.onehot_compact(x, m),
+         sb.onehot_compact_plain(x, m))
 
 
 def checked_kernel_calls(torch, pg, shapes: list):
@@ -374,7 +488,8 @@ def main() -> int:
             continue
         log(f"# kernel {c['name']} {c['shape']}: {c['ms']:.4f} ms "
             f"(on the card {c['device_ms']:.4f} ms), plain "
-            f"{c['plain_ms']:.4f} ms, library {fmt_ms(c['library_ms'])} ms, "
+            f"{c['plain_ms']:.4f} ms, library {fmt_ms(c['library_ms'])} ms "
+            f"(on the card {fmt_ms(c['library_device_ms'])} ms), "
             f"bound {c['bound_ms']:.4f} ms, max_abs_err {c['max_abs_err']}")
     del mask
     torch.cuda.empty_cache()
@@ -502,17 +617,59 @@ def main() -> int:
     cases.append({"name": "segscan", "shape": f"n={kb_out['n']} W=2 runs of 4 "
                   "(kernel bench)", "max_abs_err": 0, "ms": k4["ms"],
                   "device_ms": k4["card_ms"], "plain_ms": k4["plain_ms"],
-                  "library_ms": None, "bound_ms": k4["bound_ms"],
+                  "library_ms": None, "library_device_ms": None,
+                  "bound_ms": k4["bound_ms"],
                   "bound_by": "bytes", "bytes": k4["bytes"]})
     log(f"# kbench: {time.perf_counter() - t0:.1f}s, launches "
         f"{json.dumps(launches['kbench'])}")
     if not launches["kbench"]["segscan"]:
         fail("segscan never launched by the kernel bench")
 
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 8")
+    # ---- phase 8: the substrate bench, the entry point that runs T1-T7
+    t0 = time.perf_counter()
+    from lingodb_tpu_torch.ops import substrate as sb
+
+    check_substrate_edges(torch, sb)
+    log(f"# substrate edges: every kernel equal to its plain version "
+        f"({time.perf_counter() - t0:.1f}s)")
+    sub = subprocess.run([sys.executable, "-m",
+                          "lingodb_tpu_torch.tools.substrate_bench", "--quick"],
+                         capture_output=True, text=True, timeout=600)
+    for line in sub.stdout.splitlines()[:-1]:
+        log(f"# substrate {line}")
+    if sub.returncode != 0:
+        fail(f"substrate_bench exited {sub.returncode}: {sub.stderr[-2000:]}")
+    sub_out = json.loads(sub.stdout.splitlines()[-1])
+    bad = [c["name"] for c in sub_out["cases"] if not c["correct"]]
+    if bad:
+        fail(f"substrate_bench: {bad} differ from their plain versions")
+    unlaunched = [k for k, v in sub_out["launches"].items() if not v]
+    if unlaunched:
+        fail(f"kernels never launched by the substrate bench: {unlaunched}")
+    launches["substrate"] = {}
+    for name, (row, kernel, _head) in SUBSTRATE_ROWS.items():
+        mine = [c for c in sub_out["cases"] if c["row"] == row]
+        if not mine or any(c["kernel"] != kernel for c in mine):
+            fail(f"substrate_bench: no {row} case on {kernel}")
+        launches["substrate"][name] = sum(c["launches"] for c in mine)
+        if not launches["substrate"][name]:
+            fail(f"{name} ({row}) never launched by the substrate bench")
+        cases.extend({"name": name, "shape": f"{c['name']} (substrate bench)",
+                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                      "device_ms": c["card_ms"], "plain_ms": c["plain_ms"],
+                      "library_ms": c["library_ms"],
+                      "library_device_ms": c["library_card_ms"],
+                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                      "bytes": c["bytes"]} for c in mine)
+    log(f"# substrate: {time.perf_counter() - t0:.1f}s, launches "
+        f"{json.dumps(sub_out['launches'])}")
+
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",
                 "gather_chunked": "s=10000 n=%d C=1" % n_li,
-                "segscan": "kernel bench"}
+                "segscan": "kernel bench",
+                **{name: head for name, (_r, _k, head) in SUBSTRATE_ROWS.items()}}
     kernels = []
     for name, meta in KERNEL_META.items():
         mine = [c for c in cases if c["name"] == name]
@@ -520,12 +677,14 @@ def main() -> int:
         kernels.append({
             "name": name, **meta,
             "launches": launches[MAIN_PATH[name]][name],
-            "launches_by_path": {p: launches[p][name] for p in launches},
+            "launches_by_path": {p: launches[p].get(name, 0) for p in launches},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": head["ms"], "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": "bytes",
-            "library_ms": head["library_ms"], "shape": head["shape"],
+            "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"],
+            "shape": head["shape"],
             "cases": mine,
         })
     log(f"# total {time.perf_counter() - t_start:.1f}s")

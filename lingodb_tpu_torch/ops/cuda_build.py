@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("compact_positions", "gather_sorted", "gather_chunked", "segscan")
+SOURCES = ("compact_positions", "gather_sorted", "gather_chunked", "segscan",
+           "table_gather", "tile_gather", "lane_rotsum", "onehot_compact")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -107,6 +108,18 @@ def _declare(libs) -> None:
     t = libs["segscan"].ldb_segscan_tile
     t.argtypes = []
     t.restype = i32
+    # the substrate kernels (ops/substrate.py)
+    for lib_name, fn_name, args in (
+            ("table_gather", "ldb_gather_shift", [vp, i64, vp, i64, vp, i32, vp]),
+            ("table_gather", "ldb_gather_small", [vp, i64, vp, i64, vp, i32, vp]),
+            ("tile_gather", "ldb_lane_gather", [vp, vp, i64, vp, i32, vp]),
+            ("tile_gather", "ldb_sublane_gather",
+             [vp, i64, vp, i64, vp, i32, vp]),
+            ("lane_rotsum", "ldb_lane_rotsum", [vp, i64, vp, i32, vp]),
+            ("onehot_compact", "ldb_onehot_compact", [vp, vp, i64, vp, i32, vp])):
+        f = getattr(libs[lib_name], fn_name)
+        f.argtypes = args
+        f.restype = i32
 
 
 def lib(name: str) -> ctypes.CDLL:
