@@ -18,7 +18,10 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               (and the library call's) from torch.profiler, compute the bytes
               bound; segscan is only
               checked here (at lineitem's length, runs of 4 and one run over
-              the whole array) and timed by the kernel bench of phase 7
+              the whole array; then n below one tile and at a tile's edges,
+              every row a head, runs longer than a tile, W = 1, 3, 8 and 9,
+              strided limb planes, int32 wrap, two calls back to back) and
+              timed by the kernel bench of phase 7
   4. queries  TPC-H q6, q1, q14, q3, q4 through Session.sql on the card over
               generated tables, on two paths: the fused aggregate program
               (it must engage for every query) and the eager operators (the
@@ -48,7 +51,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               run's. Before it, in this process, the same kernels on the edges
               of their contracts (ragged and unaligned index arrays, indices
               out of range, int32 wrap, one-hot tiles whose lane 0 is all ones
-              or all zeros), against their plain versions
+              or all zeros, runs crossing or ending on each 32-row segment
+              edge of onehot_compact, single tiles, the 60M bench's 1,831
+              tiles), against their plain versions
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -302,23 +307,75 @@ def check_chunked(torch, pg, n, cases):
 def check_segscan(torch, pg, n, cases):
     """segscan at the kernel bench's shape (two planes, runs of 4) and with
     one run over the whole array (the carry crosses every tile), bit for bit
-    against the plain version. Its times come from the kernel bench."""
+    against the plain version. Its times come from the kernel bench. Then
+    the edges of the one-pass design: n below one tile and at a tile's
+    edges, every row a head, runs longer than a tile (a look-back past
+    tiles without a head), W = 1, 3, 8 and 9 (two launches), a strided
+    plane, sums that wrap int32, and two calls back to back on one stream
+    with different n (no status word of the first may read as ready in the
+    second)."""
+    from lingodb_tpu_torch.ops import cuda_build
+
     gen = torch.Generator(device="cuda").manual_seed(11)
-    v1 = torch.randint(-1000, 1000, (n,), device="cuda", generator=gen,
-                       dtype=torch.int64).to(torch.int32)
+
+    def check(label, gid, vals):
+        got = pg.segscan_i32(gid, vals)
+        err = max_abs_err(torch, got, pg.segscan_i32_plain(gid, vals))
+        cases.append({"name": "segscan", "shape": f"n={gid.numel()} "
+                      f"W={len(vals)} {label}", "max_abs_err": err})
+        if err:
+            fail(f"segscan differs from plain version ({label}, "
+                 f"n={gid.numel()}, W={len(vals)})")
+        return got
+
+    def rand(lo, hi, size):
+        return torch.randint(lo, hi, (size,), device="cuda", generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+
+    def runs(size, p_head):
+        """sorted gid whose runs start where a coin with p_head comes up"""
+        heads = torch.rand(size, device="cuda", generator=gen) < p_head
+        return torch.cumsum(heads.to(torch.int32), 0, dtype=torch.int32)
+
+    v1 = rand(-1000, 1000, n)
     ones = torch.ones(n, device="cuda", dtype=torch.int32)
     for label, gid in (("runs of 4", torch.arange(n, device="cuda",
                                                   dtype=torch.int32) // 4),
                        ("one run", torch.zeros(n, device="cuda",
                                                dtype=torch.int32))):
-        got = pg.segscan_i32(gid, [v1, ones])
-        err = max_abs_err(torch, got, pg.segscan_i32_plain(gid, [v1, ones]))
-        cases.append({"name": "segscan", "shape": f"n={n} W=2 {label}",
+        got = check(label, gid, [v1, ones])
+    if int(got[1][-1]) != n:
+        fail("segscan: one run over the whole array does not count every row")
+    tile = cuda_build.lib("segscan").ldb_segscan_tile
+    for w in (2, 3):
+        for size in (1000, tile(w) - 1, tile(w), tile(w) + 1):
+            check("runs of ~3 at a tile's edge", runs(size, 0.3),
+                  [rand(-(1 << 31), (1 << 31) - 1, size) for _ in range(w)])
+    check("every row a head", torch.arange(n, device="cuda", dtype=torch.int32),
+          [v1, ones])
+    planes9 = [rand(-(1 << 31), (1 << 31) - 1, n) for _ in range(9)]
+    for w in (1, 3, 8, 9):
+        check("runs of ~4", runs(n, 0.25), planes9[:w])
+    long_runs = runs(n, 1 / 5000)  # most tiles hold no head
+    for w in (2, 8):
+        check("runs of ~5000", long_runs, planes9[:w])
+    wide = torch.randint(-(1 << 62), 1 << 62, (n,), device="cuda", generator=gen)
+    limbs = wide.view(torch.int32)  # the two limbs of each int64, stride 2
+    check("strided limb planes", long_runs, [limbs[0::2], limbs[1::2], v1])
+    check("sums that wrap int32", runs(n, 1 / 300),
+          [rand((1 << 31) - 100_000, (1 << 31) - 1, n),
+           rand(-(1 << 31), -(1 << 31) + 100_000, n)])
+    # back to back, no synchronisation between the calls
+    gid_a, gid_b = runs(n, 1 / 5000), runs(n - 12_345, 1 / 5000)
+    vals_a, vals_b = planes9[:2], [p[: n - 12_345] for p in planes9[2:4]]
+    got_a, got_b = pg.segscan_i32(gid_a, vals_a), pg.segscan_i32(gid_b, vals_b)
+    for label, gid, vals, got in (("back to back, first", gid_a, vals_a, got_a),
+                                  ("back to back, second", gid_b, vals_b, got_b)):
+        err = max_abs_err(torch, got, pg.segscan_i32_plain(gid, vals))
+        cases.append({"name": "segscan", "shape": f"n={gid.numel()} W=2 {label}",
                       "max_abs_err": err})
         if err:
             fail(f"segscan differs from plain version ({label})")
-    if int(got[1][-1]) != n:
-        fail("segscan: one run over the whole array does not count every row")
 
 
 def check_substrate_edges(torch, sb):
@@ -327,7 +384,10 @@ def check_substrate_edges(torch, sb):
     are not 16-byte aligned or a multiple of four long, indices out of
     range (clamped, or taken modulo 128), sums that wrap in int32, and
     one-hot tiles whose lane 0 is all ones (the last row is dropped) or all
-    zeros (every row goes to slot 0)."""
+    zeros (every row goes to slot 0); for onehot_compact's 32-row segments,
+    runs that cross every segment edge or end on one, each pattern alone as
+    a single tile and all together, and the 60M-element bench's tile
+    count."""
     gen = torch.Generator(device="cuda").manual_seed(13)
 
     def rand(lo, hi, shape):
@@ -365,6 +425,33 @@ def check_substrate_edges(torch, sb):
     m[sb.TILE_ROWS: 2 * sb.TILE_ROWS, 0] = 0      # tile 1: lane 0 all zeros
     m[3 * sb.TILE_ROWS - 1, :] = 1                # tile 2: last row all set
     same("onehot_compact edge tiles", sb.onehot_compact(x, m),
+         sb.onehot_compact_plain(x, m))
+    # the kernel's 32-row segments: per tile, the rows where lane 0 is set
+    heads = {"runs crossing every segment edge": [0, 20, 50, 90, 120, 150,
+                                                  170, 200, 230],
+             "runs ending on segment edges": list(range(32, 256, 32)),
+             "one run of 255 rows, then the last row": [255],
+             "heads at rows 31 and 32": [31, 32],
+             "lane 0 all ones": list(range(256)),
+             "lane 0 all zeros": []}
+    tiles = len(heads)
+    x = rand(0, 1 << 15, (tiles * sb.TILE_ROWS, 128))
+    m = (torch.rand((tiles * sb.TILE_ROWS, 128), device="cuda", generator=gen)
+         < 0.2).to(torch.int32)
+    m[:, 0] = 0
+    for k, rows in enumerate(heads.values()):
+        m[[k * sb.TILE_ROWS + r for r in rows], 0] = 1
+    for k, label in enumerate(heads):
+        one = slice(k * sb.TILE_ROWS, (k + 1) * sb.TILE_ROWS)
+        same(f"onehot_compact single tile, {label}",
+             sb.onehot_compact(x[one], m[one]), sb.onehot_compact_plain(x[one], m[one]))
+    same("onehot_compact segment edges, all tiles", sb.onehot_compact(x, m),
+         sb.onehot_compact_plain(x, m))
+    # the tile count of the 60M-element bench
+    rows = 60_000_000 // (sb.TILE_ROWS * 128) * sb.TILE_ROWS
+    x = rand(0, 1 << 15, (rows, 128))
+    m = (torch.rand((rows, 128), device="cuda", generator=gen) < 0.2).to(torch.int32)
+    same(f"onehot_compact {rows // sb.TILE_ROWS} tiles", sb.onehot_compact(x, m),
          sb.onehot_compact_plain(x, m))
 
 

@@ -106,7 +106,7 @@ def _declare(libs) -> None:
     f.argtypes = [vp, i64, vp, vp, vp, vp, i32, vp, vp]
     f.restype = i32
     t = libs["segscan"].ldb_segscan_tile
-    t.argtypes = []
+    t.argtypes = [i32]
     t.restype = i32
     # the substrate kernels (ops/substrate.py)
     for lib_name, fn_name, args in (
@@ -116,7 +116,7 @@ def _declare(libs) -> None:
             ("tile_gather", "ldb_sublane_gather",
              [vp, i64, vp, i64, vp, i32, vp]),
             ("lane_rotsum", "ldb_lane_rotsum", [vp, i64, vp, i32, vp]),
-            ("onehot_compact", "ldb_onehot_compact", [vp, vp, i64, vp, i32, vp])):
+            ("onehot_compact", "ldb_onehot_compact", [vp, vp, i64, vp, vp])):
         f = getattr(libs[lib_name], fn_name)
         f.argtypes = args
         f.restype = i32

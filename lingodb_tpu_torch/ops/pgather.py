@@ -17,8 +17,8 @@ speed. Kernels (sources under csrc/, all int32 in-kernel; wrappers limb-split
                                       decode shared by all planes, reads
                                       coalesce because neighbours are near.
   segscan_i32(gid, vals)              segmented inclusive sum of int32
-                                      planes over a sorted key: tile
-                                      aggregates, one scan, apply. No engine
+                                      planes over a sorted key: one pass
+                                      with decoupled look-back. No engine
                                       caller; run by tools/kbench.py.
 
 Beside each kernel stands a plain PyTorch version (`*_plain`) of the same
@@ -264,7 +264,15 @@ def gather_sorted_i32(table, idx):
 # K4: segscan — segmented inclusive sum over a sorted int32 key
 # --------------------------------------------------------------------------
 
-_segscan_tile = 0  # rows per block, asked of the built library once
+def _segscan_scratch(n: int, widths, tile_rows):
+    """Where each launch's scratch lies in the one zeroed int64 buffer of a
+    segscan_i32 call, and the buffer's length: a launch of W planes takes
+    its tile counter and ceil(n / tile_rows(W)) x W status words."""
+    offsets, total = [], 0
+    for w in widths:
+        offsets.append(total)
+        total += 1 + -(-n // tile_rows(w)) * w
+    return offsets, total
 
 
 def segscan_i32_plain(gid, vals):
@@ -307,20 +315,20 @@ def segscan_i32(gid, vals):
     if n >= 2147483647:
         raise ValueError("segscan: gid too long")
     lib = cuda_build.lib("segscan")
-    global _segscan_tile
-    if not _segscan_tile:
-        _segscan_tile = lib.ldb_segscan_tile()
     gid = gid.contiguous()
     outs = _alloc_outs(vals, n, None)
-    tiles = -(-n // _segscan_tile)
-    for g0 in range(0, len(vals), _MAX_PLANES):
+    starts = range(0, len(vals), _MAX_PLANES)
+    offsets, total = _segscan_scratch(
+        n, [len(vals[g0:g0 + _MAX_PLANES]) for g0 in starts], lib.ldb_segscan_tile)
+    # the look-back's status words must read "not ready": one memset a call
+    scratch = torch.zeros((total,), dtype=torch.int64, device=gid.device)
+    for g0, off in zip(starts, offsets):
         grp, grp_out = vals[g0:g0 + _MAX_PLANES], outs[g0:g0 + _MAX_PLANES]
         pin, sin, pout, sout = _plane_args(grp, grp_out)
-        scratch = torch.empty((tiles * (1 + 2 * len(grp)),), dtype=torch.int32,
-                              device=gid.device)
         with torch.cuda.device(gid.device):
             err = lib.ldb_segscan(gid.data_ptr(), n, pin, sin, pout, sout,
-                                  len(grp), scratch.data_ptr(), _stream(gid))
+                                  len(grp), scratch.data_ptr() + 8 * off,
+                                  _stream(gid))
         LAUNCHES["segscan"] += 1
         _check(err, "segscan")
     return outs

@@ -291,7 +291,6 @@ def onehot_compact(x, m):
     out = torch.empty_like(x)
     if tiles:
         _launch("onehot_compact", out, lambda: onehot_compact_plain(x, m),
-                lambda lib, blocks, stream: lib.ldb_onehot_compact(
-                    x.data_ptr(), m.data_ptr(), tiles, out.data_ptr(), blocks,
-                    stream))
+                lambda lib, _blocks, stream: lib.ldb_onehot_compact(
+                    x.data_ptr(), m.data_ptr(), tiles, out.data_ptr(), stream))
     return out

@@ -29,8 +29,7 @@ import warnings
 # namespace, which tells them apart from PyTorch's own reduce/scan kernels)
 PORT_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
                 "gather_sorted_kernel", "gather_chunked_kernel",
-                "segscan_reduce_kernel", "segscan_scan_kernel",
-                "segscan_apply_kernel")
+                "segscan_kernel")
 _PORT_KERNEL_RE = re.compile(r"\(anonymous namespace\)::(%s)[<(]"
                              % "|".join(PORT_KERNELS))
 

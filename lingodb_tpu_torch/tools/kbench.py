@@ -11,6 +11,7 @@ N = 60,000,000 rows (6,000,000 with --quick). Cases:
   k2_sorted_dense           gather_sorted_i32: monotone idx, steps of 0 or 1
   k2_sorted_sparse1pct      gather_sorted_i32: 1 % of the rows, sorted
   k4_segscan_w2             segscan_i32: runs of 4, two planes
+  k4_segscan_w8             the same with eight planes (one launch)
   torch_index_sorted        plain torch indexing of the dense case (baseline)
   torch_cumsum_*, torch_cummax_*
                             the fused grouping's prefix sum and running max
@@ -190,7 +191,11 @@ def main(argv=None) -> int:
                 pg.segscan_i32_plain(gid, [v1, ones]))
     rep("k4_segscan_w2", ok, lambda: pg.segscan_i32(gid, [v1, ones]),
         4 * n + 2 * 4 * n * 2, n, lambda: pg.segscan_i32_plain(gid, [v1, ones]))
-    del gid, v1, ones
+    planes = [v1, ones] + [rand_i32(-(1 << 31), (1 << 31) - 1, n) for _ in range(6)]
+    ok = _equal(torch, pg.segscan_i32(gid, planes), pg.segscan_i32_plain(gid, planes))
+    rep("k4_segscan_w8", ok, lambda: pg.segscan_i32(gid, planes),
+        4 * n + 2 * 4 * n * 8, n, lambda: pg.segscan_i32_plain(gid, planes))
+    del gid, v1, ones, planes
 
     # baseline: plain torch indexing of the dense monotone case
     idx64 = idx.to(torch.int64)

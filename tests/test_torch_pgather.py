@@ -233,6 +233,11 @@ def _runs_gid(rng, n_runs, lo, hi, first=0):
     return (np.repeat(np.arange(n_runs), runs) + first).astype(np.int32)
 
 
+# rows per tile of csrc/segscan.cu by the number of planes W: 256 threads of
+# 16 rows for W <= 2, of 8 rows above (its ldb_segscan_tile)
+_SEGSCAN_TILE = {2: 4096, 3: 2048}
+
+
 def _segscan_cases():
     rng = _rng(21)
     gid = _runs_gid(rng, 6000, 1, 9)  # short random runs, W = 2
@@ -253,6 +258,14 @@ def _segscan_cases():
     yield "w8", gid, [rng.integers(-(1 << 31), (1 << 31) - 1, gid.size,
                                    dtype=np.int64).astype(np.int32)
                       for _ in range(8)]
+    # the CUDA kernel's tile edges (_SEGSCAN_TILE rows), a run across each
+    for w, tile in _SEGSCAN_TILE.items():
+        for n in (tile - 1, tile, tile + 1):
+            gid = np.sort(rng.integers(0, n // 3, n)).astype(np.int32)
+            gid[tile - 40: tile + 40] = gid[tile - 40]
+            yield f"tile{tile}{n - tile:+d}_w{w}", gid, [
+                rng.integers(-(1 << 31), (1 << 31) - 1, n,
+                             dtype=np.int64).astype(np.int32) for _ in range(w)]
 
 
 @pytest.mark.parametrize("entry", ["wrapper", "plain"])
@@ -274,6 +287,20 @@ def test_segscan(case, entry):
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and g.shape == (gid.size,)
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_segscan_scratch_layout():
+    """One zeroed buffer a call: per launch of W planes (groups of at most
+    eight), a tile counter and ceil(n / tile) x W status words, the
+    launches' regions back to back and disjoint."""
+    def tile(w):
+        return _SEGSCAN_TILE[2] if w <= 2 else _SEGSCAN_TILE[3]
+
+    assert pg._segscan_scratch(4096, [2], tile) == ([0], 1 + 1 * 2)
+    assert pg._segscan_scratch(4097, [2], tile) == ([0], 1 + 2 * 2)
+    assert pg._segscan_scratch(10_000, [8, 1], tile) == (
+        [0, 1 + 5 * 8], 1 + 5 * 8 + 1 + 3 * 1)
+    assert pg._segscan_scratch(1, [8, 8, 3], tile) == ([0, 9, 18], 22)
 
 
 def test_segscan_matches_a_loop_and_rejects_bad_input():

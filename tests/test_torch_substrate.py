@@ -210,7 +210,14 @@ def test_lane_rotsum_against_pallas(kernel, lo, hi):
 
 # ---- T7 -------------------------------------------------------------------
 
-@pytest.mark.parametrize("lane0", ["random", "all_ones", "all_zeros"])
+# lane 0 of the first tile set at these rows only: runs that cross every
+# edge of the CUDA kernel's 32-row segments, and runs that end on them
+_SEGMENT_HEADS = {"crossing_segment_edges": [0, 20, 50, 90, 120, 150, 170, 200, 230],
+                  "ending_on_segment_edges": list(range(32, 256, 32))}
+
+
+@pytest.mark.parametrize("lane0", ["random", "all_ones", "all_zeros",
+                                   *_SEGMENT_HEADS])
 def test_onehot_compact_against_pallas(lane0):
     # all_ones: c runs 1..256, so slot 0 is empty and the last row (c = 256)
     # is dropped; all_zeros: every row goes to slot 0
@@ -218,7 +225,10 @@ def test_onehot_compact_against_pallas(lane0):
     Tc, ntc = 256, 2
     x = _i32(rng, 0, 1 << 15, (ntc * Tc, 128))
     m = (rng.random((ntc * Tc, 128)) < 0.2).astype(np.int32)
-    if lane0 != "random":
+    if lane0 in _SEGMENT_HEADS:
+        m[:Tc, 0] = 0
+        m[_SEGMENT_HEADS[lane0], 0] = 1
+    elif lane0 != "random":
         m[:Tc, 0] = 1 if lane0 == "all_ones" else 0
     want = np.asarray(ref_mm(jnp.asarray(x), jnp.asarray(m), Tc, ntc))
     got = sb.onehot_compact(_t(x), _t(m))
