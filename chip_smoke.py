@@ -16,7 +16,13 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               PyTorch library call computing the same function) with CUDA
               events around 10 calls, read the kernels' own time on the card
               (and the library call's) from torch.profiler, compute the bytes
-              bound; segscan is only
+              bound; compact_positions also on the edges of its one-pass
+              design (n at a tile's edges and n = 1, masks all zeros and all
+              ones, set bits only in the last tile, count = k + 1, count >> k,
+              k >> count, an unaligned mask, uint8 and int8 masks, a second
+              stream, two calls back to back, calls after one that raised
+              before its launch), count and slots bit for bit;
+              segscan is only
               checked here (at lineitem's length, runs of 4 and one run over
               the whole array; then n below one tile and at a tile's edges,
               every row a head, runs longer than a tile, W = 1, 3, 8 and 9,
@@ -42,7 +48,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               subprocess, the entry point that runs segscan (no engine
               caller): every kernel at 6M rows, held against its plain
               version; segscan must have been launched there, and its times
-              in the kernels line are that run's
+              in the kernels line are that run's, as are compact_positions'
+              at the shapes the fused queries pass (q14, q3 lead and
+              boundary, q4)
   8. substrate `python -m lingodb_tpu_torch.tools.substrate_bench --quick` as
               a subprocess, the entry point that runs the seven substrate
               kernels T1-T7 (no engine caller): every case at the reference
@@ -50,7 +58,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               kernel launched there; their times in the kernels line are that
               run's. Before it, in this process, the same kernels on the edges
               of their contracts (ragged and unaligned index arrays, indices
-              out of range, int32 wrap, one-hot tiles whose lane 0 is all ones
+              out of range, sublane_gather's tables at each change of band
+              width and of form, R = 1 and m = 1, int32 wrap, one-hot tiles
+              whose lane 0 is all ones
               or all zeros, runs crossing or ending on each 32-row segment
               edge of onehot_compact, single tiles, the 60M bench's 1,831
               tiles), against their plain versions
@@ -212,21 +222,97 @@ def check_compact(torch, pg, n, cases):
                                 rows + 4 * k + 4))
         if err:
             fail(f"compact_positions differs from plain version (sel {sel})")
-    # count > k: the count stays exact, the k slots hold the first k positions
-    mask = u < 0.5
-    full = torch.nonzero(mask).reshape(-1)
-    cnt, pos = pg.compact_positions(mask, 1024)
-    if int(cnt) != full.numel() or max_abs_err(
-            torch, [pos], [full[:1024].to(torch.int32)]):
-        fail("compact_positions count>k contract broken")
-    # a mask that is not 16-byte aligned and not a multiple of the tile
-    odd = (u < 0.3)[3: n - 5]
-    cnt, pos = pg.compact_positions(odd, n)
-    ref = torch.nonzero(odd).reshape(-1)
-    if int(cnt) != ref.numel() or max_abs_err(
-            torch, [pos[: ref.numel()]], [ref.to(torch.int32)]):
-        fail("compact_positions wrong on an unaligned mask")
-    return mask
+    check_compact_edges(torch, pg, u)
+    return u < 0.5
+
+
+def check_compact_edges(torch, pg, u):
+    """compact_positions on the edges of its one-pass design, count and
+    every slot bit for bit against the plain version: n at a tile's edges,
+    at each change of tile size and n = 1, masks all zeros and all ones, set bits only in the last
+    tile, count = k + 1 and count >> k (the count stays exact), k >> count
+    at q14's shape, an unaligned mask, bool / uint8 / int8 masks, and two
+    calls back to back on one stream with different n (no status word of
+    the first may read as ready in the second), and calls after one that
+    raised between taking its scratch and launching."""
+    from lingodb_tpu_torch.ops import cuda_build
+
+    n = u.numel()
+    tile = cuda_build.lib("compact_positions").ldb_compact_tile()
+
+    def same(label, mask, k, got=None):
+        cnt, pos = got if got is not None else pg.compact_positions(mask, k)
+        cnt_p, pos_p = pg.compact_positions_plain(mask, k)
+        torch.cuda.synchronize()
+        if int(cnt) != int(cnt_p) or max_abs_err(torch, [pos], [pos_p]):
+            fail(f"compact_positions differs from plain version: {label} "
+                 f"(n={mask.numel()}, k={k}, count {int(cnt_p)})")
+
+    # the smallest tile's edges, and each change of tile size (2^20 and
+    # 2^22 mask bytes)
+    for rows in (1, tile - 1, tile, tile + 1, 2 * tile + 1, (1 << 20) - 1,
+                 1 << 20, (4 << 20) - 1, 4 << 20, n):
+        mask = u[:rows] < 0.3
+        c = int(mask.sum())
+        for k in (c, c + 1000, max(c - 1, 0)):
+            same(f"n at a tile's edge, k={k}", mask, k)
+    for label, one in (("set", u[:1] < 2.0), ("not set", u[:1] < -1.0)):
+        for k in (0, 1, 5):
+            same(f"n = 1, {label}, k={k}", one, k)
+    zeros = torch.zeros(n, dtype=torch.bool, device="cuda")
+    same("all zeros", zeros, 1000)
+    same("all ones", ~zeros, n)
+    same("all ones, k = tile + 1", ~zeros, tile + 1)
+    last = zeros.clone()
+    last[n - 100:] = u[n - 100:] < 0.5
+    same("set bits only in the last tile", last, 1000)
+    sparse = u < 0.3
+    c = int(sparse.sum())
+    same("count = k + 1", sparse, c - 1)
+    same("count >> k", sparse, 1024)
+    q14 = zeros.clone()
+    q14[torch.randperm(n, device="cuda")[:75_029]] = True
+    same("k >> count, q14's shape", q14, 262_144)
+    odd = sparse[3: n - 5]
+    same("unaligned mask", odd, c)
+    for dt in (torch.uint8, torch.int8):
+        same(f"{dt} mask", (u < 0.3).to(dt) * 7, c)
+    # on a second stream (a scratch of its own), then on the first again
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = pg.compact_positions(sparse, c + 10)
+    torch.cuda.current_stream().wait_stream(side)
+    same("on a second stream", sparse, c + 10, got)
+    same("back on the first stream", sparse, c + 10)
+    # back to back, no synchronisation between the calls
+    a, b = u < 0.2, (u < 0.7)[: n - 54_321]
+    ka, kb = int(a.sum()) + 10, int(b.sum()) + 10
+    got_a, got_b = pg.compact_positions(a, ka), pg.compact_positions(b, kb)
+    same("back to back, first", a, ka, got_a)
+    same("back to back, second", b, kb, got_b)
+    # a call that raises after taking its scratch and number, before its
+    # launch (as an out-of-memory error would, which Session answers by
+    # running the plan again), uses up neither: the calls after it are right
+    take = pg._compact_scratch_for
+
+    class Injected(Exception):
+        pass
+
+    def take_then_raise(*args):
+        take(*args)
+        raise Injected
+
+    pg._compact_scratch_for = take_then_raise
+    try:
+        pg.compact_positions(a, ka)
+        fail("compact_positions: the injected error was not raised")
+    except Injected:
+        pass
+    finally:
+        pg._compact_scratch_for = take
+    same("after a call that raised before its launch", b, kb)
+    same("and the call after that", a, ka)
 
 
 def check_sorted(torch, pg, s, mask, cases):
@@ -378,11 +464,24 @@ def check_segscan(torch, pg, n, cases):
             fail(f"segscan differs from plain version ({label})")
 
 
+def sublane_band_edges():
+    """The tallest table of each form of sublane_gather, from the built
+    library (csrc/tile_gather.cu's ldb_sublane_band_edges)."""
+    import ctypes
+
+    from lingodb_tpu_torch.ops import cuda_build
+
+    fn = cuda_build.lib("tile_gather").ldb_sublane_band_edges
+    edges = (ctypes.c_int64 * 16)()
+    return [int(e) for e in edges[: fn(edges, 16)]]
+
+
 def check_substrate_edges(torch, sb):
     """The substrate kernels at small shapes on the edges of their
     contracts, bit for bit against their plain versions: index arrays that
     are not 16-byte aligned or a multiple of four long, indices out of
-    range (clamped, or taken modulo 128), sums that wrap in int32, and
+    range (clamped, or taken modulo 128), sublane_gather's tables at each
+    change of band width, sums that wrap in int32, and
     one-hot tiles whose lane 0 is all ones (the last row is dropped) or all
     zeros (every row goes to slot 0); for onehot_compact's 32-row segments,
     runs that cross every segment edge or end on one, each pattern alone as
@@ -411,11 +510,27 @@ def check_substrate_edges(torch, sb):
     lanes = rand(-300, 300, (3000, 128))
     same("lane_gather, l outside [0, 128)", sb.lane_gather(d, lanes),
          sb.lane_gather_plain(d, lanes))
-    for r in (1, 8, 300):
+    # sublane_gather: R = 1, the last R of each form and the first of the
+    # next, as the built library gives them (the direct form up to 64 rows,
+    # bands of W = 128 ... 8, a partial band of 8 while two fifths of the
+    # table fit and the rows fill the card, then the direct form), R =
+    # 16,384; row counts that no split divides, m = 1, and row indices out
+    # of range
+    last = sublane_band_edges()
+    if len(last) != 7 or last != sorted(last):
+        fail(f"sublane_gather's form edges out of order: {last}")
+    edges = {1, 8, 300, 16_384} | set(last) | {r + 1 for r in last}
+    for r in sorted(edges):
         tab = rand(-(1 << 31), (1 << 31) - 1, (r, 128))
-        rows = rand(-2, r + 2, (1001, 128))
-        same(f"sublane_gather R={r}", sb.sublane_gather(tab, rows),
-             sb.sublane_gather_plain(tab, rows))
+        ms = (1, 1001, 3 * r + 5)
+        if r > last[-2]:  # a partial band: rows enough for every SM
+            ms += (64_003,)
+        for m in ms:
+            rows = rand(-2, r + 2, (m, 128))
+            rows[0, :4] = torch.tensor([-(1 << 31), (1 << 31) - 1, r, -1],
+                                       dtype=torch.int32)
+            same(f"sublane_gather R={r} m={m}", sb.sublane_gather(tab, rows),
+                 sb.sublane_gather_plain(tab, rows))
     near = rand((1 << 31) - 1000, (1 << 31) - 1, (33, 128))
     same("lane_rotsum wrapping", sb.lane_rotsum(near), sb.lane_rotsum_plain(near))
     x = rand(0, 1 << 15, (4 * sb.TILE_ROWS, 128))
@@ -707,6 +822,18 @@ def main() -> int:
                   "library_ms": None, "library_device_ms": None,
                   "bound_ms": k4["bound_ms"],
                   "bound_by": "bytes", "bytes": k4["bytes"]})
+    # compact_positions at the fused queries' shapes, held bit for bit
+    # against the plain version (the bench exits non-zero on a difference)
+    # and timed by the kernel bench
+    for c in kb_out["cases"]:
+        if c["name"].startswith("k3_compact_q"):
+            cases.append({"name": "compact_positions",
+                          "shape": f"{c['name']} (kernel bench)",
+                          "max_abs_err": 0,
+                          "ms": c["ms"], "device_ms": c["card_ms"],
+                          "plain_ms": c["plain_ms"], "library_ms": None,
+                          "library_device_ms": None, "bound_ms": c["bound_ms"],
+                          "bound_by": "bytes", "bytes": c["bytes"]})
     log(f"# kbench: {time.perf_counter() - t0:.1f}s, launches "
         f"{json.dumps(launches['kbench'])}")
     if not launches["kbench"]["segscan"]:

@@ -91,7 +91,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
 def _declare(libs) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     f = libs["compact_positions"].ldb_compact_positions
-    f.argtypes = [vp, i64, vp, vp, vp, i64, vp]
+    f.argtypes = [vp, i64, vp, i64, vp, vp, i64, i32, vp]
     f.restype = i32
     t = libs["compact_positions"].ldb_compact_tile
     t.argtypes = []
@@ -115,6 +115,8 @@ def _declare(libs) -> None:
             ("tile_gather", "ldb_lane_gather", [vp, vp, i64, vp, i32, vp]),
             ("tile_gather", "ldb_sublane_gather",
              [vp, i64, vp, i64, vp, i32, vp]),
+            ("tile_gather", "ldb_sublane_band_edges",
+             [ctypes.POINTER(i64), i32]),
             ("lane_rotsum", "ldb_lane_rotsum", [vp, i64, vp, i32, vp]),
             ("onehot_compact", "ldb_onehot_compact", [vp, vp, i64, vp, vp])):
         f = getattr(libs[lib_name], fn_name)

@@ -10,8 +10,8 @@ speed. Kernels (sources under csrc/, all int32 in-kernel; wrappers limb-split
                                       whole table in shared memory, indices
                                       streamed through it.
   compact_positions(mask, k)          ascending positions of mask's set
-                                      bits and their exact count: tile
-                                      counts, one scan, scatter.
+                                      bits and their exact count: one pass
+                                      with decoupled look-back.
   gather_sorted_planes(tables, idx)   idx monotone nondecreasing (post-filter
                                       positions, sorted-FK probes): one index
                                       decode shared by all planes, reads
@@ -155,7 +155,31 @@ def gather_chunked_i32(table, idx):
 # K3: compact_positions — stream compaction of set-bit positions
 # --------------------------------------------------------------------------
 
-_compact_tile = 0  # mask bytes per block, asked of the built library once
+_compact_tile = 0  # mask bytes per tile, asked of the built library once
+# the look-back's scratch of compact_positions, one per (device, stream):
+# (int64 buffer, calls made on it). Its status words carry the call's
+# number, so none of an earlier call reads as ready in a later one. A call
+# is counted only once its kernel is launched: call e zeroes the tile
+# counter of call e + 1, so a number taken by a call that never launched
+# must be taken again by the next
+_compact_scratch: dict = {}
+_EPOCHS = 1 << 30  # a call number fits 30 bits; then the buffer is zeroed
+
+
+def _compact_scratch_for(key, device, n: int):
+    """The scratch of a compact_positions call over n mask bytes on `key`
+    (device, stream) and the call's number on it, from 1: two tile counters
+    in word 0, then a status word a tile. At number 1 (a new buffer, or
+    numbers begun again) the kernel's entry point zeroes the buffer first.
+    Nothing is kept here: the caller stores (buffer, number) in
+    _compact_scratch after its launch succeeded."""
+    words = 1 + -(-n // _compact_tile)
+    entry = _compact_scratch.get(key)
+    if entry is None or entry[0].numel() < words:
+        old = 0 if entry is None else entry[0].numel()
+        return torch.empty((max(words, 2 * old),), dtype=torch.int64,
+                           device=device), 1
+    return entry[0], entry[1] % (_EPOCHS - 1) + 1
 
 
 def compact_positions_plain(mask, k: int):
@@ -186,26 +210,29 @@ def compact_positions(mask, k: int):
     m = m.contiguous()
     if m.data_ptr() % 16:
         m = m.clone()  # the kernel loads 16 mask bytes at a time
-    out = torch.empty((k,), dtype=torch.int32, device=mask.device)
     if n == 0:
-        out.fill_(SENTINEL)
+        out = torch.full((k,), SENTINEL, dtype=torch.int32, device=mask.device)
         return torch.zeros((), dtype=torch.int32, device=mask.device), out
     lib = cuda_build.lib("compact_positions")
-    # one allocation: slot 0 takes the count (the scan kernel always writes
-    # it), the rest is the per-tile scratch
     global _compact_tile
     if not _compact_tile:
         _compact_tile = lib.ldb_compact_tile()
-    work = torch.empty((1 + -(-n // _compact_tile),), dtype=torch.int32,
-                       device=mask.device)
-    count, scratch = work[:1], work[1:]
+    # one allocation: the k slots (rounded up to 16 bytes), then the count
+    kp = -(-k // 4) * 4
+    work = torch.empty((kp + 1,), dtype=torch.int32, device=mask.device)
+    key = (mask.device, _stream(mask))
+    scratch, epoch = _compact_scratch_for(key, mask.device, n)
     with torch.cuda.device(mask.device):
         err = lib.ldb_compact_positions(
-            m.data_ptr(), n, scratch.data_ptr(), count.data_ptr(),
-            out.data_ptr(), k, _stream(mask))
+            m.data_ptr(), n, work.data_ptr(), k, work.data_ptr() + 4 * kp,
+            scratch.data_ptr(), 8 * scratch.numel(), epoch, key[1])
     LAUNCHES["compact_positions"] += 1
+    if err:  # a scratch whose memset may not have run is not kept
+        _compact_scratch.pop(key, None)
+    else:
+        _compact_scratch[key] = (scratch, epoch)
     _check(err, "compact_positions")
-    return count[0], out
+    return work[kp], work[:k]
 
 
 # --------------------------------------------------------------------------

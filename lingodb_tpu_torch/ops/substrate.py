@@ -8,7 +8,9 @@ engine caller; tools/substrate_bench.py runs them.
   gather_small(table, idx)     T2  table[idx], table <= SMALL_TABLE_LIMIT
                                    entries staged in shared memory (same file)
   lane_gather(d, l)            T3  out[r, j] = d[r, l[r, j]]  (csrc/tile_gather.cu)
-  sublane_gather(tab, rows)    T4  out[i, j] = tab[rows[i, j], j]  (same file)
+  sublane_gather(tab, rows)    T4  out[i, j] = tab[rows[i, j], j], each
+                                   block serving a band of columns from
+                                   shared memory (same file)
   lane_rotsum(t)               T5, T6  the sum of the 128 lane rotations of
                                    t: every element its row's total, wrapping
                                    in int32 (csrc/lane_rotsum.cu)
@@ -83,15 +85,16 @@ def _kernel_route(t) -> bool:
 
 
 def _launch(name: str, out, plain, call) -> None:
-    """Launch kernel `name` into `out` through `call(lib, blocks, stream)`,
-    or on the CPU (FORCE_KERNELS) copy the plain version into it."""
+    """Launch kernel `name` into `out` through `call(lib, sms, stream)`, sms
+    the card's multiprocessor count, or on the CPU (FORCE_KERNELS) copy the
+    plain version into it."""
     if out.is_cuda:
         from . import cuda_build
 
         lib = cuda_build.lib(SOURCE[name])
         sms = torch.cuda.get_device_properties(out.device).multi_processor_count
         with torch.cuda.device(out.device):
-            err = call(lib, sms * _BLOCKS_PER_SM,
+            err = call(lib, sms,
                        torch.cuda.current_stream(out.device).cuda_stream)
         LAUNCHES[name] += 1
         if err != 0:
@@ -124,9 +127,9 @@ def _table_gather(name: str, table, idx, limit: int):
     if n:
         fn = "ldb_" + name
         _launch(name, out, lambda: table_gather_plain(table, idx),
-                lambda lib, blocks, stream: getattr(lib, fn)(
+                lambda lib, sms, stream: getattr(lib, fn)(
                     table.data_ptr(), s, idx.data_ptr(), n, out.data_ptr(),
-                    blocks, stream))
+                    sms * _BLOCKS_PER_SM, stream))
     return out
 
 
@@ -169,9 +172,9 @@ def lane_gather(d, l):
     out = torch.empty_like(d)
     if rows:
         _launch("lane_gather", out, lambda: lane_gather_plain(d, l),
-                lambda lib, blocks, stream: lib.ldb_lane_gather(
-                    d.data_ptr(), l.data_ptr(), rows, out.data_ptr(), blocks,
-                    stream))
+                lambda lib, sms, stream: lib.ldb_lane_gather(
+                    d.data_ptr(), l.data_ptr(), rows, out.data_ptr(),
+                    sms * _BLOCKS_PER_SM, stream))
     return out
 
 
@@ -197,9 +200,9 @@ def sublane_gather(tab, rows):
     out = torch.empty_like(rows)
     if m:
         _launch("sublane_gather", out, lambda: sublane_gather_plain(tab, rows),
-                lambda lib, blocks, stream: lib.ldb_sublane_gather(
+                lambda lib, sms, stream: lib.ldb_sublane_gather(
                     tab.data_ptr(), r, rows.data_ptr(), m, out.data_ptr(),
-                    blocks, stream))
+                    sms, stream))
     return out
 
 
@@ -227,8 +230,9 @@ def lane_rotsum(t):
     out = torch.empty_like(t)
     if rows:
         _launch("lane_rotsum", out, lambda: lane_rotsum_plain(t),
-                lambda lib, blocks, stream: lib.ldb_lane_rotsum(
-                    t.data_ptr(), rows, out.data_ptr(), blocks, stream))
+                lambda lib, sms, stream: lib.ldb_lane_rotsum(
+                    t.data_ptr(), rows, out.data_ptr(), sms * _BLOCKS_PER_SM,
+                    stream))
     return out
 
 
@@ -291,6 +295,6 @@ def onehot_compact(x, m):
     out = torch.empty_like(x)
     if tiles:
         _launch("onehot_compact", out, lambda: onehot_compact_plain(x, m),
-                lambda lib, _blocks, stream: lib.ldb_onehot_compact(
+                lambda lib, _sms, stream: lib.ldb_onehot_compact(
                     x.data_ptr(), m.data_ptr(), tiles, out.data_ptr(), stream))
     return out

@@ -1,0 +1,280 @@
+"""The measurements behind two kernels' design constants, and a breakdown of
+the cases where each reads furthest from its bound, on the card.
+
+    python3 -m lingodb_tpu_torch.tools.design_sweep
+    python3 -m lingodb_tpu_torch.tools.design_sweep --counters   # only those
+
+A variant is the kept source with one constant rewritten, compiled by nvcc
+into build/kernels/sweep/ and bound in place of the kept library for its
+cases; the kept sources are not changed. The kept build runs first and
+again last, so that drift over the run shows. Variants:
+
+  compact_positions (csrc/compact_positions.cu): tiles of 4, 8 or 16 KB at
+      every mask length (kMidRows, kWideRows), against the kept rule (4 KB
+      below 2^20 rows, 8 KB below 2^22, 16 KB from there)
+  sublane_gather (csrc/tile_gather.cu): a 128 KB shared-memory budget
+      (kMaxSmem) against the kept 227 KB, and no partial band
+      (kPartialRows = 0: tables taller than a band of 8 columns holds take
+      the direct form)
+
+Breakdowns, with the kept kernels: compact_positions with k = 0 (the mask
+read, counted, scanned and looked back over, no position written) beside
+k = count and beside torch.count_nonzero of the same mask (one read of it);
+sublane_gather at R = 16,384 beside the two forms it mixes, the band of 8
+columns at R = 7,264 (every lookup from shared memory) and the direct form
+at R = 16,384 (every lookup an L2 sector). Hardware counters (DRAM bytes and
+L2 sectors a kernel) are asked of CUPTI through torch.profiler, where the
+machine allows it; otherwise the line says so.
+
+Each case is checked bit for bit against the plain version. Per case: card
+ms by torch.profiler, call ms by CUDA events, the bytes bound over 3.35
+TB/s. The last line is one JSON object with every case. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+
+from .kbench import HBM_BYTES_PER_S, call_ms, card_ms
+
+# (library, variant) -> {constant: value}; "kept" is the source as it is
+VARIANTS = {
+    ("compact_positions", "tile4k"): {"kMidRows": "INT64_MAX",
+                                      "kWideRows": "INT64_MAX"},
+    ("compact_positions", "tile8k"): {"kMidRows": "0",
+                                      "kWideRows": "INT64_MAX"},
+    ("compact_positions", "tile16k"): {"kMidRows": "0", "kWideRows": "0"},
+    ("tile_gather", "smem128k"): {"kMaxSmem": "131072"},
+    ("tile_gather", "no_partial"): {"kPartialRows": "0"},
+}
+METRICS = ("dram__bytes_read.sum", "dram__bytes_write.sum",
+           "lts__t_sectors_op_read.sum")
+
+
+def variant_source(text: str, consts: dict) -> str:
+    """`text` with each `constexpr <type> <name> = ...;` given a new value."""
+    for name, value in consts.items():
+        text, hits = re.subn(rf"(constexpr \w+ {name} = )[^;]*;",
+                             rf"\g<1>{value};", text)
+        if hits != 1:
+            raise ValueError(f"design_sweep: no single constant {name}")
+    return text
+
+
+def build_variants() -> dict:
+    """Compile every variant, all nvcc processes at once; returns
+    (library, variant) -> CDLL."""
+    from ..ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / "sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for (name, variant), consts in VARIANTS.items():
+        src = out_dir / f"{name}_{variant}.cu"
+        text = (cuda_build.CSRC / f"{name}.cu").read_text()
+        src.write_text(variant_source(text, consts))
+        lib = out_dir / f"lib{name}_{variant}.so"
+        procs.append(((name, variant), lib, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
+             str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for key, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise cuda_build.KernelBuildError(f"{key}: {log}")
+        libs[key] = ctypes.CDLL(str(lib))
+    return libs
+
+
+_kept: dict = {}  # the kept libraries, as first built
+
+
+def use(name: str, lib) -> None:
+    """Bind `lib` (None: the kept build) as kernel library `name`."""
+    from ..ops import cuda_build, pgather
+
+    if not _kept:
+        _kept.update(cuda_build.build_all())
+    libs = dict(_kept)
+    if lib is not None:
+        libs[name] = lib
+    cuda_build._declare(libs)
+    cuda_build._LIBS[name] = libs[name]
+    pgather._compact_scratch.clear()  # a new buffer, zeroed at its first call
+
+
+def counters(torch, fn, trace_path) -> dict:
+    """CUPTI's counters for one fn() through torch.profiler, summed over the
+    events of its trace, or {"unavailable": reason}."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        cfg = _ExperimentalConfig(profiler_metrics=list(METRICS),
+                                  profiler_measure_per_kernel=True)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     experimental_config=cfg) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace_path))
+        events = json.loads(trace_path.read_text()).get("traceEvents", [])
+    except Exception as exc:  # the machine may refuse the counters
+        return {"unavailable": f"{type(exc).__name__}: {exc}"[:200]}
+    found = {}
+    for e in events:
+        for metric in METRICS:
+            v = (e.get("args") or {}).get(metric)
+            if isinstance(v, (int, float)):
+                found[metric] = found.get(metric, 0.0) + float(v)
+    cats = sorted({str(e.get("cat")) for e in events})
+    return found or {"unavailable": "no counter in the profiler's trace",
+                     "categories": cats}
+
+
+def counters_main() -> int:
+    """The counters of the two cases furthest from their bound, printed as
+    one JSON line: compact_positions at 6M sel 0.5, sublane_gather at R =
+    16,384 (run in a child process: CUPTI's profiler mode may fail hard)."""
+    import torch
+
+    from ..ops import cuda_build
+    from ..ops import pgather as pg
+    from ..ops import substrate as sb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mask = torch.rand(5_997_593, device=dev, generator=gen) < 0.5
+    k = int(mask.sum())
+    r = 16_384
+    m = 60_000_000 // (r * 128) * r
+    tab = torch.randint(0, 1 << 30, (r, 128), device=dev, generator=gen,
+                        dtype=torch.int32)
+    ridx = torch.randint(0, r, (m, 128), device=dev, generator=gen,
+                         dtype=torch.int32)
+    trace = cuda_build.BUILD_DIR / "sweep" / "counters.json"
+    got = {}
+    for label, fn in (
+            ("compact_positions n=5997593 sel=0.5 k=count",
+             lambda: pg.compact_positions(mask, k)),
+            (f"sublane_gather R={r} m={m}",
+             lambda: sb.sublane_gather(tab, ridx))):
+        got[label] = counters(torch, fn, trace)
+    print(json.dumps(got), flush=True)
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("design_sweep: FAILED: no CUDA device", file=sys.stderr)
+        return 1
+    from ..ops import pgather as pg
+    from ..ops import substrate as sb
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(f"# design_sweep: {smi.stdout.strip()}", flush=True)
+    variants = build_variants()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases, failed = [], []
+
+    def rep(name, variant, shape, ok, fn, nbytes):
+        card, call = card_ms(torch, fn), call_ms(torch, fn)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        cases.append({"kernel": name, "variant": variant, "shape": shape,
+                      "correct": bool(ok), "card_ms": card, "ms": call,
+                      "bound_ms": bound})
+        if not ok:
+            failed.append(f"{name}[{variant}] {shape}")
+        print(f"{name}[{variant}] {shape}: card={card:.4f}ms call={call:.4f}ms "
+              f"bound={bound:.4f}ms correct={bool(ok)}", flush=True)
+
+    # ---- compact_positions: masks of each size the rule separates
+    u = torch.rand(60_000_000, device=dev, generator=gen)
+    masks = []
+    for rows, sel, k in ((1_024, 0.5, None), (65_536, 11_268 / 65_536, 65_536),
+                         (1_500_000, 57_371 / 1_500_000, 196_608),
+                         (3_000_000, 0.5, None), (5_997_593, 0.5, None),
+                         (5_997_593, 0.02, None),
+                         (5_997_593, 75_029 / 5_997_593, 262_144),
+                         (60_000_000, 0.5, 45_008_192)):
+        mask = u[:rows] < sel
+        kk = k if k is not None else int(mask.sum())
+        masks.append((f"n={rows} sel={sel:.4f} k={kk}", mask, kk))
+    for variant in ("kept", "tile4k", "tile8k", "tile16k", "kept"):
+        use("compact_positions", variants.get(("compact_positions", variant)))
+        for shape, mask, k in masks:
+            cnt, pos = pg.compact_positions(mask, k)
+            pcnt, ppos = pg.compact_positions_plain(mask, k)
+            ok = int(cnt) == int(pcnt) and torch.equal(pos, ppos)
+            rep("compact_positions", variant, shape, ok,
+                lambda m=mask, kk=k: pg.compact_positions(m, kk),
+                mask.numel() + 4 * k + 4)
+    use("compact_positions", None)
+    for shape, mask, k in masks[4:6] + masks[7:]:
+        cnt0, _ = pg.compact_positions(mask, 0)
+        rep("compact_positions", "kept, k=0", shape,
+            int(cnt0) == int(mask.sum()),
+            lambda m=mask: pg.compact_positions(m, 0), mask.numel() + 4)
+        rep("count_nonzero", "library", shape, True,
+            lambda m=mask: torch.count_nonzero(m), mask.numel())
+    del u, masks
+
+    # ---- sublane_gather: an (R, 128) table and 60M row indices, as
+    # substrate_bench.py's calib_sub cases
+    n_all = 60_000_000
+    # the last R of each band width under the kept budget, where the 128 KB
+    # budget takes the next narrower band (or, at 7,264, the partial band)
+    edges = (454, 908, 1816, 3632, 7264)
+    runs = [("kept", r) for r in edges + (4096, 7265, 16384)]
+    runs += [("smem128k", r) for r in edges]
+    runs += [("no_partial", r) for r in (7265, 16384)]
+    runs += [("kept", r) for r in (4096, 16384)]
+    for variant, r in runs:
+        use("tile_gather", variants.get(("tile_gather", variant)))
+        m = max(1, n_all // (r * 128)) * r
+        tab = torch.randint(0, 1 << 30, (r, 128), device=dev, generator=gen,
+                            dtype=torch.int32)
+        ridx = torch.randint(0, r, (m, 128), device=dev, generator=gen,
+                             dtype=torch.int32)
+        ok = torch.equal(sb.sublane_gather(tab, ridx),
+                         sb.sublane_gather_plain(tab, ridx))
+        rep("sublane_gather", variant, f"R={r} m={m}", ok,
+            lambda t=tab, i=ridx: sb.sublane_gather(t, i),
+            m * 128 * 8 + r * 128 * 4)
+        del tab, ridx
+    use("tile_gather", None)
+
+    # ---- hardware counters, where CUPTI gives them
+    try:
+        child = subprocess.run(
+            [sys.executable, "-m", __spec__.name, "--counters"],
+            capture_output=True, text=True, timeout=300)
+        lines = child.stdout.strip().splitlines()
+        got = json.loads(lines[-1]) if child.returncode == 0 and lines else {
+            "unavailable": f"exit {child.returncode}: "
+                           + child.stderr.strip()[-200:]}
+    except subprocess.TimeoutExpired:
+        got = {"unavailable": "the counters' run took over 300 s"}
+    print(f"counters: {json.dumps(got)}", flush=True)
+    cases.append({"counters": got})
+
+    print(json.dumps({"cases": cases}), flush=True)
+    if failed:
+        print("design_sweep: FAILED: " + ", ".join(failed), file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(counters_main() if "--counters" in sys.argv[1:] else main())

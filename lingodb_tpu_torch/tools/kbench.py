@@ -8,6 +8,10 @@ N = 60,000,000 rows (6,000,000 with --quick). Cases:
 
   k1_chunked_S1024, _S8192  gather_chunked_i32: random idx into a small table
   k3_compact_p0.01, _p0.5   compact_positions: random mask, capacity 1.5x
+  k3_compact_q14, _q3_lead, _q3_boundary, _q4
+                            compact_positions at the shapes the fused
+                            queries pass at TPC-H SF1 (mask length,
+                            capacity and count; the same in both modes)
   k2_sorted_dense           gather_sorted_i32: monotone idx, steps of 0 or 1
   k2_sorted_sparse1pct      gather_sorted_i32: 1 % of the rows, sorted
   k4_segscan_w2             segscan_i32: runs of 4, two planes
@@ -158,6 +162,19 @@ def main(argv=None) -> int:
         ok = int(cnt) == int(pcnt) and torch.equal(pos, ppos)
         rep(f"k3_compact_p{p}", ok, lambda m=mask, kk=k: pg.compact_positions(m, kk),
             n + 4 * k + 4, n,
+            lambda m=mask, kk=k: pg.compact_positions_plain(m, kk))
+    # the fused queries' compactions at SF1: (mask rows, k, set rows)
+    for name, rows, k, cnt in (("q14", 5_997_593, 262_144, 75_029),
+                               ("q3_lead", 5_997_593, 65_536, 29_754),
+                               ("q3_boundary", 65_536, 65_536, 11_268),
+                               ("q4", 1_500_000, 196_608, 57_371)):
+        mask = torch.zeros(rows, dtype=torch.bool, device=dev)
+        mask[torch.randperm(rows, device=dev, generator=gen)[:cnt]] = True
+        cnt_k, pos = pg.compact_positions(mask, k)
+        pcnt, ppos = pg.compact_positions_plain(mask, k)
+        ok = int(cnt_k) == int(pcnt) == cnt and torch.equal(pos, ppos)
+        rep(f"k3_compact_{name}", ok, lambda m=mask, kk=k: pg.compact_positions(m, kk),
+            rows + 4 * k + 4, rows,
             lambda m=mask, kk=k: pg.compact_positions_plain(m, kk))
     del u, mask
 

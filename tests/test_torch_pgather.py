@@ -56,9 +56,18 @@ def test_gather_chunked_clamps_and_planes():
     np.testing.assert_array_equal(two[1].reshape(-1).numpy(), [99, 99, 0, 0, 0])
 
 
+# mask bytes per tile of csrc/compact_positions.cu (its ldb_compact_tile)
+_COMPACT_TILE = 4096
+
+
 @pytest.mark.parametrize("n,p", [(100, 0.5), (8192, 0.1), (40000, 0.01),
                                  (30000, 0.9), (8192 * 2, 0.0),
-                                 (8192, 1.0)])
+                                 (8192, 1.0),
+                                 # n = 1 and the CUDA kernel's tile edges
+                                 (1, 1.0), (1, 0.0),
+                                 (_COMPACT_TILE - 1, 0.3), (_COMPACT_TILE, 0.3),
+                                 (_COMPACT_TILE + 1, 0.3),
+                                 (2 * _COMPACT_TILE + 1, 0.5)])
 def test_compact_positions(n, p):
     mask = _rng(n).random(n) < p
     expect = np.flatnonzero(mask)
@@ -71,6 +80,84 @@ def test_compact_positions(n, p):
     np.testing.assert_array_equal(pos.numpy()[: len(expect)], expect)
     assert (pos.numpy()[len(expect):] == pg.SENTINEL).all()
     assert pos.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n,p,k", [
+    (9000, 0.5, None),        # count = k + 1
+    (9000, 0.5, 64),          # count >> k
+    (20000, 0.0125, 262_144),  # k >> count: q14's capacity over its count
+    (_COMPACT_TILE + 1, 0.3, 100),
+], ids=["count_k_plus_1", "count_far_above_k", "k_far_above_count",
+        "tile_edge_count_above_k"])
+def test_compact_positions_capacity(n, p, k):
+    """The count is exact whatever k; the k slots hold the first k
+    positions, then SENTINEL. The reference's slots past its count are
+    undefined, so only its first min(count, k) are compared."""
+    mask = _rng(n + 1).random(n) < p
+    expect = np.flatnonzero(mask)
+    k = len(expect) - 1 if k is None else k
+    rcnt, rpos = ref.compact_positions(jnp.asarray(mask), k)
+    cnt, pos = pg.compact_positions(_t(mask), k)
+    assert int(cnt) == int(rcnt) == len(expect)
+    assert pos.dtype == torch.int32 and pos.shape == (k,)
+    c = min(len(expect), k)
+    np.testing.assert_array_equal(pos.numpy()[:c], np.asarray(rpos)[:c])
+    np.testing.assert_array_equal(pos.numpy()[:c], expect[:c])
+    assert (pos.numpy()[c:] == pg.SENTINEL).all()
+
+
+def _take_and_launch(key, n, launched=True):
+    """compact_positions' bookkeeping for one call: take the scratch and
+    the call's number, and keep them only if the kernel launched."""
+    buf, epoch = pg._compact_scratch_for(key, "cpu", n)
+    if launched:
+        pg._compact_scratch[key] = (buf, epoch)
+    return buf, epoch
+
+
+@pytest.mark.parametrize("case", ["new", "numbered", "not_launched",
+                                  "grows", "wraps", "per_stream"])
+def test_compact_scratch_numbers_only_launched_calls(monkeypatch, case):
+    """The status words and tile counters of compact_positions' kernel are
+    right only if every call number but the first follows a call that
+    launched: call e zeroes call e + 1's tile counter. A number taken by a
+    call that raised before its launch is taken again by the next call; a
+    new or larger buffer, or numbers run out, start again at 1 (where the
+    entry point zeroes the buffer)."""
+    monkeypatch.setattr(pg, "_compact_tile", _COMPACT_TILE)
+    monkeypatch.setattr(pg, "_compact_scratch", {})
+    key = ("cpu", 7)
+    words = 1 + 3  # two counters in word 0, then a status word a tile
+    n = 3 * _COMPACT_TILE
+    buf, epoch = _take_and_launch(key, n, launched=case != "new")
+    assert epoch == 1 and buf.dtype == torch.int64 and buf.numel() >= words
+    if case == "new":
+        assert pg._compact_scratch == {}
+        assert pg._compact_scratch_for(key, "cpu", n)[1] == 1
+    elif case == "numbered":
+        for want in (2, 3, 4):
+            again, epoch = _take_and_launch(key, n)
+            assert epoch == want and again is buf
+    elif case == "not_launched":
+        assert _take_and_launch(key, n, launched=False)[1] == 2
+        assert _take_and_launch(key, n, launched=False)[1] == 2
+        assert _take_and_launch(key, n)[1] == 2
+        assert _take_and_launch(key, n)[1] == 3
+    elif case == "grows":
+        assert _take_and_launch(key, n)[1] == 2
+        bigger, epoch = _take_and_launch(key, 20 * _COMPACT_TILE)
+        assert epoch == 1 and bigger.numel() >= max(21, 2 * buf.numel())
+        # a shorter mask keeps the larger buffer and its numbering
+        assert _take_and_launch(key, 1) == (bigger, 2)
+    elif case == "wraps":
+        pg._compact_scratch[key] = (buf, pg._EPOCHS - 1)
+        assert _take_and_launch(key, n) == (buf, 1)
+        assert _take_and_launch(key, n)[1] == 2
+    else:
+        other = ("cpu", 8)
+        assert _take_and_launch(other, n)[1] == 1
+        assert _take_and_launch(key, n)[1] == 2
+        assert _take_and_launch(other, n)[1] == 2
 
 
 def test_compact_positions_overflow_reports_count():

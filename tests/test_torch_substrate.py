@@ -176,10 +176,19 @@ def test_lane_gather_against_pallas():
     np.testing.assert_array_equal(got.numpy(), np.take_along_axis(d, l, axis=1))
 
 
-@pytest.mark.parametrize("R", [8, 64])
+# R = 1, then the last R of each form of csrc/tile_gather.cu's
+# sublane_gather and the first R past it, as its ldb_sublane_band_edges
+# gives them on the H100: the direct form up to 64 rows, bands of W = 128
+# up to 454, 64 up to 908, ..., 8 up to 7,264, a partial band of 8 up to
+# 18,160, then the direct form
+_BAND_EDGES = [1, 64, 65, 454, 455, 908, 909, 3632, 3633, 7264, 7265, 16384,
+               18160, 18161]
+
+
+@pytest.mark.parametrize("R", [8, 64] + [r for r in _BAND_EDGES if r != 64])
 def test_sublane_gather_against_pallas(R):
     rng = np.random.default_rng(4 + R)
-    nt = 3
+    nt = 3 if R <= 1024 else 1
     tab = _i32(rng, 0, 1 << 30, (R, 128))
     rows = _i32(rng, 0, R, (nt * R, 128))
     want = np.asarray(ref_sub(jnp.asarray(rows), jnp.asarray(tab), R, nt))
