@@ -21,7 +21,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               ones, set bits only in the last tile, count = k + 1, count >> k,
               k >> count, an unaligned mask, uint8 and int8 masks, a second
               stream, two calls back to back, calls after one that raised
-              before its launch), count and slots bit for bit;
+              before its launch), count and slots bit for bit, and from two
+              threads on the default stream at once (50 calls each, sel 0.5
+              and 0.02, with a time limit on the join: a hang fails);
               segscan is only
               checked here (at lineitem's length, runs of 4 and one run over
               the whole array; then n below one tile and at a tile's edges,
@@ -58,7 +60,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               kernel launched there; their times in the kernels line are that
               run's. Before it, in this process, the same kernels on the edges
               of their contracts (ragged and unaligned index arrays, indices
-              out of range, sublane_gather's tables at each change of band
+              out of range, gather_shift's tables at each change of form,
+              with fewer indices than blocks, and an unaligned table;
+              sublane_gather's tables at each change of band
               width and of form, R = 1 and m = 1, int32 wrap, one-hot tiles
               whose lane 0 is all ones
               or all zeros, runs crossing or ending on each 32-row segment
@@ -72,8 +76,10 @@ line {"kernels": [...]}, then as the last line
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 
 # the port's kernel bench: its timing helpers and the card's memory rate
@@ -223,7 +229,51 @@ def check_compact(torch, pg, n, cases):
         if err:
             fail(f"compact_positions differs from plain version (sel {sel})")
     check_compact_edges(torch, pg, u)
+    check_compact_threads(torch, pg, u)
     return u < 0.5
+
+
+def check_compact_threads(torch, pg, u, calls=50, limit_s=300.0):
+    """compact_positions from two threads on the default stream at once,
+    each `calls` times on its own mask (sel 0.5 and 0.02, k = count): the
+    threads share one scratch and its call numbers. Each thread waits for
+    the card, and the joins have a time limit: a hang fails the run here.
+    Then every result, count and slots, bit for bit against the plain
+    version."""
+    masks = [u < 0.5, u < 0.02]
+    wants = [pg.compact_positions_plain(m, int(m.sum())) for m in masks]
+    results, errors = [[], []], []
+
+    def work(t):
+        try:
+            k = int(wants[t][0])
+            for _ in range(calls):
+                results[t].append(pg.compact_positions(masks[t], k))
+            torch.cuda.synchronize()
+        except Exception as exc:  # reported after the join
+            errors.append(f"thread {t}: {exc!r}")
+
+    threads = [threading.Thread(target=work, args=(t,), daemon=True)
+               for t in range(2)]
+    deadline = time.perf_counter() + limit_s
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(max(0.0, deadline - time.perf_counter()))
+    if any(th.is_alive() for th in threads):
+        print(f"chip_smoke: FAILED: compact_positions from two threads did "
+              f"not finish within {limit_s:.0f} s (a hang)", file=sys.stderr,
+              flush=True)
+        os._exit(1)  # a thread waits on the card: no orderly exit
+    if errors:
+        fail(f"compact_positions from two threads raised: {errors}")
+    for t, (cnt_p, pos_p) in enumerate(wants):
+        for c, (cnt, pos) in enumerate(results[t]):
+            if int(cnt) != int(cnt_p) or max_abs_err(torch, [pos], [pos_p]):
+                fail(f"compact_positions from two threads differs from the "
+                     f"plain version: thread {t}, call {c}")
+    log(f"# compact_positions from two threads: {calls} calls each, every "
+        "result equal to the plain version")
 
 
 def check_compact_edges(torch, pg, u):
@@ -480,8 +530,9 @@ def check_substrate_edges(torch, sb):
     """The substrate kernels at small shapes on the edges of their
     contracts, bit for bit against their plain versions: index arrays that
     are not 16-byte aligned or a multiple of four long, indices out of
-    range (clamped, or taken modulo 128), sublane_gather's tables at each
-    change of band width, sums that wrap in int32, and
+    range (clamped, or taken modulo 128), gather_shift's tables at each
+    change of form (check_gather_shift_edges), sublane_gather's tables at
+    each change of band width, sums that wrap in int32, and
     one-hot tiles whose lane 0 is all ones (the last row is dropped) or all
     zeros (every row goes to slot 0); for onehot_compact's 32-row segments,
     runs that cross every segment edge or end on one, each pattern alone as
@@ -498,14 +549,14 @@ def check_substrate_edges(torch, sb):
         if max_abs_err(torch, [got], [want]):
             fail(f"substrate edge case differs from plain version: {label}")
 
-    for fn, s in ((sb.gather_shift, 5000), (sb.gather_shift, 1 << 21),
-                  (sb.gather_small, 1000), (sb.gather_small, sb.SMALL_TABLE_LIMIT)):
+    for s in (1000, sb.SMALL_TABLE_LIMIT):
         table = rand(-(1 << 31), (1 << 31) - 1, (s,))
         idx = rand(-3, s + 3, (100_003,))
         for label, i in (("aligned", idx[:100_000]), ("unaligned", idx[1:]),
                          ("seven", idx[1:8])):
-            same(f"{fn.__name__} S={s} {label}", fn(table, i),
+            same(f"gather_small S={s} {label}", sb.gather_small(table, i),
                  sb.table_gather_plain(table, i))
+    check_gather_shift_edges(torch, sb, rand, same)
     d = rand(-(1 << 31), (1 << 31) - 1, (3000, 128))
     lanes = rand(-300, 300, (3000, 128))
     same("lane_gather, l outside [0, 128)", sb.lane_gather(d, lanes),
@@ -568,6 +619,44 @@ def check_substrate_edges(torch, sb):
     m = (torch.rand((rows, 128), device="cuda", generator=gen) < 0.2).to(torch.int32)
     same(f"onehot_compact {rows // sb.TILE_ROWS} tiles", sb.onehot_compact(x, m),
          sb.onehot_compact_plain(x, m))
+
+
+def check_gather_shift_edges(torch, sb, rand, same):
+    """gather_shift at S = 1, on each side of the built library's edges
+    (the last table the staged form holds whole and the first it holds in
+    part, the last it takes and the first of the L2 form), S = 2^16 and
+    2^21, and S that are not a multiple of 4; each with n = 100,000, an
+    unaligned n = 100,002, n = 7 aligned and not, n = 1, and fewer indices
+    than the grid has blocks (blocks with no index); indices out of range,
+    INT32_MIN and INT32_MAX among them; then a table that is not 16-byte
+    aligned (staged by loads, not bulk copies)."""
+    edges = sb.gather_shift_edges()
+    plans = [sb.gather_shift_plan(s, 100_000)
+             for e in edges for s in (e, e + 1)]
+    got = [(p["form"], p["held"]) for p in plans]
+    if (len(edges) != 2 or edges != sorted(edges)
+            or got[:3] != [("staged", edges[0]), ("staged", edges[0]),
+                           ("staged", edges[0])] or got[3][0] != "l2"):
+        fail(f"gather_shift's form edges {edges} give launches {got}")
+    sizes = ({1, 5000, 1 << 16, (1 << 16) + 3, 300_001, 1 << 21} | set(edges)
+             | {e + 1 for e in edges})
+    for s in sorted(sizes):
+        table = rand(-(1 << 31), (1 << 31) - 1, (s,))
+        idx = rand(-3, s + 3, (100_003,))
+        idx[:2] = torch.tensor([-(1 << 31), (1 << 31) - 1], dtype=torch.int32)
+        plan = sb.gather_shift_plan(s, 100_000)
+        few = max(1, plan["blocks"] // 2)
+        for label, i in (("aligned", idx[:100_000]), ("unaligned", idx[1:]),
+                         ("seven", idx[:7]), ("seven unaligned", idx[1:8]),
+                         ("one", idx[:1]),
+                         (f"{few} indices, {plan['blocks']} blocks", idx[:few])):
+            same(f"gather_shift S={s} ({plan['form']}, {plan['held']} held) "
+                 f"{label}", sb.gather_shift(table, i),
+                 sb.table_gather_plain(table, i))
+    table = rand(-(1 << 31), (1 << 31) - 1, ((1 << 16) + 1,))[1:]
+    idx = rand(-3, (1 << 16) + 3, (100_000,))
+    same("gather_shift S=65536, table not 16-byte aligned",
+         sb.gather_shift(table, idx), sb.table_gather_plain(table, idx))
 
 
 def checked_kernel_calls(torch, pg, shapes: list):

@@ -112,6 +112,10 @@ def _declare(libs) -> None:
     for lib_name, fn_name, args in (
             ("table_gather", "ldb_gather_shift", [vp, i64, vp, i64, vp, i32, vp]),
             ("table_gather", "ldb_gather_small", [vp, i64, vp, i64, vp, i32, vp]),
+            ("table_gather", "ldb_gather_shift_edges",
+             [ctypes.POINTER(i64), i32]),
+            ("table_gather", "ldb_gather_shift_plan",
+             [i64, i64, i32, ctypes.POINTER(i64)]),
             ("tile_gather", "ldb_lane_gather", [vp, vp, i64, vp, i32, vp]),
             ("tile_gather", "ldb_sublane_gather",
              [vp, i64, vp, i64, vp, i32, vp]),

@@ -30,6 +30,7 @@ LAUNCHES, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -164,6 +165,10 @@ _compact_tile = 0  # mask bytes per tile, asked of the built library once
 # must be taken again by the next
 _compact_scratch: dict = {}
 _EPOCHS = 1 << 30  # a call number fits 30 bits; then the buffer is zeroed
+# held from taking a number to keeping it: two threads share a key (each
+# thread's current stream is the default stream unless it sets one), and
+# the launch releases the GIL
+_compact_lock = threading.Lock()
 
 
 def _compact_scratch_for(key, device, n: int):
@@ -171,8 +176,8 @@ def _compact_scratch_for(key, device, n: int):
     (device, stream) and the call's number on it, from 1: two tile counters
     in word 0, then a status word a tile. At number 1 (a new buffer, or
     numbers begun again) the kernel's entry point zeroes the buffer first.
-    Nothing is kept here: the caller stores (buffer, number) in
-    _compact_scratch after its launch succeeded."""
+    Nothing is kept here: _compact_launch stores (buffer, number) in
+    _compact_scratch after the launch succeeded."""
     words = 1 + -(-n // _compact_tile)
     entry = _compact_scratch.get(key)
     if entry is None or entry[0].numel() < words:
@@ -180,6 +185,22 @@ def _compact_scratch_for(key, device, n: int):
         return torch.empty((max(words, 2 * old),), dtype=torch.int64,
                            device=device), 1
     return entry[0], entry[1] % (_EPOCHS - 1) + 1
+
+
+def _compact_launch(key, device, n: int, launch) -> int:
+    """Take the scratch and call number of a compact_positions call over n
+    mask bytes on `key`, run `launch(scratch, number)` (the C call; returns
+    its error code) and keep (scratch, number) only if it returned 0, all
+    under one lock: no two calls take one number. The launch is
+    asynchronous, so the lock is held for the host's launch cost only."""
+    with _compact_lock:
+        scratch, epoch = _compact_scratch_for(key, device, n)
+        err = launch(scratch, epoch)
+        if err:  # a scratch whose memset may not have run is not kept
+            _compact_scratch.pop(key, None)
+        else:
+            _compact_scratch[key] = (scratch, epoch)
+    return err
 
 
 def compact_positions_plain(mask, k: int):
@@ -221,17 +242,16 @@ def compact_positions(mask, k: int):
     kp = -(-k // 4) * 4
     work = torch.empty((kp + 1,), dtype=torch.int32, device=mask.device)
     key = (mask.device, _stream(mask))
-    scratch, epoch = _compact_scratch_for(key, mask.device, n)
-    with torch.cuda.device(mask.device):
-        err = lib.ldb_compact_positions(
-            m.data_ptr(), n, work.data_ptr(), k, work.data_ptr() + 4 * kp,
-            scratch.data_ptr(), 8 * scratch.numel(), epoch, key[1])
-    LAUNCHES["compact_positions"] += 1
-    if err:  # a scratch whose memset may not have run is not kept
-        _compact_scratch.pop(key, None)
-    else:
-        _compact_scratch[key] = (scratch, epoch)
-    _check(err, "compact_positions")
+
+    def launch(scratch, epoch):
+        with torch.cuda.device(mask.device):
+            err = lib.ldb_compact_positions(
+                m.data_ptr(), n, work.data_ptr(), k, work.data_ptr() + 4 * kp,
+                scratch.data_ptr(), 8 * scratch.numel(), epoch, key[1])
+        LAUNCHES["compact_positions"] += 1
+        return err
+
+    _check(_compact_launch(key, mask.device, n, launch), "compact_positions")
     return work[kp], work[:k]
 
 

@@ -3,8 +3,10 @@ and the tile-level probes of the JAX package's substrate bench
 (benchtools/tools_kbench.py, benchtools/tools_pallas_gather.py). None has an
 engine caller; tools/substrate_bench.py runs them.
 
-  gather_shift(table, idx)     T1  table[idx], any table size; the table is
-                                   read from device memory (csrc/table_gather.cu)
+  gather_shift(table, idx)     T1  table[idx], any table size; the table,
+                                   or its first part, held in each block's
+                                   shared memory, or read from L2, by its
+                                   size (csrc/table_gather.cu)
   gather_small(table, idx)     T2  table[idx], table <= SMALL_TABLE_LIMIT
                                    entries staged in shared memory (same file)
   lane_gather(d, l)            T3  out[r, j] = d[r, l[r, j]]  (csrc/tile_gather.cu)
@@ -139,6 +141,45 @@ def gather_shift(table, idx):
     Contract 0 <= idx < len(table); an index outside it is clamped. The
     output has len(idx) entries (no padding)."""
     return _table_gather("gather_shift", table, idx, 2147483647)
+
+
+GATHER_SHIFT_FORMS = {1: "staged", 2: "l2"}
+
+
+def gather_shift_edges() -> list:
+    """The edges of gather_shift's forms in its kernel on the card: the
+    tallest table the staged form holds whole in each block's shared
+    memory, then the tallest it takes (its first entries held, the rest
+    from L2); taller tables take the L2 form (ldb_gather_shift_edges)."""
+    import ctypes
+
+    from . import cuda_build
+
+    edges = (ctypes.c_int64 * 2)()
+    count = cuda_build.lib("table_gather").ldb_gather_shift_edges(edges, 2)
+    return [int(e) for e in edges[:count]]
+
+
+def gather_shift_plan(s: int, n: int, device=None) -> dict:
+    """The launch gather_shift's kernel makes on the card for a table of s
+    entries and n aligned indices: its form, the entries a block stages,
+    blocks, dynamic shared memory a block (bytes) and threads a block
+    (ldb_gather_shift_plan). Launches nothing."""
+    import ctypes
+
+    from . import cuda_build
+
+    device = torch.device("cuda") if device is None else torch.device(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    info = (ctypes.c_int64 * 5)()
+    with torch.cuda.device(device):
+        err = cuda_build.lib("table_gather").ldb_gather_shift_plan(
+            s, n, sms * _BLOCKS_PER_SM, info)
+    if err != 0:
+        raise RuntimeError(f"gather_shift_plan: error {err} for S={s} n={n}")
+    return {"form": GATHER_SHIFT_FORMS[int(info[0])], "held": int(info[1]),
+            "blocks": int(info[2]), "smem": int(info[3]),
+            "threads": int(info[4])}
 
 
 def gather_small(table, idx):

@@ -1,7 +1,8 @@
-"""The measurements behind two kernels' design constants, and a breakdown of
-the cases where each reads furthest from its bound, on the card.
+"""The measurements behind three kernels' design constants, and a breakdown
+of the cases where each reads furthest from its bound, on the card.
 
     python3 -m lingodb_tpu_torch.tools.design_sweep
+    python3 -m lingodb_tpu_torch.tools.design_sweep --only gather_shift
     python3 -m lingodb_tpu_torch.tools.design_sweep --counters   # only those
 
 A variant is the kept source with one constant rewritten, compiled by nvcc
@@ -16,13 +17,21 @@ again last, so that drift over the run shows. Variants:
       (kMaxSmem) against the kept 227 KB, and no partial band
       (kPartialRows = 0: tables taller than a band of 8 columns holds take
       the direct form)
+  gather_shift (csrc/table_gather.cu): the L2 form for every table
+      (kStagedMaxEntries = 0: the first design); the staged form up to 16
+      blocks' worth of entries (kStagedMaxEntries); staging by 16-byte
+      loads (kStageBulk) against the kept bulk copies. At S = 2^16 and
+      2^21, n = 6M and 60M, at 6M on each side of each edge (the whole
+      table held, the staged form's last table), and over the range of
+      tables held in part at 6M and 60M
 
 Breakdowns, with the kept kernels: compact_positions with k = 0 (the mask
 read, counted, scanned and looked back over, no position written) beside
 k = count and beside torch.count_nonzero of the same mask (one read of it);
 sublane_gather at R = 16,384 beside the two forms it mixes, the band of 8
 columns at R = 7,264 (every lookup from shared memory) and the direct form
-at R = 16,384 (every lookup an L2 sector). Hardware counters (DRAM bytes and
+at R = 16,384 (every lookup an L2 sector); gather_shift's staging alone,
+the staged form at n = 4,096 beside the L2 form there. Hardware counters (DRAM bytes and
 L2 sectors a kernel) are asked of CUPTI through torch.profiler, where the
 machine allows it; otherwise the line says so.
 
@@ -50,7 +59,11 @@ VARIANTS = {
     ("compact_positions", "tile16k"): {"kMidRows": "0", "kWideRows": "0"},
     ("tile_gather", "smem128k"): {"kMaxSmem": "131072"},
     ("tile_gather", "no_partial"): {"kPartialRows": "0"},
+    ("table_gather", "l2"): {"kStagedMaxEntries": "0"},
+    ("table_gather", "partial_wide"): {"kStagedMaxEntries": "16 * kPartMax"},
+    ("table_gather", "stage_loads"): {"kStageBulk": "false"},
 }
+SECTIONS = ("compact_positions", "sublane_gather", "gather_shift", "counters")
 METRICS = ("dram__bytes_read.sum", "dram__bytes_write.sum",
            "lts__t_sectors_op_read.sum")
 
@@ -65,15 +78,17 @@ def variant_source(text: str, consts: dict) -> str:
     return text
 
 
-def build_variants() -> dict:
-    """Compile every variant, all nvcc processes at once; returns
-    (library, variant) -> CDLL."""
+def build_variants(libraries) -> dict:
+    """Compile every variant of the named libraries, all nvcc processes at
+    once; returns (library, variant) -> CDLL."""
     from ..ops import cuda_build
 
     out_dir = cuda_build.BUILD_DIR / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for (name, variant), consts in VARIANTS.items():
+        if name not in libraries:
+            continue
         src = out_dir / f"{name}_{variant}.cu"
         text = (cuda_build.CSRC / f"{name}.cu").read_text()
         src.write_text(variant_source(text, consts))
@@ -170,7 +185,68 @@ def counters_main() -> int:
     return 0
 
 
-def main() -> int:
+def sweep_gather_shift(torch, sb, variants, rep, gen) -> None:
+    """gather_shift's variants at the bench's shapes, its staging alone, and
+    each side of each form edge of the kept build (every case checked bit
+    for bit against the plain version; the launch each makes is printed)."""
+    dev = torch.device("cuda")
+
+    def data(s, n):
+        table = torch.randint(0, 1 << 30, (s,), device=dev, generator=gen,
+                              dtype=torch.int32)
+        idx = torch.randint(0, s, (n,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        return table, idx
+
+    def run(variant, s, n, table, idx):
+        use("table_gather", variants.get(("table_gather", variant)))
+        plan = sb.gather_shift_plan(s, n)
+        ok = torch.equal(sb.gather_shift(table, idx),
+                         sb.table_gather_plain(table, idx))
+        rep("gather_shift", variant,
+            f"S={s} n={n} {plan['form']} held={plan['held']} "
+            f"blocks={plan['blocks']} smem={plan['smem']}", ok,
+            lambda: sb.gather_shift(table, idx), n * 8 + s * 4)
+
+    use("table_gather", None)
+    edges = sb.gather_shift_edges()
+    print(f"# gather_shift edges (kept): {edges}", flush=True)
+    for n in (6_000_000, 60_000_000):
+        for s, runs in (
+                (1 << 16, ("kept", "l2", "stage_loads", "kept")),
+                (1 << 21, ("kept", "kept"))):
+            table, idx = data(s, n)
+            for variant in runs:
+                run(variant, s, n, table, idx)
+            del table, idx
+    # the staging alone: the staged form at n = 4,096, the L2 form beside
+    table, idx = data(1 << 16, 4096)
+    for variant in ("kept", "stage_loads", "l2"):
+        run(variant, 1 << 16, 4096, table, idx)
+    # each side of each form edge, against the L2 form
+    for s in sorted(set(edges) | {e + 1 for e in edges}):
+        table, idx = data(s, 6_000_000)
+        for variant in ("kept", "l2"):
+            run(variant, s, 6_000_000, table, idx)
+        del table, idx
+    # tables held in part over a wider range, against the L2 form
+    for n in (6_000_000, 60_000_000):
+        for s in (1 << 17, 3 << 16, 1 << 18, 1 << 19):
+            table, idx = data(s, n)
+            for variant in ("partial_wide", "l2"):
+                run(variant, s, n, table, idx)
+            del table, idx
+    use("table_gather", None)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=SECTIONS, nargs="+", default=SECTIONS,
+                    help="the sections to run (default: all)")
+    args = ap.parse_args(argv)
+
     import torch
 
     if not torch.cuda.is_available():
@@ -183,7 +259,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     print(f"# design_sweep: {smi.stdout.strip()}", flush=True)
-    variants = build_variants()
+    libraries = {"compact_positions": "compact_positions",
+                 "sublane_gather": "tile_gather",
+                 "gather_shift": "table_gather"}
+    variants = build_variants({libraries[s] for s in args.only
+                               if s in libraries})
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases, failed = [], []
@@ -199,7 +279,27 @@ def main() -> int:
         print(f"{name}[{variant}] {shape}: card={card:.4f}ms call={call:.4f}ms "
               f"bound={bound:.4f}ms correct={bool(ok)}", flush=True)
 
-    # ---- compact_positions: masks of each size the rule separates
+    if "compact_positions" in args.only:
+        sweep_compact(torch, pg, variants, rep, gen)
+    if "sublane_gather" in args.only:
+        sweep_sublane(torch, sb, variants, rep, gen)
+    if "gather_shift" in args.only:
+        sweep_gather_shift(torch, sb, variants, rep, gen)
+    if "counters" in args.only:
+        cases.append({"counters": run_counters()})
+
+    print(json.dumps({"cases": cases}), flush=True)
+    if failed:
+        print("design_sweep: FAILED: " + ", ".join(failed), file=sys.stderr)
+        return 1
+    return 0
+
+
+def sweep_compact(torch, pg, variants, rep, gen) -> None:
+    """compact_positions' tile sizes at every mask length, then k = 0 and
+    count_nonzero beside the kept build."""
+    dev = torch.device("cuda")
+    # masks of each size the rule separates
     u = torch.rand(60_000_000, device=dev, generator=gen)
     masks = []
     for rows, sel, k in ((1_024, 0.5, None), (65_536, 11_268 / 65_536, 65_536),
@@ -230,8 +330,12 @@ def main() -> int:
             lambda m=mask: torch.count_nonzero(m), mask.numel())
     del u, masks
 
-    # ---- sublane_gather: an (R, 128) table and 60M row indices, as
-    # substrate_bench.py's calib_sub cases
+
+def sweep_sublane(torch, sb, variants, rep, gen) -> None:
+    """sublane_gather: an (R, 128) table and 60M row indices, as
+    substrate_bench.py's calib_sub cases, under each shared-memory budget
+    and without the partial band."""
+    dev = torch.device("cuda")
     n_all = 60_000_000
     # the last R of each band width under the kept budget, where the 128 KB
     # budget takes the next narrower band (or, at 7,264, the partial band)
@@ -255,7 +359,9 @@ def main() -> int:
         del tab, ridx
     use("tile_gather", None)
 
-    # ---- hardware counters, where CUPTI gives them
+
+def run_counters() -> dict:
+    """The hardware counters, where CUPTI gives them (a child process)."""
     try:
         child = subprocess.run(
             [sys.executable, "-m", __spec__.name, "--counters"],
@@ -267,13 +373,7 @@ def main() -> int:
     except subprocess.TimeoutExpired:
         got = {"unavailable": "the counters' run took over 300 s"}
     print(f"counters: {json.dumps(got)}", flush=True)
-    cases.append({"counters": got})
-
-    print(json.dumps({"cases": cases}), flush=True)
-    if failed:
-        print("design_sweep: FAILED: " + ", ".join(failed), file=sys.stderr)
-        return 1
-    return 0
+    return got
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ reference scripts' shapes:
   calib_pltpuroll       T6 the same kernel on the same array (the reference
                         probes two TPU instructions for one function)
   gather_shift_S{S}_n{n}  T1, S = 2^16 and 2^21 at n = N, S = 2^21 at 2^20
+                        (each preceded by the launch its form makes)
   gather_small_S{S}_n{n}  T2, S = 1024 and 4096 at n = N, S = 1024 at 2^20
   mm_compact            T7 onehot_compact, (N // 32768 * 256, 128), 20 % of
                         m set, x < 2^15
@@ -154,6 +155,9 @@ def main(argv=None) -> int:
             table = rand_i32(0, 1 << 30, (s,))
             idx = rand_i32(0, s, (n,))
             idx64 = idx.to(torch.int64)
+            if kernel == "gather_shift":
+                print(f"# {kernel}_S{s}_n{n} launch: "
+                      f"{json.dumps(sb.gather_shift_plan(s, n))}", flush=True)
             case(f"{kernel}_S{s}_n{n}", row, kernel,
                  lambda f=fn, t=table, i=idx: f(t, i),
                  lambda t=table, i=idx: sb.table_gather_plain(t, i),

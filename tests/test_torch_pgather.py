@@ -106,13 +106,29 @@ def test_compact_positions_capacity(n, p, k):
     assert (pos.numpy()[c:] == pg.SENTINEL).all()
 
 
+class _NotLaunched(Exception):
+    pass
+
+
 def _take_and_launch(key, n, launched=True):
-    """compact_positions' bookkeeping for one call: take the scratch and
-    the call's number, and keep them only if the kernel launched."""
-    buf, epoch = pg._compact_scratch_for(key, "cpu", n)
-    if launched:
-        pg._compact_scratch[key] = (buf, epoch)
-    return buf, epoch
+    """compact_positions' bookkeeping for one call, through
+    pgather._compact_launch with a fake launch that records the scratch
+    and number it is given and returns 0 (the kernel launched), or raises
+    before launching (as a call does that fails between taking its number
+    and its launch). Returns what the launch was given."""
+    given = []
+
+    def launch(scratch, epoch):
+        given.append((scratch, epoch))
+        if not launched:
+            raise _NotLaunched
+        return 0
+
+    try:
+        assert pg._compact_launch(key, "cpu", n, launch) == 0
+    except _NotLaunched:
+        assert not launched
+    return given[0]
 
 
 @pytest.mark.parametrize("case", ["new", "numbered", "not_launched",
@@ -158,6 +174,72 @@ def test_compact_scratch_numbers_only_launched_calls(monkeypatch, case):
         assert _take_and_launch(other, n)[1] == 1
         assert _take_and_launch(key, n)[1] == 2
         assert _take_and_launch(other, n)[1] == 2
+
+
+@pytest.mark.parametrize("outcome", ["error", "raises"])
+def test_compact_launch_keeps_only_launched_numbers(monkeypatch, outcome):
+    """A launch whose C call returns an error drops the key's scratch (its
+    memset may not have run): the error is returned, and the next call
+    starts again at 1 on a new buffer, which the entry point zeroes. A
+    launch that raises leaves the entry as it was: the next call takes the
+    same number on the same buffer. Other keys are left alone."""
+    monkeypatch.setattr(pg, "_compact_tile", _COMPACT_TILE)
+    monkeypatch.setattr(pg, "_compact_scratch", {})
+    key, other, n = ("cpu", 7), ("cpu", 8), 3 * _COMPACT_TILE
+    buf, _ = _take_and_launch(key, n)
+    assert _take_and_launch(key, n) == (buf, 2)
+    assert _take_and_launch(other, n)[1] == 1
+    given = []
+
+    def launch(scratch, epoch):
+        given.append((scratch, epoch))
+        if outcome == "raises":
+            raise _NotLaunched
+        return 719  # any CUDA error code
+
+    if outcome == "error":
+        assert pg._compact_launch(key, "cpu", n, launch) == 719
+        assert key not in pg._compact_scratch
+        again, epoch = _take_and_launch(key, n)
+        assert epoch == 1 and again is not buf
+    else:
+        with pytest.raises(_NotLaunched):
+            pg._compact_launch(key, "cpu", n, launch)
+        assert pg._compact_scratch[key] == (buf, 2)
+        assert _take_and_launch(key, n) == (buf, 3)
+    assert given == [(buf, 3)]
+    assert pg._compact_scratch[other][1] == 1
+    assert not pg._compact_lock.locked()
+
+
+def test_compact_numbers_taken_once_across_threads(monkeypatch):
+    """Threads share a scratch key (the default stream), and the launch
+    releases the GIL between taking a number and keeping it: 8 threads x
+    100 calls on one key must launch with 1 ... 800, each exactly once, in
+    launch order."""
+    import threading
+    import time
+
+    monkeypatch.setattr(pg, "_compact_tile", _COMPACT_TILE)
+    monkeypatch.setattr(pg, "_compact_scratch", {})
+    key, n, launched = ("cpu", 0), 3 * _COMPACT_TILE, []
+
+    def fake_launch(_scratch, epoch):
+        time.sleep(0)  # yield the GIL, as the ctypes call does
+        launched.append(epoch)
+        return 0
+
+    def calls():
+        for _ in range(100):
+            assert pg._compact_launch(key, "cpu", n, fake_launch) == 0
+
+    threads = [threading.Thread(target=calls) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert launched == list(range(1, 801))
+    assert pg._compact_scratch[key][1] == 800
 
 
 def test_compact_positions_overflow_reports_count():

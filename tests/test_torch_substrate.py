@@ -137,11 +137,15 @@ def _counters():
 
 # ---- T1, T2 ---------------------------------------------------------------
 
-def test_gather_shift_against_pallas():
-    # S not a multiple of 1024 (the reference pads the table), n not a
-    # multiple of S (it pads the indices)
+# S = 1, S = 4,097 and 5,000 (not a multiple of 1024: the reference pads
+# the table; the port's staged form holds the whole table), 2^16 (the
+# staged form holds its first part); n not a multiple of S (the reference
+# pads the indices). On the CPU these hold the plain version; the kernel's
+# forms are held on the card by chip_smoke.py's check_gather_shift_edges.
+@pytest.mark.parametrize("s", [1, 4097, 5000, 1 << 16])
+def test_gather_shift_against_pallas(s):
     rng = np.random.default_rng(1)
-    s, n = 5000, 3000
+    n = 3000
     table, idx = _i32(rng, 0, 1 << 30, s), _i32(rng, 0, s, n)
     want = np.asarray(tpg.pallas_gather_shift(jnp.asarray(table),
                                               jnp.asarray(idx), interpret=True))
@@ -149,6 +153,23 @@ def test_gather_shift_against_pallas():
     assert got.dtype == torch.int32 and got.shape == (n,)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), table[idx])
+
+
+# S = 1 and both sides of the edges of the kernel's forms (the whole table
+# held, the last table staged): the contract the card's kernel is held to
+# against table_gather_plain, out-of-range indices clamped to [0, S - 1]
+@pytest.mark.parametrize("s", [1, 58_108, 58_109, 232_432, 232_433])
+def test_gather_shift_clamps_out_of_range_indices(s):
+    rng = np.random.default_rng(s)
+    table = _i32(rng, -(1 << 31), (1 << 31) - 1, s)
+    idx = np.concatenate([
+        np.array([-(1 << 31), (1 << 31) - 1, -1, 0, s - 1, s], np.int32),
+        _i32(rng, -3, s + 3, 1001)])
+    want = table[np.clip(idx, 0, s - 1)]
+    for fn in (sb.gather_shift, sb.table_gather_plain):
+        got = fn(_t(table), _t(idx))
+        assert got.dtype == torch.int32 and got.shape == idx.shape
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_gather_small_against_pallas():
