@@ -42,6 +42,19 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               Then the fused path once more with every kernel call checked
               bit for bit against the plain version on the very same inputs,
               listing the shapes each query hands each kernel
+  4b. topk/chain the queries whose TopK or multi-join chain the fused
+              programs carry (TopK: q2, q3, q10, q18, q21; chain: q8, q9, q11,
+              q16, q17, q20; q2, q3, q10, q18 through both) three ways, from
+              a clean stage cache: on the fused path, with all three fused
+              entry points declined (the eager operators) and on the CPU
+              session; the rows equal on all three and again on a second
+              run; which queries engaged the fused TopK and the fused chain,
+              on the card and on the CPU (the sets must be equal and neither
+              empty); per query and path the wall time (second run), host
+              syncs and launches; then every chain run once more from a clean
+              cache with each kernel call checked bit for bit against its
+              plain version at the chain's own shapes (the chain's tail must
+              have launched compact_positions or gather_sorted)
   5. the rest the other 17 TPC-H queries, card against CPU session
   6. battery  ~100 SQL statements over small tables held as tensors (joins of
               every kind, set operations, subqueries, casts, NULLs), card
@@ -88,6 +101,8 @@ from lingodb_tpu_torch.tools.kbench import call_ms as time_ms
 from lingodb_tpu_torch.tools.kbench import card_ms as device_ms
 
 QUERIES = ["6", "1", "14", "3", "4"]
+TOPK_CHAIN_QUERIES = ["2", "3", "10", "18", "21", "8", "9", "11", "16", "17",
+                      "20"]
 KERNEL_META = {
     "compact_positions": {
         "route": "cuda",
@@ -164,6 +179,13 @@ SUBSTRATE_ROWS = {
 MAIN_PATH = {"compact_positions": "fused", "gather_sorted": "fused",
              "gather_chunked": "fused", "segscan": "kbench",
              **{name: "substrate" for name in SUBSTRATE_ROWS}}
+# the kernels of the fused chain's tail (phase 4b, path "topk_chain"): the
+# compacted tail and the full-width tail's select_mask both take the
+# survivors' positions (compact_positions) and gather the output columns at
+# them (gather_sorted); the TopK tail ranks with torch.topk. Each kernel
+# entry of the kernels line counts its checked calls inside the chain
+# ("chain_calls_checked").
+CHAIN_TAIL = ("compact_positions", "gather_sorted")
 
 
 def fail(msg: str):
@@ -710,6 +732,125 @@ def checked_kernel_calls(torch, pg, shapes: list):
     return block()
 
 
+def topk_chain_phase(torch, pg, ex, gpu_profile, gpu, cpu, launches,
+                     cpu_rows) -> dict:
+    """Phase 4b (see the module docstring). Returns the checked kernel calls
+    made inside the fused chain, by kernel."""
+    sqls = {q: open(f"queries/tpch/{q}.sql").read() for q in TOPK_CHAIN_QUERIES}
+    seen = set()
+    names = {"_try_fused_topk": "topk", "_try_fused_chain": "chain"}
+    orig = {name: getattr(ex.Executor, name) for name in names}
+
+    def spy(name):
+        def call(self, *a, **k):
+            r = orig[name](self, *a, **k)
+            if r is not None:
+                seen.add(names[name])
+            return r
+        return call
+
+    for name in names:
+        setattr(ex.Executor, name, spy(name))
+    engaged = {"cpu": {"topk": [], "chain": []}, "gpu": {"topk": [], "chain": []}}
+    try:
+        gpu.stage_cache.clear()
+        cpu.stage_cache.clear()
+        for where, sess in (("cpu", cpu), ("gpu", gpu)):
+            pg.reset_counters()  # the card's first runs: the path's launches
+            for q in TOPK_CHAIN_QUERIES:
+                seen.clear()
+                rows = sess.sql(sqls[q]).format_rows()
+                for kind in seen:
+                    engaged[where][kind].append(q)
+                if where == "cpu":
+                    cpu_rows[q] = rows
+                elif rows != cpu_rows[q]:
+                    fail(f"q{q} [topk/chain, fused]: GPU rows differ from the "
+                         f"CPU session's\ngpu={rows[:3]}\ncpu={cpu_rows[q][:3]}")
+            if where == "gpu":
+                torch.cuda.synchronize()
+                launches["topk_chain"] = dict(pg.LAUNCHES)
+    finally:
+        for name, fn in orig.items():
+            setattr(ex.Executor, name, fn)
+    log(f"# topk/chain engaged on the card: {json.dumps(engaged['gpu'])}; on "
+        f"the CPU session: {json.dumps(engaged['cpu'])}")
+    if engaged["gpu"] != engaged["cpu"]:
+        fail("topk/chain: the card engaged the fused TopK / chain on other "
+             "queries than the CPU session")
+    if not engaged["gpu"]["topk"] or not engaged["gpu"]["chain"]:
+        fail(f"topk/chain: a fused path never engaged: {engaged['gpu']}")
+    log(f"# main path launches [topk_chain] (first runs): "
+        f"{json.dumps(launches['topk_chain'])}")
+    for path in ("fused", "eager"):
+        label = "fused" if path == "fused" else "declined"
+        with gpu_profile.path_context(path):
+            for q in TOPK_CHAIN_QUERIES:
+                if path == "eager" and gpu.sql(sqls[q]).format_rows() != cpu_rows[q]:
+                    fail(f"q{q} [topk/chain, declined]: GPU rows differ from "
+                         "the CPU session's")
+                pg.reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rows = gpu.sql(sqls[q]).format_rows()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = dict(pg.LAUNCHES)
+                syncs, peak, _resident = gpu_profile.syncs_and_peak(
+                    torch, lambda: gpu.sql(sqls[q]).format_rows())
+                if rows != cpu_rows[q]:
+                    fail(f"q{q} [topk/chain, {label}]: second run differs from "
+                         "the CPU session's")
+                log(f"# topk/chain q{q} [{label}]: rows={len(rows)} "
+                    f"wall_ms={ms:.2f} (second run) launches={json.dumps(counts)} "
+                    f"syncs={syncs} peak_mib={peak / 2**20:.1f}")
+    # every chain once more from a clean cache (calibration, then its tail),
+    # each kernel call held against its plain version on the same inputs;
+    # the calls inside the chain's program and finish are its own, those
+    # inside its spine (fused.run_spine) are not its tail's
+    from lingodb_tpu_torch.runtime import fused as F
+
+    shapes: list = []
+    ranges = {"chain": [], "spine": []}
+    wrapped = []
+    for owner, name, kind in ((ex.Executor, "_fused_chain_program", "chain"),
+                              (ex.Executor, "_finish_fused_chain", "chain"),
+                              (F, "run_spine", "spine")):
+        fn = getattr(owner, name)
+        wrapped.append((owner, name, fn))
+
+        def marked(*a, _fn=fn, _kind=kind, **k):
+            start = len(shapes)
+            try:
+                return _fn(*a, **k)
+            finally:
+                ranges[_kind].append(range(start, len(shapes)))
+
+        setattr(owner, name, marked)
+    gpu.stage_cache.clear()
+    try:
+        with checked_kernel_calls(torch, pg, shapes):
+            for q in TOPK_CHAIN_QUERIES:
+                if gpu.sql(sqls[q]).format_rows() != cpu_rows[q]:
+                    fail(f"q{q} [topk/chain, checked]: GPU rows differ from "
+                         "the CPU session's")
+    finally:
+        for owner, name, fn in wrapped:
+            setattr(owner, name, fn)
+    in_chain = sorted({i for r in ranges["chain"] for i in r})
+    spine = {i for r in ranges["spine"] for i in r}
+    log("# chain kernel calls (each equal to its plain version): "
+        + ("; ".join(f"{'spine' if i in spine else 'tail'}: {shapes[i][0]} "
+                     f"{shapes[i][1]}" for i in in_chain) or "none"))
+    tail = {shapes[i][0] for i in in_chain if i not in spine}
+    if not tail & set(CHAIN_TAIL):
+        fail(f"the fused chain's tail launched none of {CHAIN_TAIL}")
+    checked: dict = {}
+    for i in in_chain:
+        checked[shapes[i][0]] = checked.get(shapes[i][0], 0) + 1
+    return checked
+
+
 def q6_numpy(tables) -> str:
     import numpy as np
 
@@ -866,6 +1007,12 @@ def main() -> int:
     if unchecked:
         fail(f"kernels never checked at the fused path's shapes: {unchecked}")
 
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 4b")
+    # ---- phase 4b: the fused TopK and the fused chain
+    cpu_rows: dict = {}
+    chain_checked = topk_chain_phase(torch, pg, ex, gpu_profile, gpu, cpu,
+                                     launches, cpu_rows)
+
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 5")
     # ---- phase 5: the other 17 TPC-H queries, card against CPU session
     for q in [str(i) for i in range(1, 23) if str(i) not in QUERIES]:
@@ -873,7 +1020,7 @@ def main() -> int:
         t0 = time.perf_counter()
         got = gpu.sql(sql).format_rows()
         ms = (time.perf_counter() - t0) * 1e3
-        if got != cpu.sql(sql).format_rows():
+        if got != (cpu_rows.get(q) or cpu.sql(sql).format_rows()):
             fail(f"q{q}: GPU rows differ from the CPU session's")
         log(f"# extra query q{q}: rows={len(got)} wall_ms={ms:.2f} (first run)")
 
@@ -981,6 +1128,7 @@ def main() -> int:
             "name": name, **meta,
             "launches": launches[MAIN_PATH[name]][name],
             "launches_by_path": {p: launches[p].get(name, 0) for p in launches},
+            "chain_calls_checked": chain_checked.get(name, 0),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": head["ms"], "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],

@@ -10,9 +10,14 @@ An Aggregate over a Scan -> Select/Map -> dimension-Join spine first goes to
 the fused aggregate program (`_try_fused_agg`, building blocks in
 runtime/fused.py): the whole spine and the grouping run as one function on
 the session's tensors, sized by static capacities, with one packed fetch at
-the end. Where it declines, the EAGER operators below run: one operator at a
-time, each materializing its result. The JAX package also has a fused chain
-and a fused TopK, sharded mesh operators and an out-of-core streaming
+the end. The same spine with no aggregate on top (a Select or Join at the
+top of a chain of dimension joins) goes to the fused chain
+(`_try_fused_chain`), which emits the surviving rows compacted into a
+learned capacity. A TopK over either folds into that program as an epilogue
+(`_try_fused_topk`): the program emits the top candidates and the host
+re-sorts only those. Where a program declines, the EAGER operators below
+run: one operator at a time, each materializing its result. The JAX
+package also has sharded mesh operators and an out-of-core streaming
 aggregate; here those exist as methods that always decline (return None)
 until they are ported — see ROADMAP.md, queue A.
 """
@@ -69,6 +74,9 @@ class Executor:
         # the eager operators consume them instead of running the subtree
         # again (id(node) -> VTable)
         self._materialized_bases: dict[int, VTable] = {}
+        # set while _try_fused_chain builds its dimension sides eagerly: a
+        # chain among them runs the eager operators
+        self._in_fused_chain = False
 
     # ------------------------------------------------------------- dispatch
     def execute(self, plan: L.Materialize) -> ResultTable:
@@ -170,12 +178,6 @@ class Executor:
     # ------------------------------------------ paths that are not ported yet
     # Each declines, as the reference's own versions may, and the eager
     # operator then runs (ROADMAP.md queue A).
-    def _try_fused_chain(self, op, epi=None) -> Optional[VTable]:
-        return None
-
-    def _try_fused_topk(self, op) -> Optional[VTable]:
-        return None
-
     def _try_chunked_agg(self, op, steps, scan) -> Optional[VTable]:
         return None
 
@@ -280,16 +282,48 @@ class Executor:
         fused = self._try_fused_topk(op)
         if fused is not None:
             return fused
-        vt = self.run(op.child).dense()
-        if vt.num_rows == 0:
-            return vt
-        perm = keymod.sort_permutation(
-            [(vt.col(k.cid), k.ascending, k.nulls_first) for k in op.keys],
-            vt.num_rows,
-        )
-        lo = min(op.offset, vt.num_rows)
-        hi = min(op.offset + op.n, vt.num_rows)
-        return vt.take(perm[lo:hi], hi - lo)
+        return _topk_rows(op, self.run(op.child).dense())
+
+    def _try_fused_topk(self, op: L.TopK) -> Optional[VTable]:
+        """Fold a TopK over Map*(Aggregate) or over a fused chain into that
+        program as an epilogue: the program emits only the top kk candidate
+        rows by the primary sort key (slack and an exact tie check, see
+        fused.topk_candidates); here the small candidate set is re-sorted
+        under the FULL key order and sliced. This replaces the eager
+        epilogue's operators, and their syncs, with none."""
+        from . import device as dv
+
+        node = op.child
+        maps = []
+        while isinstance(node, L.Map):
+            maps.append(node)
+            node = node.children()[0]
+        is_agg = isinstance(node, L.Aggregate) and node.group_by
+        if not (is_agg or isinstance(node, (L.Select, L.Join))):
+            return None
+        k = op.offset + op.n
+        if k <= 0 or k > (1 << 13):
+            return None
+        # pow2 slack: secondary keys resolve among the candidates on the
+        # host; ties at the cutoff beyond the slack decline (EpiOverflow)
+        kk = 1 << (max(2 * k, k + 32) - 1).bit_length()
+        epi = {"node": op, "maps": list(reversed(maps)), "k": k, "kk": kk,
+               "out_cids": [c.cid for c in op.child.output_cols()]}
+        res = (self._try_fused_agg(node, epi=epi) if is_agg
+               else self._try_fused_chain(node, epi=epi))
+        if res is None:
+            return None
+        vt, applied = res
+        if not applied:
+            # dense mode or a declined epilogue: the whole result came back;
+            # the Map steps run here (a dense result is host numpy already)
+            for m in reversed(maps):
+                cols = dict(vt.cols)
+                for info, expr in m.computed:
+                    cols[info.cid] = sc._bcast(
+                        sc.eval_expr(expr, cols), vt.num_rows)
+                vt = VTable(cols, vt.num_rows)
+        return _topk_rows(op, dv.demote_small(vt))
 
     def _run_distinct(self, op: L.Distinct) -> VTable:
         vt = self.run(op.child).dense()
@@ -633,10 +667,18 @@ class Executor:
         steps.reverse()
         return steps, cur
 
-    def _try_fused_agg(self, op: L.Aggregate, epi=None) -> Optional[VTable]:
+    def _try_fused_agg(self, op: L.Aggregate, epi=None):
         """Run the aggregate and its spine as ONE program, or return None
-        (the eager operators then run). `epi` (a TopK epilogue to fold in)
-        stays None until the fused TopK is ported.
+        (the eager operators then run).
+
+        `epi` (from _try_fused_topk) is a TopK epilogue to fold into the
+        program's general mode: {"node": the TopK, "maps": the Map steps
+        between it and the aggregate, bottom-up, "k", "kk", "out_cids"}.
+        With `epi` given, the result is the pair (vtable, applied): applied
+        means the vtable holds the at most kk TopK candidate rows, which
+        the caller re-sorts under the full key order and slices; otherwise
+        (dense mode, or a declined epilogue) it is the whole aggregate and
+        the caller runs the epilogue eagerly.
 
         The program is built from static capacities learned per plan and
         table versions and kept in session.stage_cache: the group capacity
@@ -648,6 +690,11 @@ class Executor:
         from ..plan.serial import plan_key
         from . import device as dv
         from . import fused as F
+
+        want_pair = epi is not None  # also when the epilogue declines below
+
+        def _ret(vt, applied):
+            return (vt, applied) if want_pair else vt
 
         if any(a.distinct for a in op.aggs):
             return None
@@ -680,7 +727,16 @@ class Executor:
             n = base_vt.num_rows
             if n < dv.SMALL_ROWS:
                 return None
-            base_cols = sorted(base_vt.cols.items())
+            # a result of the dense grouping lives on the host tier: it is
+            # uploaded, as the reference's program takes host arrays in
+            # (wide-decimal object columns stay on the host and decline)
+            base_cols = [
+                (cid, c if is_obj(c.data) else SCol(
+                    c.type, F.on_device(c.data, n, self.session.device),
+                    None if c.valid is None
+                    else F.on_device(c.valid, n, self.session.device),
+                    c.dictionary))
+                for cid, c in sorted(base_vt.cols.items())]
             base_restrictions = []
         if any(not be.is_torch(t.data) or (t.valid is not None
                                            and not be.is_torch(t.valid))
@@ -688,8 +744,14 @@ class Executor:
             return None  # host-only (wide-decimal) columns stay eager
         versions = tuple(sorted(self._subtree_versions(op)))
         basekey = ("fused_agg", plan_key(op), versions)
-        key = basekey  # the epilogue variant would extend it
         cache = self.session.stage_cache
+        # the learned capacities and the decline marks belong to the
+        # aggregate and are shared by its variants with and without the
+        # epilogue; only the "eager" mark is kept per variant
+        if epi is not None and cache.get(("fused_epi_decline", basekey)):
+            epi = None
+        key = (basekey + ("epi", plan_key(epi["node"]))
+               if epi is not None else basekey)
         if cache.get(key) == "eager":
             return None
 
@@ -731,71 +793,10 @@ class Executor:
                    and p.get("probe_expr2") is None
                    for p in join_preps.values()))
 
-        # lead compaction: when the leading filters keep a small fraction of
-        # the base rows, gather the survivors once so that every join step
-        # and the reduction run at the compacted size. The size is a
-        # selectivity estimate with 2x headroom; an overflow rebuilds
-        # without it (CompactOverflow)
-        first_join = next(
-            (si for si, st in enumerate(steps) if st[0] == "join"), None)
-        lead = first_join if first_join is not None else 0
-        compact_k = None
-        if (first_join is not None and isinstance(cur, L.Scan)
-                and n >= dv.SMALL_ROWS * 8
-                and not cache.get(("fused_nocompact", basekey))):
-            from ..opt.cardinality import scan_selectivity
-
-            sel = scan_selectivity(entry, cur, list(base_restrictions))
-            for st in steps[:lead]:
-                if st[0] == "sm" and isinstance(st[1], L.Select):
-                    sel *= scan_selectivity(
-                        entry, cur, E.conjuncts(st[1].predicate))
-            est = int(n * sel * 2) + COMPACT_SLACK
-            k = -(-est // COMPACT_QUANTUM) * COMPACT_QUANTUM
-            if k <= n // 2:
-                compact_k = k
-        # columns each step suffix still reads (the rest is dropped, not
-        # gathered, at a compaction point)
-        used_from = [set() for _ in range(len(steps) + 1)]
-        used_from[len(steps)] = set(op.group_by) | {
-            a.arg for a in op.aggs if a.arg is not None}
-        for si in range(len(steps) - 1, -1, -1):
-            u = set(used_from[si + 1])
-            st = steps[si]
-            if st[0] == "sm":
-                if isinstance(st[1], L.Select):
-                    u |= E.used_cols(st[1].predicate)
-                else:
-                    for _info, e in st[1].computed:
-                        u |= E.used_cols(e)
-            else:
-                p = join_preps[si]
-                if p.get("probe_expr") is not None:
-                    u |= E.used_cols(p["probe_expr"])
-                if p.get("probe_expr2") is not None:
-                    u |= E.used_cols(p["probe_expr2"])
-                for r in p.get("residual", ()):
-                    u |= E.used_cols(r)
-            used_from[si] = u
-        used_after = used_from[lead]
-
-        # post-join compaction where a narrowing join was observed to keep a
-        # small fraction of the spine: caps are learned survivor counts with
-        # 2x pow2 headroom
-        join_sis = [si for si, st in enumerate(steps)
-                    if st[0] == "join" and st[1].kind in ("inner", "semi", "anti")]
-        stepcaps = cache.get(("fused_stepcaps", basekey))
-        mid_caps = {}
-        if stepcaps:
-            size = compact_k or n
-            for si in join_sis:
-                obs = stepcaps.get(si)
-                if obs is None:
-                    continue
-                capv = 1 << (max(2 * obs, dv.SMALL_ROWS) - 1).bit_length()
-                if capv <= size // 4:
-                    mid_caps[si] = capv
-                    size = capv
+        spine = self._plan_spine(
+            steps, join_preps, cur, entry if isinstance(cur, L.Scan) else None,
+            base_restrictions, n, basekey, cache,
+            set(op.group_by) | {a.arg for a in op.aggs if a.arg is not None})
 
         # learned per-key value bounds: tiny-RANGE integer/date keys (q7/q9's
         # year x nation) take the sort-free dense path once calibrated
@@ -817,10 +818,8 @@ class Executor:
             with be.no_host_reads():
                 res = self._fused_program(
                     op, steps, join_preps, base_cols, base_restrictions, n,
-                    dev, meta, compact_k=compact_k, lead=lead,
-                    used_after=used_after, used_from=used_from,
-                    mid_caps=mid_caps, join_sis=join_sis, kbounds=kbounds,
-                    presorted=presorted_group, kg=kg_learned)
+                    dev, meta, spine=spine, kbounds=kbounds,
+                    presorted=presorted_group, kg=kg_learned, epi=epi)
         except (F.NotDense, be.HostRead, NotImplementedError):
             # a column or expression the program cannot carry on the device
             # (the reference's trace fails on the same ones): eager, for
@@ -831,7 +830,10 @@ class Executor:
             if meta.get("calibrating"):
                 self._learn_calibration(basekey, cache, meta, res)
                 return self._try_fused_agg(op, epi)
-            if meta["mode"] == "general":
+            applied = meta.get("epi") is not None
+            if applied:
+                vt_out = self._finish_fused_epi(op, res, meta)
+            elif meta["mode"] == "general":
                 vt_out = self._finish_fused_general(op, res, meta)
             else:
                 vt_out = self._finish_fused_dense(op, res, meta)
@@ -839,7 +841,7 @@ class Executor:
             if meta.get("kbounds_useless"):
                 cache[("fused_kbounds_dead", basekey)] = True
             self._materialized_bases.pop(id(cur), None)
-            return vt_out
+            return _ret(vt_out, applied)
         except F.CompactOverflow:
             # the estimated survivor bound was too small: no lead compaction
             # for this plan and these versions
@@ -864,72 +866,107 @@ class Executor:
             cache[("fused_kbounds_dead", basekey)] = True
             cache.pop(("fused_kbounds", basekey), None)
             return self._try_fused_agg(op, epi)
+        except F.EpiOverflow:
+            # the TopK candidates could not be proven exact: the plain
+            # program and the eager epilogue, for this plan and these
+            # versions
+            cache[("fused_epi_decline", basekey)] = True
+            return self._try_fused_agg(op, epi)
+        # No counterpart here of the reference's retry "without Pallas
+        # kernels" (_GatherOverflow, ("fused_nopallas", basekey)): the
+        # port's gathers have no overflow flag, since gather_sorted serves
+        # every index, and a rerun without the kernels would be a fallback
+        # that hides the kernel on the card.
+
+    def _plan_spine(self, steps, join_preps, cur, entry, base_restrictions,
+                    n, basekey, cache, used_last) -> dict:
+        """The compactions of a fused program's spine (aggregate or chain),
+        as keyword arguments of fused.run_spine: the lead compaction before
+        the first join, the columns each step suffix still reads (used_last:
+        those the program's tail reads), and the learned post-join caps.
+        `entry` is the base table's catalog entry when the base is a Scan
+        (None for a materialized base: no lead compaction)."""
+        from . import device as dv
+
+        # lead compaction: when the leading filters keep a small fraction of
+        # the base rows, gather the survivors once so that every join step
+        # and the tail run at the compacted size. The size is a
+        # selectivity estimate with 2x headroom; an overflow rebuilds
+        # without it (CompactOverflow)
+        first_join = next(
+            (si for si, st in enumerate(steps) if st[0] == "join"), None)
+        lead = first_join if first_join is not None else 0
+        compact_k = None
+        if (first_join is not None and entry is not None
+                and n >= dv.SMALL_ROWS * 8
+                and not cache.get(("fused_nocompact", basekey))):
+            from ..opt.cardinality import scan_selectivity
+
+            sel = scan_selectivity(entry, cur, list(base_restrictions))
+            for st in steps[:lead]:
+                if st[0] == "sm" and isinstance(st[1], L.Select):
+                    sel *= scan_selectivity(
+                        entry, cur, E.conjuncts(st[1].predicate))
+            est = int(n * sel * 2) + COMPACT_SLACK
+            k = -(-est // COMPACT_QUANTUM) * COMPACT_QUANTUM
+            if k <= n // 2:
+                compact_k = k
+        # columns each step suffix still reads (the rest is dropped, not
+        # gathered, at a compaction point)
+        used_from = [set() for _ in range(len(steps) + 1)]
+        used_from[len(steps)] = set(used_last)
+        for si in range(len(steps) - 1, -1, -1):
+            u = set(used_from[si + 1])
+            st = steps[si]
+            if st[0] == "sm":
+                if isinstance(st[1], L.Select):
+                    u |= E.used_cols(st[1].predicate)
+                else:
+                    for _info, e in st[1].computed:
+                        u |= E.used_cols(e)
+            else:
+                p = join_preps[si]
+                if p.get("probe_expr") is not None:
+                    u |= E.used_cols(p["probe_expr"])
+                if p.get("probe_expr2") is not None:
+                    u |= E.used_cols(p["probe_expr2"])
+                for r in p.get("residual", ()):
+                    u |= E.used_cols(r)
+            used_from[si] = u
+
+        # post-join compaction where a narrowing join was observed to keep a
+        # small fraction of the spine: caps are learned survivor counts with
+        # 2x pow2 headroom
+        join_sis = [si for si, st in enumerate(steps)
+                    if st[0] == "join" and st[1].kind in ("inner", "semi", "anti")]
+        stepcaps = cache.get(("fused_stepcaps", basekey))
+        mid_caps = {}
+        if stepcaps:
+            size = compact_k or n
+            for si in join_sis:
+                obs = stepcaps.get(si)
+                if obs is None:
+                    continue
+                capv = 1 << (max(2 * obs, dv.SMALL_ROWS) - 1).bit_length()
+                if capv <= size // 4:
+                    mid_caps[si] = capv
+                    size = capv
+        return {"compact_k": compact_k, "lead": lead,
+                "used_after": used_from[lead], "used_from": used_from,
+                "mid_caps": mid_caps, "join_sis": join_sis}
 
     def _fused_program(self, op, steps, join_preps, base_cols,
-                       base_restrictions, n, dev, meta, *, compact_k, lead,
-                       used_after, used_from, mid_caps, join_sis, kbounds,
-                       presorted, kg) -> dict:
+                       base_restrictions, n, dev, meta, *, spine, kbounds,
+                       presorted, kg, epi=None) -> dict:
         """The fused program itself: every operation on the session's
         tensors, nothing read back to the host. Returns its outputs by name
-        and fills `meta` with what the finish needs to read them."""
+        and fills `meta` with what the finish needs to read them. A TopK
+        epilogue applies in the general mode, outside calibration."""
         from . import fused as F
 
-        env = {cid: SCol(t.type, t.data, t.valid, t.dictionary)
-               for cid, t in base_cols}
-        mask = None
-        for r in base_restrictions:
-            m = sc.truth_mask(sc.eval_expr(r, env))
-            mask = m if mask is None else mask & m
-        cur_n = n
-        extras = []       # (descriptor, survivor count) per compaction
-        step_counts = []  # survivors after each narrowing join
-        for si, step in enumerate(steps):
-            if (compact_k is not None and si == lead
-                    and mask is not None and mask.ndim != 0):
-                env, mask, sel_count = F.compact(env, mask, compact_k,
-                                                 used_after, dev)
-                cur_n = compact_k
-                extras.append((("lead", compact_k), sel_count))
-            if step[0] == "sm" and isinstance(step[1], L.Select):
-                m = sc.truth_mask(sc.eval_expr(step[1].predicate, env))
-                mask = m if mask is None else mask & m
-            elif step[0] == "sm":
-                for info, e in step[1].computed:
-                    env[info.cid] = sc.eval_expr(e, env)
-            else:
-                prep = join_preps[si]
-                rsc = None
-                if si in mid_caps:
-                    rsc = F.sorted_semi_compact(prep, env, mask, cur_n,
-                                                mid_caps[si],
-                                                used_from[si + 1], dev)
-                if rsc is not None:
-                    env, mask, survivors, total = rsc
-                    if si in join_sis:
-                        step_counts.append(survivors)
-                    cur_n = mid_caps[si]
-                    extras.append((("mid", si, mid_caps[si]), total))
-                    continue
-                mask = F.join_step(prep, env, mask, cur_n, dev)
-                if si in join_sis:
-                    # survivors after every narrowing join: the engine LEARNS
-                    # where to compact from them
-                    if mask is None:
-                        step_counts.append(torch.tensor(cur_n, device=dev))
-                    elif mask.ndim == 0:
-                        step_counts.append(
-                            torch.where(F.on_device(mask, 1, dev)[0], cur_n, 0))
-                    else:
-                        step_counts.append(mask.sum(dtype=torch.int64))
-                if si in mid_caps and mask is not None and mask.ndim != 0:
-                    capv = mid_caps[si]
-                    env, mask, sel_count = F.compact(env, mask, capv,
-                                                     used_from[si + 1], dev)
-                    cur_n = capv
-                    extras.append((("mid", si, capv), sel_count))
-        meta["extras"] = tuple(d for d, _c in extras)
-        meta["join_sis"] = tuple(join_sis)
-        out = {"extras": [c for _d, c in extras], "step_counts": step_counts}
+        env, mask, cur_n, out = F.run_spine(
+            steps, join_preps, base_cols, base_restrictions, n, dev, meta,
+            **spine)
         if mask is not None and mask.ndim == 0:
             mask = F.on_device(mask, cur_n, dev)
         oob_cnt = None
@@ -955,6 +992,8 @@ class Executor:
                     for c in key_cols]
                 grp = F.general_group(op, key_cols, env, mask, cur_n, meta,
                                       dev, presorted=presorted, kg=kg)
+                if epi is not None and not meta["calibrating"]:
+                    grp = F.apply_topk_epi(op, epi, grp, meta, dev)
                 out.update(grp)
                 if meta["calibrating"]:
                     # per-key value bounds ride the count-only run: a later
@@ -1198,11 +1237,7 @@ class Executor:
                 i += 3
             else:
                 i += 2
-        fetch = {"g": res["g"].reshape(1)}
-        for j, c in enumerate(res["extras"]):
-            fetch[f"x{j}"] = c.reshape(1)
-        for j, c in enumerate(res["step_counts"]):
-            fetch[f"s{j}"] = c.reshape(1)
+        fetch = {"g": res["g"]}
         if limb_slots:
             # wide sums combine exactly into one int64 unless a group's high
             # limb leaves the safe band; checked on the device (slots past
@@ -1213,21 +1248,15 @@ class Executor:
             flag = torch.zeros((), dtype=torch.bool, device=lanes[0].device)
             for hi_s in limb_slots:
                 flag = flag | (((lanes[hi_s].abs() >> 30) > 0) & rows_ok).any()
-            fetch["limbflag"] = flag.reshape(1)
-        scalars = dv.fetch_arrays_np(fetch)
-        self._check_fused_extras(meta, [
-            int(scalars[f"x{j}"][0]) for j in range(len(res["extras"]))])
-        if meta["join_sis"]:
-            meta["last_stepcounts"] = {
-                si: int(scalars[f"s{j}"][0])
-                for j, si in enumerate(meta["join_sis"])}
-        g = int(scalars["g"][0])
+            fetch["limbflag"] = flag
+        scalars = self._fetch_fused_scalars(res, meta, fetch)
+        g = scalars["g"]
         if g > meta["kg"]:
             raise F.CapacityOverflow(g)
         if g == 0:
             return VTable({c.cid: _empty_scol(c.type, lanes[0] if lanes else None)
                            for c in op.output_cols()}, 0)
-        limb_overflow = bool(scalars["limbflag"][0]) if limb_slots else False
+        limb_overflow = bool(scalars.get("limbflag", 0))
         sliced = [a[:g] for a in lanes]
 
         def dev_col(t, data, valid, dictionary=None):
@@ -1275,11 +1304,299 @@ class Executor:
             out[spec.out.cid] = agg_cols[spec.out.cid]
         return VTable(out, g)
 
+    def _fetch_fused_scalars(self, res, meta, scalars: dict) -> dict:
+        """ONE packed fetch of a fused program's named scalars (0-dim or
+        1-element tensors) together with each compaction's survivor count
+        and the per-step survivor counts. Checks the compactions against
+        their capacities, records the step counts in meta, and returns the
+        named scalars as ints."""
+        from . import device as dv
+
+        fetch = {k: v.reshape(1) for k, v in scalars.items()}
+        for j, c in enumerate(res["extras"]):
+            fetch[("x", j)] = c.reshape(1)
+        for j, c in enumerate(res["step_counts"]):
+            fetch[("s", j)] = c.reshape(1)
+        host = dv.fetch_arrays_np(fetch)
+        self._check_fused_extras(meta, [
+            int(host[("x", j)][0]) for j in range(len(res["extras"]))])
+        if meta["join_sis"]:
+            meta["last_stepcounts"] = {
+                si: int(host[("s", j)][0])
+                for j, si in enumerate(meta["join_sis"])}
+        return {k: int(host[k][0]) for k in scalars}
+
+    def _finish_fused_epi(self, op, res, meta) -> VTable:
+        """The TopK epilogue's finish: ONE fetch of the scalars (compaction
+        survivor counts, step counts, group count, tie count at the
+        candidate cutoff, wide-limb flag), then the kk-slot candidate lanes
+        sliced to the candidate count on the device. The candidates are a
+        proven superset of the true top k under the full sort order: every
+        row whose priority reaches the cutoff is one when the tie count is
+        at most kk (fused.topk_candidates); otherwise EpiOverflow."""
+        from . import fused as F
+
+        e = meta["epi"]
+        kk = e["kk"]
+        scalars = self._fetch_fused_scalars(
+            res, meta, {"g": res["g"], "tie": res["tie"],
+                        "limb": res["limbflag"]})
+        g = scalars["g"]
+        if g > meta["kg"]:
+            raise F.CapacityOverflow(g)
+        if self.track_tuples is not None:
+            # the Aggregate never passes through run() on this path
+            self.track_tuples[id(op)] = g
+        if scalars["limb"]:
+            raise F.EpiOverflow("wide-sum limb overflow")
+        if g > kk and scalars["tie"] > kk:
+            raise F.EpiOverflow(f"tie overflow at cutoff ({scalars['tie']} > {kk})")
+        return _candidate_vtable(e["templates"], res["lanes"], min(g, kk))
+
     def _finish_fused_agg(self, spec, val, cnt, make_col, dictionary) -> SCol:
         t = spec.out.type
         if spec.fn in ("count", "count_star"):
             return make_col(t, be.astype(val, np.int64), None)
         return make_col(t, val, cnt > 0, dictionary)
+
+    # ------------------------------------------------------- fused chain
+    def _try_fused_chain(self, op, epi=None):
+        """Run a Scan -> [Select/Map/dimension-Join]* chain with no
+        aggregate on top as ONE program emitting the surviving rows of every
+        output column, or return None (the eager operators then run).
+
+        The materialize-terminated counterpart of _try_fused_agg: the eager
+        chain pays one or more host syncs per join. It shares the spine walk,
+        the dimension-join preps, the lead and learned post-join compactions
+        and the per-step survivor counts (fused.run_spine). Its tail is one
+        of three: the compacted tail gathers the output columns at the
+        survivors' positions (compact_positions, then one sorted gather) into
+        a learned capacity, 4x the power of two of the survivor count that a
+        calibration run learns; where the survivors exceed half the spine it
+        emits full-width masked lanes and the finish runs one eager
+        select_mask; with a TopK epilogue (`epi`, see _try_fused_topk) it
+        emits the top kk candidate rows instead, and the result is the pair
+        (vtable, applied)."""
+        from ..plan.serial import plan_key
+        from . import device as dv
+        from . import fused as F
+
+        want_pair = epi is not None  # also when the epilogue declines below
+
+        def _ret(vt, applied):
+            return (vt, applied) if want_pair else vt
+
+        # (the reference declines under a device mesh; the port runs on one
+        # card: ROADMAP A9)
+        if self._in_fused_chain:
+            return None
+        steps, cur = self._walk_spine(op)
+        if not any(st[0] == "join" for st in steps):
+            return None
+        if not isinstance(cur, L.Scan):
+            return None  # materialized bases recurse here on their own top
+        entry = self.session.catalog.get_table(cur.table)
+        if entry is None or entry.storage.num_rows == 0:
+            return None
+        versions = tuple(sorted(self._subtree_versions(op)))
+        basekey = ("fused_chain", plan_key(op), versions)
+        cache = self.session.stage_cache
+        if cache.get(basekey) == "eager":
+            return None
+        if epi is not None and cache.get(("fused_epi_decline", basekey)):
+            epi = None
+        dev_t = self.session.device_table(cur.table)
+        n = dev_t["__num_rows__"]
+        if n < dv.SMALL_ROWS:
+            return None  # host tier: the eager numpy operators run
+        base_cols = [(c.cid, dev_t[c.name]) for c in cur.cols]
+        if any(not be.is_torch(t.data) or (t.valid is not None
+                                           and not be.is_torch(t.valid))
+               for _cid, t in base_cols):
+            return None  # host-only (wide-decimal) columns stay eager
+
+        out_cids = [c.cid for c in op.output_cols()]
+        # columns any step consumes (the payloads the preps carry)
+        needed = set(out_cids)
+        for st in steps:
+            if st[0] == "sm":
+                if isinstance(st[1], L.Select):
+                    needed |= E.used_cols(st[1].predicate)
+                else:
+                    for _info, e in st[1].computed:
+                        needed |= E.used_cols(e)
+            elif st[1].predicate is not None:
+                needed |= E.used_cols(st[1].predicate)
+        snames = set(entry.storage.sorted_cols)
+        sorted_cids = frozenset(c.cid for c in cur.cols if c.name in snames)
+        prep_key = ("fused_prep", basekey)
+        join_preps = cache.get(prep_key)
+        if join_preps is None:
+            join_preps = {}
+            # the build sides run eagerly; a chain among them stays eager
+            self._in_fused_chain = True
+            try:
+                for si, st in enumerate(steps):
+                    if st[0] != "join":
+                        continue
+                    prep = self._prep_fused_join(st[1], st[2], st[3], needed,
+                                                 sorted_cids)
+                    if prep is None:
+                        cache[basekey] = "eager"
+                        return None
+                    join_preps[si] = prep
+            finally:
+                self._in_fused_chain = False
+            self._propagate_sorted_probe(join_preps, sorted_cids)
+            cache[prep_key] = join_preps
+
+        spine = self._plan_spine(steps, join_preps, cur, entry,
+                                 cur.restrictions, n, basekey, cache, out_cids)
+        # the output capacity: learned by a calibration run (the learned
+        # capacities live in session.stage_cache only; the reference also
+        # keeps them in a store across processes, ROADMAP A8)
+        outcap_obs = cache.get(("fused_outcap", basekey))
+        meta = {"calibrating": outcap_obs is None, "do_compact": False}
+        if outcap_obs is not None:
+            final_n = spine["compact_k"] or n
+            for si in spine["join_sis"]:
+                final_n = spine["mid_caps"].get(si, final_n)
+            meta["outcap"] = 1 << (max(4 * outcap_obs, dv.SMALL_ROWS)
+                                   - 1).bit_length()
+            meta["do_compact"] = meta["outcap"] <= final_n // 2
+        dev = self.session.device
+        try:
+            with be.no_host_reads():
+                res = self._fused_chain_program(
+                    steps, join_preps, base_cols, cur.restrictions, n, dev,
+                    meta, spine=spine, out_cids=out_cids, epi=epi)
+        except (F.NotDense, be.HostRead, NotImplementedError):
+            # a column or expression the program cannot carry on the device
+            # (the reference's trace fails on the same ones)
+            cache[basekey] = "eager"
+            return None
+        # (no exe-store and no compile: the program runs as it is called,
+        # ROADMAP A3/A8)
+        try:
+            out = self._finish_fused_chain(op, res, meta, basekey, cache)
+            if out is None:  # calibrated: run again at the learned sizes
+                return self._try_fused_chain(op, epi)
+            return _ret(out, meta.get("epi") is not None)
+        except F.CompactOverflow:
+            cache[("fused_nocompact", basekey)] = True
+            return self._try_fused_chain(op, epi)
+        except F.MidCompactOverflow as mo:
+            si_o, v_o = mo.args
+            stepcaps = dict(cache.get(("fused_stepcaps", basekey)) or {})
+            stepcaps[si_o] = int(v_o)
+            cache[("fused_stepcaps", basekey)] = stepcaps
+            return self._try_fused_chain(op, epi)
+        except F.CapacityOverflow as ce:
+            cache[("fused_outcap", basekey)] = ce.args[0]
+            return self._try_fused_chain(op, epi)
+        except F.EpiOverflow:
+            cache[("fused_epi_decline", basekey)] = True
+            return self._try_fused_chain(op, epi)
+        # No counterpart of the reference's retry without Pallas kernels
+        # (_GatherOverflow): see _try_fused_agg.
+
+    def _fused_chain_program(self, steps, join_preps, base_cols,
+                             base_restrictions, n, dev, meta, *, spine,
+                             out_cids, epi) -> dict:
+        """The fused chain itself, nothing read back to the host: the
+        spine, then the survivor count and (past calibration) one of the
+        three tails. Returns its outputs by name and fills `meta`."""
+        from . import fused as F
+
+        env, mask, cur_n, out = F.run_spine(
+            steps, join_preps, base_cols, base_restrictions, n, dev, meta,
+            **spine)
+        mask = (torch.ones((cur_n,), dtype=torch.bool, device=dev)
+                if mask is None else F.on_device(mask, cur_n, dev))
+        meta["rows"] = cur_n
+        out["survivors"] = mask.sum(dtype=torch.int64)
+        if meta["calibrating"]:
+            return out
+        if epi is not None:
+            # in-program TopK over the surviving rows: the top kk candidates
+            # by the primary sort key, exact by the tie count as in the
+            # aggregate's epilogue
+            for m in epi["maps"]:
+                for info, e in m.computed:
+                    env[info.cid] = sc._bcast(sc.eval_expr(e, env), cur_n)
+            k0 = epi["node"].keys[0]
+            prio = keymod.topk_priority(env[k0.cid], k0.ascending,
+                                        k0.nulls_first, mask)
+            if prio is None:
+                raise F.NotDense("chain topk: no order image")
+            kk = min(epi["kk"], cur_n)
+            cand, out["tie"] = F.topk_candidates(
+                F.dev_lane(prio, cur_n, dev), kk, mask)
+            out["lanes"], meta["templates"] = F.take_candidates(
+                env, epi["out_cids"], cand, cur_n, dev)
+            meta["epi"] = {"kk": kk, "k": epi["k"]}
+            return out
+        lanes = {}
+        meta["templates"] = []
+        for cid in out_cids:
+            c = sc._bcast(env[cid], cur_n)
+            lanes[cid] = SCol(c.type, F.dev_lane(c.data, cur_n, dev),
+                              None if c.valid is None
+                              else F.dev_lane(c.valid, cur_n, dev),
+                              c.dictionary)
+            meta["templates"].append(
+                (cid, c.type, c.dictionary, c.valid is not None))
+        if meta["do_compact"]:
+            # the survivors' positions and ONE sorted gather of every lane;
+            # the count is compact_positions', exact even past the capacity
+            lanes, _m, out["survivors"] = F.compact(
+                lanes, mask, meta["outcap"], set(out_cids), dev)
+        else:
+            out["mask"] = mask
+        out["lanes"] = [p for cid in out_cids
+                        for p in (lanes[cid].data, lanes[cid].valid)
+                        if p is not None]
+        return out
+
+    def _finish_fused_chain(self, op, res, meta, basekey, cache):
+        """ONE fetch of the scalars (compaction survivor counts, step
+        counts, the chain's survivors, the tie count of an epilogue), then
+        the chain's rows: a calibration run learns the output capacity and
+        the step counts and returns None; the candidates of an epilogue and
+        the compacted lanes are sliced on the device; the full-width lanes
+        go through one select_mask. An outgrown output capacity raises
+        CapacityOverflow with the true count."""
+        from . import fused as F
+
+        named = {"survivors": res["survivors"]}
+        if meta.get("epi") is not None:
+            named["tie"] = res["tie"]
+        scalars = self._fetch_fused_scalars(res, meta, named)
+        survivors = scalars["survivors"]
+        if meta["calibrating"]:
+            cache[("fused_outcap", basekey)] = survivors
+            if meta["join_sis"]:
+                cache[("fused_stepcaps", basekey)] = meta["last_stepcounts"]
+            return None
+        if meta.get("epi") is not None:
+            kk = meta["epi"]["kk"]
+            if survivors > kk and scalars["tie"] > kk:
+                raise F.EpiOverflow(
+                    f"tie overflow at cutoff ({scalars['tie']} > {kk})")
+            rows = min(survivors, kk)
+        elif meta["do_compact"]:
+            if survivors > meta["outcap"]:
+                raise F.CapacityOverflow(survivors)
+            rows = survivors
+        else:
+            rows = None
+        self._learn_stepcaps(basekey, cache, meta)
+        if self.track_tuples is not None:
+            self.track_tuples[id(op)] = survivors
+        if rows is not None:
+            return _candidate_vtable(meta["templates"], res["lanes"], rows)
+        vt = _candidate_vtable(meta["templates"], res["lanes"], meta["rows"])
+        return vt.select_mask(res["mask"])
 
     # ------------------------------------------------------------- aggregate
     def _run_aggregate(self, op: L.Aggregate) -> VTable:
@@ -1743,6 +2060,34 @@ class Executor:
 
 
 # ---------------------------------------------------------------- helpers
+def _topk_rows(op: L.TopK, vt: VTable) -> VTable:
+    """The TopK's rows of a dense vt: a stable sort under the full key
+    order, then the offset and limit."""
+    if vt.num_rows == 0:
+        return vt
+    perm = keymod.sort_permutation(
+        [(vt.col(k.cid), k.ascending, k.nulls_first) for k in op.keys],
+        vt.num_rows)
+    lo = min(op.offset, vt.num_rows)
+    hi = min(op.offset + op.n, vt.num_rows)
+    return vt.take(perm[lo:hi], hi - lo)
+
+
+def _candidate_vtable(templates, lanes, rows: int) -> VTable:
+    """A fused program's output lanes, sliced to their first `rows` slots on
+    the device, as a VTable (templates: (cid, type, dictionary, has
+    validity) per column, the validity lane after the data lane)."""
+    if rows == 0:
+        return VTable({cid: _empty_scol(t, lanes[0] if lanes else None)
+                       for cid, t, _d, _v in templates}, 0)
+    cols = {}
+    it = iter(a[:rows] for a in lanes)
+    for cid, t, d, has_valid in templates:
+        data = next(it)
+        cols[cid] = SCol(t, data, next(it) if has_valid else None, d)
+    return VTable(cols, rows)
+
+
 def _first_tensor(*vts: VTable):
     """A tensor of the given tables (None for host-numpy tables): new
     columns are made beside it, on its device."""

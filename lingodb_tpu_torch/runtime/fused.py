@@ -1,7 +1,10 @@
-"""Building blocks of the fused aggregate program (runtime/executor.py,
-Executor._try_fused_agg): the dimension-join lookup step, the sorted-probe
-semi join that compacts as it goes, the general (large-domain) grouping, and
-the exceptions by which a run asks to be rebuilt with other capacities.
+"""Building blocks of the fused programs of runtime/executor.py (the fused
+aggregate `Executor._try_fused_agg`, the fused chain `_try_fused_chain` and
+the TopK epilogue both can carry, `_try_fused_topk`): the spine walk with its
+compactions, the dimension-join lookup step, the sorted-probe semi join that
+compacts as it goes, the general (large-domain) grouping, the TopK candidate
+selection, and the exceptions by which a run asks to be rebuilt with other
+capacities.
 
 The JAX package traces these into one jitted XLA program per query. Here
 the program is a Python function run eagerly on the session's tensors: no
@@ -21,6 +24,7 @@ from ..ops import keys as keymod
 from ..ops import pgather
 from ..ops import scalar as sc
 from ..ops.backend import tdtype
+from ..plan import logical as L
 from ..sql.types import K
 from .vtable import SCol, dec_is_wide, np_dtype
 
@@ -50,8 +54,15 @@ class KBoundsOverflow(Exception):
 
 
 class CapacityOverflow(Exception):
-    """The true group count exceeded the learned static group capacity;
-    the caller doubles the capacity and rebuilds."""
+    """The true group count (or the fused chain's survivor count) exceeded
+    the learned static capacity; the caller re-learns it and rebuilds."""
+
+
+class EpiOverflow(Exception):
+    """The TopK epilogue cannot prove its candidate set exact (more rows tie
+    at the priority cutoff than the slack holds, or a wide sum's limbs
+    overflowed the combined image); the caller records the decline and
+    rebuilds without the epilogue, which then runs eagerly."""
 
 
 def cumsum1d(v):
@@ -310,6 +321,161 @@ def join_step(prep, env, mask, n: int, dev):
     if kind not in ("inner", "semi", "anti"):
         return mask  # left / single: payload validity carries `found`
     return fold(found)
+
+
+def run_spine(steps, join_preps, base_cols, base_restrictions, n: int, dev,
+              meta, *, compact_k, lead, used_after, used_from, mid_caps,
+              join_sis):
+    """The spine inside a fused program (aggregate or chain): the base
+    restrictions, then each Select/Map/dimension-Join step in turn, with the
+    lead compaction before step `lead` and a learned compaction after each
+    join in `mid_caps`. Returns (env, mask, rows, out): `out` holds each
+    compaction's exact survivor count ("extras", described in
+    meta["extras"]) and the survivors after each narrowing join
+    ("step_counts", one per meta["join_sis"])."""
+    env = {cid: SCol(t.type, t.data, t.valid, t.dictionary)
+           for cid, t in base_cols}
+    mask = None
+    for r in base_restrictions:
+        m = sc.truth_mask(sc.eval_expr(r, env))
+        mask = m if mask is None else mask & m
+    cur_n = n
+    extras = []       # (descriptor, survivor count) per compaction
+    step_counts = []  # survivors after each narrowing join
+    for si, step in enumerate(steps):
+        if (compact_k is not None and si == lead
+                and mask is not None and mask.ndim != 0):
+            env, mask, sel_count = compact(env, mask, compact_k, used_after,
+                                           dev)
+            cur_n = compact_k
+            extras.append((("lead", compact_k), sel_count))
+        if step[0] == "sm" and isinstance(step[1], L.Select):
+            m = sc.truth_mask(sc.eval_expr(step[1].predicate, env))
+            mask = m if mask is None else mask & m
+        elif step[0] == "sm":
+            for info, e in step[1].computed:
+                env[info.cid] = sc.eval_expr(e, env)
+        else:
+            prep = join_preps[si]
+            rsc = None
+            if si in mid_caps:
+                rsc = sorted_semi_compact(prep, env, mask, cur_n, mid_caps[si],
+                                          used_from[si + 1], dev)
+            if rsc is not None:
+                env, mask, survivors, total = rsc
+                if si in join_sis:
+                    step_counts.append(survivors)
+                cur_n = mid_caps[si]
+                extras.append((("mid", si, mid_caps[si]), total))
+                continue
+            mask = join_step(prep, env, mask, cur_n, dev)
+            if si in join_sis:
+                # survivors after every narrowing join: the engine LEARNS
+                # where to compact from them
+                if mask is None:
+                    step_counts.append(torch.tensor(cur_n, device=dev))
+                elif mask.ndim == 0:
+                    step_counts.append(
+                        torch.where(on_device(mask, 1, dev)[0], cur_n, 0))
+                else:
+                    step_counts.append(mask.sum(dtype=torch.int64))
+            if si in mid_caps and mask is not None and mask.ndim != 0:
+                capv = mid_caps[si]
+                env, mask, sel_count = compact(env, mask, capv,
+                                               used_from[si + 1], dev)
+                cur_n = capv
+                extras.append((("mid", si, capv), sel_count))
+    meta["extras"] = tuple(d for d, _c in extras)
+    meta["join_sis"] = tuple(join_sis)
+    out = {"extras": [c for _d, c in extras], "step_counts": step_counts}
+    return env, mask, cur_n, out
+
+
+def dev_lane(x, n: int, dev):
+    """A column part as a length-n tensor on `dev` for an output lane; a
+    host-only (object) part cannot ride the program."""
+    if isinstance(x, np.ndarray) and x.dtype == object:
+        raise NotDense("fused output: host-only (object) column")
+    return on_device(x, n, dev)
+
+
+def topk_candidates(prio, kk: int, keep):
+    """The kk rows of largest priority, in an explicit order: priority
+    descending, then row ascending (the order of the reference's top_k;
+    torch.topk leaves equal values in no order, on the card or on the CPU).
+    Returns (candidate rows, the kept rows whose priority reaches the
+    cutoff, the kk-th priority). When that count is at most kk, every row
+    reaching the cutoff is a candidate, so the candidate set holds the true
+    top k under any finer order; otherwise the caller declines."""
+    vals, cand = torch.topk(prio, kk, sorted=True)
+    tie_cnt = ((prio >= vals[kk - 1]) & keep).sum(dtype=torch.int64)
+    cand = torch.sort(cand).values
+    cand = cand[torch.sort(prio[cand], descending=True, stable=True).indices]
+    return cand, tie_cnt
+
+
+def take_candidates(env, cids, cand, n: int, dev):
+    """The output lanes of columns `cids` at the candidate rows (plain
+    indexing, clamped, as the reference's take with mode="clip") and their
+    templates (cid, type, dictionary, has validity)."""
+    cand = cand.clamp(0, n - 1)
+    lanes, templates = [], []
+    for cid in cids:
+        c = sc._bcast(env[cid], n)
+        lanes.append(dev_lane(c.data, n, dev)[cand])
+        if c.valid is not None:
+            lanes.append(dev_lane(c.valid, n, dev)[cand])
+        templates.append((cid, c.type, c.dictionary, c.valid is not None))
+    return lanes, templates
+
+
+def apply_topk_epi(op, epi, grp, meta, dev):
+    """Fold a TopK epilogue into the general grouping: build the group-space
+    environment from the kg-slot reduction lanes, evaluate the Map steps
+    between the Aggregate and the TopK, rank the groups by the primary sort
+    key's priority image (keys.topk_priority) and keep the top kk candidate
+    rows of every output column. Returns the group count, the tie count at
+    the cutoff, the wide-limb flag and the candidate lanes; the host re-sorts
+    the candidates under the full key order (Executor._try_fused_topk)."""
+    kg = meta["kg"]
+    g = grp["g"]
+    lanes = grp["lanes"]
+    env = {}
+    i = 0
+    for pos, cid in enumerate(op.group_by):
+        ktype, kdict, knull = meta["key_templates"][pos]
+        env[cid] = SCol(ktype, lanes[i], lanes[i + 1] if knull else None, kdict)
+        i += 2 if knull else 1
+    rows_ok = torch.arange(kg, device=dev) < g
+    limbflag = torch.zeros((), dtype=torch.bool, device=dev)
+    for spec in op.aggs:
+        cid = spec.out.cid
+        if cid in meta["agg_limbs"]:
+            hi, lo, cnt = lanes[i], lanes[i + 1], lanes[i + 2]
+            i += 3
+            limbflag = limbflag | (((hi.abs() >> 30) > 0) & rows_ok).any()
+            env[cid] = SCol(spec.out.type, (hi << 32) + lo, cnt > 0,
+                            meta["agg_dicts"].get(cid))
+        elif spec.fn in ("count", "count_star"):
+            env[cid] = SCol(spec.out.type, lanes[i], None)
+            i += 2
+        else:
+            env[cid] = SCol(spec.out.type, lanes[i], lanes[i + 1] > 0,
+                            meta["agg_dicts"].get(cid))
+            i += 2
+    for m in epi["maps"]:
+        for info, e in m.computed:
+            env[info.cid] = sc._bcast(sc.eval_expr(e, env), kg)
+    k0 = epi["node"].keys[0]
+    prio = keymod.topk_priority(env[k0.cid], k0.ascending, k0.nulls_first,
+                                rows_ok)
+    if prio is None:
+        raise NotDense("topk epilogue: the primary key has no order image")
+    kk = min(epi["kk"], kg)
+    cand, tie_cnt = topk_candidates(dev_lane(prio, kg, dev), kk, rows_ok)
+    out_lanes, templates = take_candidates(env, epi["out_cids"], cand, kg, dev)
+    meta["epi"] = {"kk": kk, "k": epi["k"], "templates": templates}
+    return {"g": g, "tie": tie_cnt, "limbflag": limbflag, "lanes": out_lanes}
 
 
 def _sort_words(key_cols, in_mask, n: int, dev):

@@ -3,8 +3,8 @@
     python3 -m lingodb_tpu_torch.tools.gpu_profile --sf 1 --queries 6,1,3 \\
         --paths fused,eager --out out/gpu_profile.json
 
-For each path (the fused aggregate program, or the eager operators with the
-fused program declined) and each query (tables already uploaded, one warm
+For each path (the fused programs: the fused aggregate, the fused chain and
+the TopK epilogue; or the eager operators with all three declined) and each query (tables already uploaded, one warm
 run first) it reports the wall time of `Session.sql` + `format_rows`, the
 summed device time of all kernels and copies, the device's idle share of the
 wall time, how many kernels were launched, how many host<->device scalar
@@ -25,27 +25,33 @@ import time
 import warnings
 
 
-# names of the kernels in lingodb_tpu_torch/csrc/ (each in an anonymous
-# namespace, which tells them apart from PyTorch's own reduce/scan kernels)
-PORT_KERNELS = ("count_kernel", "scan_kernel", "scatter_kernel",
-                "gather_sorted_kernel", "gather_chunked_kernel",
-                "segscan_kernel")
+# names of the engine kernels' __global__ functions in lingodb_tpu_torch/csrc/
+# (each in an anonymous namespace, which tells them apart from PyTorch's own
+# reduce/scan kernels); tests/test_torch_pgather.py holds the list against
+# the sources
+PORT_KERNELS = ("compact_kernel", "gather_sorted_kernel",
+                "gather_chunked_kernel", "segscan_kernel")
 _PORT_KERNEL_RE = re.compile(r"\(anonymous namespace\)::(%s)[<(]"
                              % "|".join(PORT_KERNELS))
 
 
+FUSED_ENTRY_POINTS = ("_try_fused_agg", "_try_fused_chain", "_try_fused_topk")
+
+
 @contextlib.contextmanager
 def eager_path():
-    """Within the block, the fused aggregate program declines and every
-    aggregate runs the eager operators."""
+    """Within the block, the fused programs (the aggregate, the chain and
+    the TopK epilogue) decline and every operator runs eagerly."""
     from ..runtime.executor import Executor
 
-    orig = Executor._try_fused_agg
-    Executor._try_fused_agg = lambda self, op, epi=None: None
+    orig = {name: getattr(Executor, name) for name in FUSED_ENTRY_POINTS}
+    for name in FUSED_ENTRY_POINTS:
+        setattr(Executor, name, lambda self, op, epi=None: None)
     try:
         yield
     finally:
-        Executor._try_fused_agg = orig
+        for name, fn in orig.items():
+            setattr(Executor, name, fn)
 
 
 def path_context(path: str):

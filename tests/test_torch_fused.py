@@ -1,12 +1,14 @@
-"""The port's fused aggregate program, held against its own eager operators
-and against the JAX package's fused program.
+"""The port's fused programs (the fused aggregate, the fused chain and the
+TopK epilogue both carry), held against its own eager operators and against
+the JAX package's fused programs.
 
 The generated TPC-H tables (sf 0.005) are carried across as plain numpy, so
 both engines read the very same bytes. The port runs on device="cpu" with its
 dispatcher forced onto the kernel route (the wrappers then run the kernels'
 plain versions), in DEBUG mode, with tables of 64 rows and more on the tensor
-tier, as tests/test_fused.py does for the reference. `format_rows()` must be
-equal string for string.
+tier, as tests/test_fused.py does for the reference (both engines: the
+reference's fused chain and TopK engage at that size too). `format_rows()`
+must be equal string for string.
 """
 
 import numpy as np
@@ -36,6 +38,10 @@ SF = 0.005
 SEED = 19920601
 QUERIES = [str(i) for i in range(1, 23)]
 AGAINST_REFERENCE = ["1", "3", "6", "14", "18"]
+# the queries whose TopK or chain the reference fuses at this scale
+TOPK_QUERIES = ["2", "3", "10", "18", "21"]
+CHAIN_QUERIES = ["8", "9", "11", "16", "17", "20"]
+ENTRY_POINTS = ("_try_fused_agg", "_try_fused_topk", "_try_fused_chain")
 
 
 def _extract(ref_tables) -> dict:
@@ -62,6 +68,8 @@ def env():
     ref_settings.PARALLELISM.set("OFF")
     old_mesh = ref_dv._MESH, ref_dv._MESH_INIT
     ref_dv._MESH, ref_dv._MESH_INIT = None, True
+    old_ref_rows = ref_dv.SMALL_ROWS
+    ref_dv.SMALL_ROWS = 64
     rs = ref_ldb.create_in_memory()
     carried = carry.tables_from_numpy(
         _extract(ref_tpchgen.load_into(rs, sf=SF, seed=SEED)))
@@ -73,6 +81,7 @@ def env():
     EXECUTION_MODE.set("DEFAULT")
     dv.SMALL_ROWS, pgather.FORCE_KERNELS = old_rows, old_force
     ref_dv._MESH, ref_dv._MESH_INIT = old_mesh
+    ref_dv.SMALL_ROWS = old_ref_rows
     ref_settings.PARALLELISM.set("")
 
 
@@ -88,23 +97,40 @@ def port(env):
 
 
 class _Spy:
-    """Counts what _try_fused_agg returned, and what the finish raised."""
+    """Counts what each fused entry point returned (hits: the aggregate's,
+    topk and chain: the fused TopK's and the fused chain's; a pair counts
+    as a result), which tail each fused chain run took, and what the
+    finishes raised."""
 
     def __init__(self, monkeypatch, module=ex):
         self.hits, self.raised, self.routes = [], [], []
-        orig = module.Executor._try_fused_agg
+        self.topk, self.chain, self.tails = [], [], []
+        self.raised_by = {}  # "agg" / "chain" -> what its finishes raised
+        for name, seen in zip(ENTRY_POINTS, (self.hits, self.topk, self.chain)):
+            orig = getattr(module.Executor, name)
 
-        def spy(ex_self, op, epi=None):
-            r = orig(ex_self, op, epi)
-            self.hits.append(r is not None)
-            return r
+            def spy(ex_self, *a, _orig=orig, _seen=seen, **k):
+                r = _orig(ex_self, *a, **k)
+                _seen.append(r is not None)
+                return r
 
-        monkeypatch.setattr(module.Executor, "_try_fused_agg", spy)
+            monkeypatch.setattr(module.Executor, name, spy)
         if module is not ex:
             return
         for name in ("_finish_fused_general", "_finish_fused_dense",
-                     "_learn_calibration"):
+                     "_learn_calibration", "_finish_fused_epi",
+                     "_finish_fused_chain"):
             self._wrap_raise(monkeypatch, name)
+        orig_finish = ex.Executor._finish_fused_chain
+
+        def finish(ex_self, op, res, meta, *a):
+            self.tails.append(
+                "calibrating" if meta["calibrating"] else "topk"
+                if meta.get("epi") else "compacted" if meta["do_compact"]
+                else "full width")
+            return orig_finish(ex_self, op, res, meta, *a)
+
+        monkeypatch.setattr(ex.Executor, "_finish_fused_chain", finish)
         orig_group = F.general_group
 
         def group(*a, presorted=False, **k):
@@ -116,19 +142,24 @@ class _Spy:
     def _wrap_raise(self, monkeypatch, name):
         orig = getattr(ex.Executor, name)
 
+        program = "chain" if name == "_finish_fused_chain" else "agg"
+
         def wrapped(ex_self, *a):
             try:
                 return orig(ex_self, *a)
             except Exception as e:
                 self.raised.append(type(e).__name__)
+                self.raised_by.setdefault(program, []).append(type(e).__name__)
                 raise
 
         monkeypatch.setattr(ex.Executor, name, wrapped)
 
 
 def _eager(s, sql, monkeypatch):
+    """The rows with all three fused entry points declined."""
     with monkeypatch.context() as m:
-        m.setattr(ex.Executor, "_try_fused_agg", lambda self, op, epi=None: None)
+        for name in ENTRY_POINTS:
+            m.setattr(ex.Executor, name, lambda self, op, epi=None: None)
         return s.sql(sql).format_rows()
 
 
@@ -175,8 +206,9 @@ def test_fused_equals_reference(env, port, q, monkeypatch):
 
 def test_compact_overflow_rebuilds_once(env, monkeypatch):
     """A lead compaction sized from a selectivity estimate that is far too
-    small: the run raises CompactOverflow once and the rebuild, without
-    lead compaction, gives the eager rows."""
+    small: each fused program (q3: the chain of its build side and the
+    aggregate; q14: the aggregate) raises CompactOverflow once and the
+    rebuild, without lead compaction, gives the eager rows."""
     s = _session(env[1])
     monkeypatch.setattr(ex, "COMPACT_SLACK", 64)
     monkeypatch.setattr(ex, "COMPACT_QUANTUM", 64)
@@ -187,7 +219,9 @@ def test_compact_overflow_rebuilds_once(env, monkeypatch):
     for q in ("3", "14"):
         spy = _Spy(monkeypatch)
         assert s.sql(_sql(q)).format_rows() == want[q]
-        assert spy.raised == ["CompactOverflow"], (q, spy.raised)
+        assert spy.raised_by.get("agg") == ["CompactOverflow"], (q, spy.raised_by)
+        assert spy.raised_by.get("chain", ["CompactOverflow"]) == [
+            "CompactOverflow"], (q, spy.raised_by)
         assert all(spy.hits)
 
 
@@ -301,9 +335,9 @@ def test_sorted_semi_compact_learns_true_survivors(env, monkeypatch):
 
 
 def test_fused_program_reads_nothing_to_the_host(port, monkeypatch):
-    """Inside the fused program no tensor is read back to the host (on the
-    card each read is a sync that stalls the stream); the executor reads
-    once, after it."""
+    """Inside the fused programs (the aggregate with its TopK epilogue, the
+    chain) no tensor is read back to the host (on the card each read is a
+    sync that stalls the stream); the executor reads once, after each."""
     inside = [False]
     for name in ("item", "__bool__", "__int__", "__index__", "__float__",
                  "tolist", "cpu", "numpy"):
@@ -315,21 +349,23 @@ def test_fused_program_reads_nothing_to_the_host(port, monkeypatch):
             return _orig(self, *a, **k)
 
         monkeypatch.setattr(torch.Tensor, name, guard)
-    orig_prog = ex.Executor._fused_program
+    for name in ("_fused_program", "_fused_chain_program"):
+        orig_prog = getattr(ex.Executor, name)
 
-    def prog(self, *a, **k):
-        inside[0] = True
-        try:
-            return orig_prog(self, *a, **k)
-        finally:
-            inside[0] = False
+        def prog(self, *a, _orig=orig_prog, **k):
+            inside[0] = True
+            try:
+                return _orig(self, *a, **k)
+            finally:
+                inside[0] = False
 
-    monkeypatch.setattr(ex.Executor, "_fused_program", prog)
+        monkeypatch.setattr(ex.Executor, name, prog)
     spy = _Spy(monkeypatch)
-    for q in ("1", "3", "4", "6", "14", "18", "9", "13"):
+    for q in ("1", "3", "4", "6", "14", "18", "9", "13", "2", "10"):
         port.sql(_sql(q))
         port.sql(_sql(q))
     assert all(spy.hits[:2])
+    assert any(spy.topk) and any(spy.chain)
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
@@ -361,3 +397,144 @@ def test_expression_that_needs_the_host_declines(port, monkeypatch):
     assert port.sql(q).format_rows() == want
     assert spy.hits == [False]
     assert "eager" in port.stage_cache.values()
+
+
+@pytest.mark.parametrize("q", TOPK_QUERIES + CHAIN_QUERIES)
+def test_fused_topk_and_chain_equal_reference(env, port, q, monkeypatch):
+    """The queries whose TopK or chain the reference fuses at this scale:
+    the rows equal the reference's, and the port engages its fused TopK and
+    its fused chain on exactly the queries where the reference engages
+    its own (read from the reference's spy)."""
+    rs, _carried = env
+    # from a clean start: a chain that builds a dimension of a fused
+    # aggregate runs only until the aggregate has cached its build sides
+    rs.stage_cache.clear()
+    port.stage_cache.clear()
+    ref_spy = _Spy(monkeypatch, module=ref_ex)
+    want = rs.sql(_sql(q)).format_rows()
+    spy = _Spy(monkeypatch)
+    got = port.sql(_sql(q)).format_rows()
+    assert got == want
+    assert any(ref_spy.topk) or any(ref_spy.chain), q
+    assert (any(spy.topk), any(spy.chain)) == (any(ref_spy.topk),
+                                               any(ref_spy.chain)), q
+    assert not spy.raised
+
+
+def _tie_table(name, sums, seed):
+    """One group per entry of `sums` (a DOUBLE key spread over a wide
+    range, so that the grouping is the general one), each of 3 rows whose
+    v adds up to the entry, with a payload p that differs per row."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    g = len(sums)
+    keys = rng.permutation(g).astype(np.float64) * 1e6 + 0.5
+    v = np.repeat(np.asarray(sums, np.int64) // 3, 3)
+    v[2::3] += np.asarray(sums, np.int64) % 3
+    return name, pa.table({"k": pa.array(np.repeat(keys, 3)),
+                           "v": pa.array(v.astype(np.int32)),
+                           "p": pa.array(rng.integers(0, 10**6, 3 * g)
+                                         .astype(np.int32))})
+
+
+def _install(sessions, name, table):
+    for s in sessions:
+        if s.catalog.get_table(name) is None:
+            s.sql_stmt(f"CREATE TABLE {name}(k DOUBLE, v INT, p INT)")
+            s.append_table(name, table)
+
+
+TIE_SQL = ("SELECT k, sum(v) AS s, max(p) AS mp FROM {t} GROUP BY k "
+           "ORDER BY s DESC LIMIT 5")
+
+
+def test_topk_ties_at_cutoff_decline_once(env, port, monkeypatch):
+    """More rows tie on the primary sort key at the cutoff than the slack
+    holds (200 groups of one sum; k = 5, kk = 64), with different payloads:
+    the epilogue raises EpiOverflow once, the decline is recorded, the
+    plain program and the eager epilogue give the reference's rows, and a
+    second run does not try the epilogue again."""
+    rs, _carried = env
+    _install((rs, port), *_tie_table("ties_cut", [7] * 200, 1))
+    sql = TIE_SQL.format(t="ties_cut")
+    want = rs.sql(sql).format_rows()
+    spy = _Spy(monkeypatch)
+    assert port.sql(sql).format_rows() == want
+    assert spy.raised == ["EpiOverflow"], spy.raised
+    assert any(k[0] == "fused_epi_decline" for k in port.stage_cache)
+    assert any(spy.topk)
+    assert port.sql(sql).format_rows() == want
+    assert spy.raised == ["EpiOverflow"], spy.raised
+    assert port.sql(sql).format_rows() == _eager(port, sql, monkeypatch)
+
+
+def test_topk_ties_within_slack_keep_reference_rows(env, port, monkeypatch):
+    """Ties that cross the k-th row but fit within the slack (3 groups
+    above 20 that tie at the cutoff, then 100 lower ones; k = 5, kk = 64):
+    the epilogue is exact, and of the 20 tied groups the port keeps the two
+    that the reference keeps (candidates ordered by priority, then by group
+    slot, as the reference's top_k orders them)."""
+    rs, _carried = env
+    sums = [900] * 3 + [450] * 20 + list(range(1, 101))
+    _install((rs, port), *_tie_table("ties_slack", sums, 2))
+    sql = TIE_SQL.format(t="ties_slack")
+    want = rs.sql(sql).format_rows()
+    spy = _Spy(monkeypatch)
+    for _ in range(2):
+        assert port.sql(sql).format_rows() == want
+    assert not spy.raised
+    assert any(spy.topk)
+    assert not any(k[0] == "fused_epi_decline" for k in port.stage_cache
+                   if "ties_slack" in repr(k))
+
+
+CHAIN_SQL = ("SELECT l_orderkey, l_linenumber, l_extendedprice, p_name "
+             "FROM lineitem, part WHERE l_partkey = p_partkey AND p_size < 45")
+# a filter on the spine that no join narrows further: a narrowing join
+# compacts its survivors already (a learned post-join capacity), and the
+# chain's tail then emits those lanes whole
+COMPACTED_SQL = ("SELECT l_orderkey, l_linenumber, p_name FROM lineitem "
+                 "LEFT JOIN part ON l_partkey = p_partkey WHERE l_quantity < 3")
+
+
+@pytest.mark.parametrize("tail,sql", [
+    ("compacted", COMPACTED_SQL),
+    ("full width", CHAIN_SQL),
+    ("topk", CHAIN_SQL
+     + " ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber LIMIT 10"),
+])
+def test_fused_chain_tails(env, tail, sql, monkeypatch):
+    """The chain's three tails, each forced by its selectivity (4 % of the
+    spine survives: compacted into the learned capacity; 90 %: full-width
+    lanes and one select_mask) or by a TopK on top (the candidates of the
+    in-program TopK): calibration, then the tail, on the first run and the
+    second, equal to the eager rows."""
+    s = _session(env[1])
+    want = _eager(s, sql, monkeypatch)
+    spy = _Spy(monkeypatch)
+    for _ in range(2):
+        assert s.sql(sql).format_rows() == want
+    assert spy.tails == ["calibrating", tail, tail], spy.tails
+    assert not spy.raised
+
+
+def test_fused_chain_output_capacity_rebuilds_once(env, monkeypatch):
+    """A learned survivor count far below the truth: the compacted tail's
+    capacity is outgrown, compact_positions still counts every survivor,
+    and the chain raises CapacityOverflow once and rebuilds at the true
+    count, giving the eager rows."""
+    s = _session(env[1])
+    sql = COMPACTED_SQL
+    want = _eager(s, sql, monkeypatch)
+    assert s.sql(sql).format_rows() == want  # learns the output capacity
+    caps = [k for k in s.stage_cache if k[0] == "fused_outcap"]
+    assert caps
+    for k in caps:
+        s.stage_cache[k] = 1
+    spy = _Spy(monkeypatch)
+    assert s.sql(sql).format_rows() == want
+    assert spy.raised == ["CapacityOverflow"], spy.raised
+    assert spy.tails == ["compacted", "compacted"], spy.tails
+    assert s.sql(sql).format_rows() == want
+    assert spy.raised == ["CapacityOverflow"], spy.raised

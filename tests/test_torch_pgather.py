@@ -481,3 +481,27 @@ def test_segscan_matches_a_loop_and_rejects_bad_input():
         pg.segscan_i32(_t(gid.astype(np.int64)), [_t(v)])
     with pytest.raises(ValueError):
         pg.segscan_i32(_t(gid), [_t(v[:5])])
+
+
+def test_profile_names_every_engine_kernel():
+    """tools/gpu_profile.py picks the port's own kernels out of a profile by
+    their __global__ names: the list names every kernel of the engine's
+    sources, and nothing else."""
+    import pathlib
+    import re
+
+    from lingodb_tpu_torch.tools import gpu_profile
+
+    csrc = pathlib.Path(pg.__file__).parent.parent / "csrc"
+    names = set()
+    for src in ("gather_chunked", "gather_sorted", "compact_positions",
+                "segscan"):
+        text = (csrc / f"{src}.cu").read_text()
+        found = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                           r"\s+)?(\w+)\s*\(", text)
+        assert found, src
+        names.update(found)
+    assert names == set(gpu_profile.PORT_KERNELS)
+    for name in names:
+        assert gpu_profile._PORT_KERNEL_RE.search(
+            f"void (anonymous namespace)::{name}<8>(Planes, int const*)")
