@@ -81,6 +81,34 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               or all zeros, runs crossing or ending on each 32-row segment
               edge of onehot_compact, single tiles, the 60M bench's 1,831
               tiles), against their plain versions
+  9. executor the executor slice, each query's engine kernel calls (K1, K2,
+              K3) checked bit for bit against their plain versions and
+              counted, then a second run timed (wall ms, host syncs, peak
+              device memory):
+              (a) q1 and q6 over tools/tpchbig.py's lineitem subset at 10x
+              the scale factor (SF10: 60M rows), streamed by the out-of-core
+              aggregate at a 1 GiB system.device_byte_budget (the chunk
+              layout must be the one the budget gives: q1 15 chunks of 2^22
+              rows, q6 8 of 2^23; the table never uploaded whole; peak
+              device memory under what was resident plus the budget, and
+              flat across chunks) and resident at the default budget (the
+              fused aggregate); rows equal; bytes copied host -> device,
+              their rate, and the share of the copies' time under kernels
+              (tools/gpu_profile.py's trace);
+              (b) window functions over SF1 orders and lineitem (ranking,
+              running and bounded frames, the sparse table's min/max,
+              lag/lead/nth_value), card against CPU session;
+              (c) WITH RECURSIVE over SF1 tables (a UNION fixpoint, a
+              UNION ALL counter; at least 8 rounds), card against CPU
+              session, once in DEBUG mode;
+              (d) the chunked non-equi join (inner, semi, anti, left, full)
+              of supplier and part on a price band, over 2^26 candidate
+              pairs in at least 4 chunks, against numpy's band counts;
+              (e) the 22 queries through Session.sql_many(overlap=True)
+              against sequential Session.sql, each from evicted device
+              memory; q9, q13 and q20 with device LIKE engaged on the card,
+              rows equal to the CPU session's, the device mask equal to the
+              host's and timed against it (strings.like_lut)
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -866,6 +894,412 @@ def q6_numpy(tables) -> str:
     return f"{v // 10000}.{v % 10000:04d}"
 
 
+# ---- phase 9: the executor slice (out-of-core aggregate, window functions,
+# WITH RECURSIVE, the chunked non-equi join, sql_many and device LIKE)
+BIG_BUDGET = 1 << 30  # the out-of-core runs' system.device_byte_budget
+BIG_WIDTH = {"1": 44, "6": 28}  # bytes a row of the columns q1 / q6 scan
+WINDOW_QUERIES = {
+    "ranking": "select sum(rn), sum(rk), sum(drk), max(rn) from (select "
+               "row_number() over (partition by o_custkey order by "
+               "o_orderdate, o_orderkey) rn, rank() over (partition by "
+               "o_custkey order by o_orderdate) rk, dense_rank() over "
+               "(partition by o_custkey order by o_orderdate) drk from "
+               "orders) x",
+    "running_sum": "select sum(s), count(*) from (select sum(o_totalprice) "
+                   "over (partition by o_custkey order by o_orderdate) s "
+                   "from orders) x",
+    "rows_sum_avg": "select sum(s), sum(a) from (select sum(l_quantity) over "
+                    "(partition by l_suppkey order by l_shipdate, l_orderkey, "
+                    "l_linenumber rows between 3 preceding and current row) "
+                    "s, avg(l_extendedprice) over (order by l_orderkey, "
+                    "l_linenumber rows between 2 preceding and 2 following) a "
+                    "from lineitem) x",
+    "minmax_sparse": "select sum(m), sum(x) from (select min(l_extendedprice) "
+                     "over (order by l_orderkey, l_linenumber rows between 10 "
+                     "preceding and 10 following) m, max(l_extendedprice) "
+                     "over (partition by l_returnflag order by l_shipdate, "
+                     "l_orderkey, l_linenumber rows between 100 preceding and "
+                     "27 following) x from lineitem) y",
+    "lag_lead_nth": "select sum(o_orderkey - coalesce(prev, 0)), count(nxt), "
+                    "count(n3), sum(n3) from (select o_orderkey, "
+                    "lag(o_orderkey) over (partition by o_custkey order by "
+                    "o_orderkey) prev, lead(o_orderkey, 2) over (partition by "
+                    "o_custkey order by o_orderkey) nxt, nth_value(o_orderkey, "
+                    "3) over (partition by o_custkey order by o_orderkey) n3 "
+                    "from orders) z",
+}
+RECURSIVE_QUERIES = {
+    # UNION (semi-naive): 100,000 new keys a round for 10 rounds
+    "union_fixpoint": "with recursive r(v) as (select c_custkey from customer "
+                      "where c_custkey <= 100000 union select v + 100000 "
+                      "from r where v < 1000000) select count(*), sum(v), "
+                      "max(v) from r",
+    # UNION ALL counter over the orders of 1992, ten rounds
+    "union_all_counter": "with recursive t(k, d) as (select o_orderkey, 0 "
+                         "from orders where o_orderdate < date '1993-01-01' "
+                         "union all select k + 1, d + 1 from t where d < 9) "
+                         "select d, count(*), sum(k) from t group by d "
+                         "order by d",
+}
+BAND = "p_retailprice between s_acctbal - 1 and s_acctbal + 1"
+NONEQUI_QUERIES = {
+    "inner": "select count(*), sum(s_suppkey) from supplier, part where "
+             f"p_size < 10 and {BAND}",
+    "semi": "select count(*) from supplier where exists (select * from part "
+            f"where p_size < 10 and {BAND})",
+    "anti": "select count(*) from supplier where not exists (select * from "
+            f"part where p_size < 10 and {BAND})",
+    "left": "select count(*), count(p_partkey) from supplier left join "
+            f"(select p_partkey, p_retailprice from part where p_size < 10) p "
+            f"on {BAND}",
+    "full": "select count(*), count(s_suppkey), count(p_partkey) from "
+            "supplier full outer join (select p_partkey, p_retailprice from "
+            f"part where p_size < 10) p on {BAND}",
+}
+LIKE_QUERIES = ("9", "13", "20")
+
+
+def run_checked(torch, pg, fn):
+    """fn() with every engine kernel call held bit for bit against its plain
+    version; returns (fn's result, launches of K1, K2, K3, calls checked)."""
+    shapes: list = []
+    pg.reset_counters()
+    with checked_kernel_calls(torch, pg, shapes):
+        out = fn()
+    torch.cuda.synchronize()
+    counts = {"K1": pg.LAUNCHES["gather_chunked"],
+              "K2": pg.LAUNCHES["gather_sorted"],
+              "K3": pg.LAUNCHES["compact_positions"]}
+    return out, counts, len(shapes)
+
+
+def chunk_layout(rows: int, width: int, budget: int) -> tuple:
+    """The chunk rows and count the out-of-core aggregate must choose: a
+    power of two, at least 2^18, a third of the budget's rows."""
+    m = max(1 << 18, (budget // 3) // width)
+    m = 1 << (m.bit_length() - 1)
+    return m, -(-rows // m)
+
+
+def nonequi_numpy(tables) -> dict:
+    """The expected rows of NONEQUI_QUERIES (Python values) from the band
+    counts: for each
+    supplier the parts (p_size < 10) whose price lies within 1.00 of its
+    account balance, and for each part whether any supplier does."""
+    import numpy as np
+
+    s, p = tables["supplier"], tables["part"]
+    acct = np.asarray(s.column("s_acctbal").data).astype(np.int64)
+    key = np.asarray(s.column("s_suppkey").data).astype(np.int64)
+    size = np.asarray(p.column("p_size").data)
+    price = np.sort(np.asarray(p.column("p_retailprice").data)[size < 10]
+                    .astype(np.int64))
+    cnt = (np.searchsorted(price, acct + 100, "right")
+           - np.searchsorted(price, acct - 100, "left"))
+    sa = np.sort(acct)
+    part_hit = (np.searchsorted(sa, price + 100, "right")
+                - np.searchsorted(sa, price - 100, "left")) > 0
+    left = int(np.maximum(cnt, 1).sum())
+    unmatched_p = int((~part_hit).sum())
+    pairs = int(cnt.sum())
+    return {
+        "inner": [[pairs, int((key * cnt).sum())]],
+        "semi": [[int((cnt > 0).sum())]],
+        "anti": [[int((cnt == 0).sum())]],
+        "left": [[left, pairs]],
+        "full": [[left + unmatched_p, left, pairs + unmatched_p]],
+        "pairs": len(acct) * len(price),
+    }
+
+
+def out_of_core_part(torch, pg, ldb, gpu_profile, device, sf, seed,
+                     slice_launches):
+    """Phase 9 (a): q1 and q6 over the lineitem subset at 10x the scale
+    factor, streamed at a 1 GiB budget and resident at the default one."""
+    from lingodb_tpu_torch.tools import tpchbig
+    from lingodb_tpu_torch.utils import settings
+
+    big_sf = 10 * sf
+    t0 = time.perf_counter()
+    table = tpchbig.generate(big_sf, seed)
+    rows = table.num_rows
+    log(f"# slice (a) data: lineitem subset sf={big_sf:g}, {rows} rows, "
+        f"generated in {time.perf_counter() - t0:.1f}s")
+    big = ldb.create_in_memory(device=device)
+    tpchbig.install(big, table)
+    default_budget = settings.DEVICE_BYTE_BUDGET.get()
+    try:
+        for q in ("1", "6"):
+            sql = open(f"queries/tpch/{q}.sql").read()
+            got = {}
+            for label, budget in (("chunked", BIG_BUDGET),
+                                  ("resident", default_budget)):
+                settings.DEVICE_BYTE_BUDGET.set(str(budget))
+                big._evict_device_memory()
+                big._device_cache.clear()
+                big.executor.last_chunked = None
+                out, counts, nchk = run_checked(
+                    torch, pg, lambda: big.sql(sql).format_rows())
+                for k, v in counts.items():
+                    slice_launches[k] = slice_launches.get(k, 0) + v
+                plan = big.executor.last_chunked
+                if label == "chunked":
+                    m, chunks = chunk_layout(rows, BIG_WIDTH[q], budget)
+                    if plan is None:
+                        fail(f"slice (a) q{q}: the chunked aggregate did not "
+                             f"engage at a {budget}-byte budget")
+                    if (plan["width"], plan["chunk_rows"], plan["chunks"]) != (
+                            BIG_WIDTH[q], m, chunks):
+                        fail(f"slice (a) q{q}: chunk layout {plan} != width "
+                             f"{BIG_WIDTH[q]}, m {m}, {chunks} chunks")
+                    if "lineitem" in big._device_cache:
+                        fail(f"slice (a) q{q}: the streamed table was uploaded")
+                elif plan is not None:
+                    fail(f"slice (a) q{q}: the chunked aggregate engaged at "
+                         f"the default budget")
+                got[label] = out
+                # a second run: wall time and peak device memory
+                big.executor.last_chunked = None
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                again = big.sql(sql).format_rows()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                if again != out:
+                    fail(f"slice (a) q{q} [{label}]: second run differs")
+                line = (f"# slice (a) q{q} [{label}, budget {budget}]: "
+                        f"rows={len(out)} wall_ms={wall * 1e3:.2f} (second "
+                        f"run) launches={json.dumps(counts)} checked={nchk} "
+                        f"peak_mib={peak / 2**20:.1f} "
+                        f"resident_before_mib={before / 2**20:.1f}")
+                if label == "chunked":
+                    plan = big.executor.last_chunked
+                    alloc = plan["allocated_after_chunk"]
+                    if device.type == "cuda" and len(alloc) != plan["chunks"]:
+                        fail(f"slice (a) q{q}: {len(alloc)} chunk memory "
+                             f"readings for {plan['chunks']} chunks")
+                    spread = max(alloc) - min(alloc) if alloc else 0
+                    ov = gpu_profile.copy_overlap(
+                        torch, lambda: big.sql(sql).format_rows())
+                    moved = plan["bytes_copied"]
+                    card_rate = ("not measured" if not ov["copy_ms"] else
+                                 f"{moved / (ov['copy_ms'] / 1e3) / 1e9:.2f}")
+                    hidden = ("not measured" if ov["hidden_share"] is None
+                              else f"{ov['hidden_share']:.3f}")
+                    line += (f" chunks={plan['chunks']} m={plan['chunk_rows']}"
+                             f" host_fill_ms={plan['host_fill_ms']:.2f}"
+                             f" bytes_h2d={moved} h2d_gb_s_wall="
+                             f"{moved / wall / 1e9:.2f} copy_ms_on_card="
+                             f"{fmt_ms(ov['copy_ms'])} h2d_gb_s_card="
+                             f"{card_rate} copy_hidden_share={hidden}"
+                             f" allocated_after_chunk_spread_mib="
+                             f"{spread / 2**20:.1f} bound_mib="
+                             f"{(before + budget) / 2**20:.1f}")
+                    if peak > before + budget:
+                        fail(f"slice (a) q{q}: peak {peak} bytes above the "
+                             f"resident {before} plus the budget {budget}")
+                    if spread > 64 << 20:
+                        fail(f"slice (a) q{q}: device memory grew across "
+                             f"chunks: {alloc}")
+                log(line)
+            if got["chunked"] != got["resident"]:
+                fail(f"slice (a) q{q}: chunked rows differ from the resident "
+                     f"run's\n{got['chunked'][:2]}\n{got['resident'][:2]}")
+    finally:
+        settings.DEVICE_BYTE_BUDGET.set(str(default_budget))
+        big._evict_device_memory()
+        del big, table
+        torch.cuda.empty_cache()
+
+
+FLOAT_REL = 1e-12  # floats of the card against the CPU session's
+
+
+def same_rows(got, want) -> bool:
+    """Rows of Python values (ResultTable.to_pylist) equal, floats within a
+    relative FLOAT_REL: a float sum's order differs between the card's
+    atomics and the CPU, and the card divides by a scalar through its
+    reciprocal, so the last bits may differ; every other value is exact."""
+    import math
+
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(a, float) and isinstance(b, float):
+                if not math.isclose(a, b, rel_tol=FLOAT_REL, abs_tol=0.0):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+def card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, label, sql, slice_launches,
+                want=None):
+    """One query on the card (each kernel call checked, then a second run
+    timed with its syncs and peak memory) against the CPU session's rows
+    (or `want`, rows of Python values), by same_rows. Returns the card's
+    rows."""
+    if want is None:
+        want = cpu.sql(sql).to_pylist()
+    rows, counts, nchk = run_checked(torch, pg,
+                                     lambda: gpu.sql(sql).to_pylist())
+    for k, v in counts.items():
+        slice_launches[k] = slice_launches.get(k, 0) + v
+    if not same_rows(rows, want):
+        fail(f"slice {label}: card rows differ from the expected ones\n"
+             f"card={rows[:3]}\nwant={want[:3]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = gpu.sql(sql).to_pylist()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    syncs, peak, before = gpu_profile.syncs_and_peak(
+        torch, lambda: gpu.sql(sql).to_pylist())
+    if not same_rows(again, want):
+        fail(f"slice {label}: second run differs\n{again[:3]}\n{want[:3]}")
+    log(f"# slice {label}: rows={len(rows)} wall_ms={ms:.2f} (second run) "
+        f"launches={json.dumps(counts)} checked={nchk} syncs={syncs} "
+        f"peak_mib={peak / 2**20:.1f} resident_mib={before / 2**20:.1f}")
+    return rows
+
+
+def executor_slice_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, args,
+                         launches):
+    """Phase 9 (see the module docstring)."""
+    from lingodb_tpu_torch.ops import bytestr, strings
+    from lingodb_tpu_torch.utils.settings import EXECUTION_MODE
+
+    t_phase = time.perf_counter()
+    slice_launches: dict = {}
+    # (a) the out-of-core aggregate
+    out_of_core_part(torch, pg, ldb, gpu_profile, gpu.device, args.sf,
+                     args.seed, slice_launches)
+    log(f"# slice (a): {time.perf_counter() - t_phase:.1f}s")
+
+    # (b) window functions over orders and lineitem
+    t0 = time.perf_counter()
+    for name, sql in WINDOW_QUERIES.items():
+        card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, f"(b) window {name}",
+                    sql, slice_launches)
+    log(f"# slice (b): {time.perf_counter() - t0:.1f}s")
+
+    # (c) WITH RECURSIVE, once in DEBUG mode (which checks that no host
+    # array sits in a table of tensors) and once in the default mode
+    t0 = time.perf_counter()
+    for name, sql in RECURSIVE_QUERIES.items():
+        want = cpu.sql(sql).to_pylist()
+        EXECUTION_MODE.set("DEBUG")
+        try:
+            if not same_rows(gpu.sql(sql).to_pylist(), want):
+                fail(f"slice (c) {name} [DEBUG]: card rows differ")
+        finally:
+            EXECUTION_MODE.set("DEFAULT")
+        card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, f"(c) recursive {name}",
+                    sql, slice_launches, want)
+        rounds = gpu.executor.last_iterate_rounds
+        log(f"# slice (c) recursive {name}: rounds={rounds}")
+        if rounds is None or rounds < 8:
+            fail(f"slice (c) {name}: {rounds} rounds, fewer than 8")
+    log(f"# slice (c): {time.perf_counter() - t0:.1f}s")
+
+    # (d) the chunked non-equi join, held against numpy's band counts
+    t0 = time.perf_counter()
+    expect = nonequi_numpy(tables)
+    for kind, sql in NONEQUI_QUERIES.items():
+        gpu.executor.last_nonequi_chunks = None
+        card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, f"(d) non-equi {kind}",
+                    sql, slice_launches, expect[kind])
+        chunks = gpu.executor.last_nonequi_chunks
+        log(f"# slice (d) non-equi {kind}: candidate pairs={expect['pairs']} "
+            f"left chunks={chunks}")
+        if chunks is None or chunks < 4:
+            fail(f"slice (d) {kind}: {chunks} chunks, fewer than 4")
+    log(f"# slice (d): {time.perf_counter() - t0:.1f}s")
+
+    # (e) sql_many with overlap against sequential sql, from evicted device
+    # memory (so that the worker thread's uploads run beside the main
+    # thread's queries); then device LIKE on q9, q13, q20
+    t0 = time.perf_counter()
+    qs = [open(f"queries/tpch/{i}.sql").read() for i in range(1, 23)]
+    gpu._evict_device_memory()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    seq = [gpu.sql(q).format_rows() for q in qs]
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t1) * 1e3
+    gpu._evict_device_memory()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    many = [r.format_rows() for r in gpu.sql_many(qs, overlap=True)]
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t1) * 1e3
+    for i, (a, b) in enumerate(zip(seq, many), start=1):
+        if a != b:
+            fail(f"slice (e) sql_many: q{i} differs from sequential sql")
+    log(f"# slice (e) sql_many 22 queries: sequential_ms={seq_ms:.1f} "
+        f"overlap_ms={many_ms:.1f} (each from evicted device memory)")
+    calls: list = []
+    orig = bytestr.device_like_mask
+
+    def spy(dictionary, pattern, ci=False, device="cpu"):
+        r = orig(dictionary, pattern, ci, device)
+        calls.append((dictionary, pattern, ci, str(device), r is not None))
+        return r
+
+    bytestr.device_like_mask = spy
+    try:
+        for q in LIKE_QUERIES:
+            sql = qs[int(q) - 1]
+            want = cpu.sql(sql).to_pylist()
+            # a fused program's dimension builds are cached with their
+            # filters applied: clear them, so that the LIKE runs again
+            gpu.stage_cache.clear()
+            bytestr._MASK_CACHE.clear()
+            calls.clear()
+            card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, f"(e) like q{q}",
+                        sql, slice_launches, want)
+            mine = [c for c in calls if c[3] == str(gpu.device)]
+            if not mine or not all(c[4] for c in mine):
+                fail(f"slice (e) q{q}: device LIKE did not engage on the card "
+                     f"({[(c[1], c[3], c[4]) for c in calls]})")
+                return
+            d, pat, ci = mine[0][0], mine[0][1], mine[0][2]
+            dev_ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                mask = bytestr._device_like_mask_uncached(d, pat, ci, gpu.device)
+                torch.cuda.synchronize()
+                dev_ms.append((time.perf_counter() - t1) * 1e3)
+            host_ms = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                lut = strings.like_lut(d, pat, ci)
+                host_ms.append((time.perf_counter() - t1) * 1e3)
+            if mask.cpu().numpy().tolist() != lut.tolist():
+                fail(f"slice (e) q{q}: device LIKE mask differs from the host's")
+            log(f"# slice (e) like q{q} {pat!r} over {len(d)} entries: device "
+                f"{min(dev_ms):.3f} ms (best of 5), host like_lut "
+                f"{min(host_ms):.3f} ms (best of 3), "
+                f"{min(host_ms) / min(dev_ms):.1f}x")
+    finally:
+        bytestr.device_like_mask = orig
+    log(f"# slice (e): {time.perf_counter() - t0:.1f}s")
+    launches["executor_slice"] = {
+        "gather_chunked": slice_launches.get("K1", 0),
+        "gather_sorted": slice_launches.get("K2", 0),
+        "compact_positions": slice_launches.get("K3", 0)}
+    log(f"# slice launches (K1, K2, K3 over phase 9, each call checked): "
+        f"{json.dumps(slice_launches)}")
+    log(f"# slice: phase 9 took {time.perf_counter() - t_phase:.1f}s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -1029,6 +1463,7 @@ def main() -> int:
     from lingodb_tpu_torch.runtime import device as dv
     from lingodb_tpu_torch.tools import sql_battery
 
+    small_rows = dv.SMALL_ROWS
     dv.SMALL_ROWS = 2  # small tables would otherwise stay numpy on the host
     gpu_b = ldb.create_in_memory()
     cpu_b = ldb.create_in_memory(device="cpu")
@@ -1039,6 +1474,7 @@ def main() -> int:
         if gpu_b.sql(q).format_rows() != cpu_b.sql(q).format_rows():
             fail(f"battery: GPU rows differ from the CPU session's: {q}")
     log(f"# battery: {len(sql_battery.QUERIES)} statements equal on card and CPU")
+    dv.SMALL_ROWS = small_rows
 
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 7")
     # ---- phase 7: the kernel bench, the entry point that runs segscan
@@ -1114,6 +1550,11 @@ def main() -> int:
                       "bytes": c["bytes"]} for c in mine)
     log(f"# substrate: {time.perf_counter() - t0:.1f}s, launches "
         f"{json.dumps(sub_out['launches'])}")
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 9")
+    # ---- phase 9: the executor slice
+    executor_slice_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, args,
+                         launches)
 
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",

@@ -342,6 +342,7 @@ _TORCH = {
     "exp": _f64(torch.exp),
     "log": _f64(torch.log),
     "log10": _f64(torch.log10),
+    "log2": _f64(torch.log2),
     "sin": _f64(torch.sin),
     "cos": _f64(torch.cos),
     "power": _t_power,

@@ -26,7 +26,7 @@ from ..plan.exprs import BExpr, Call, CaseExpr, Cast, ColRef, Const
 from ..runtime.vtable import SCol, dec_is_float, dec_is_wide, is_obj, np_dtype
 from ..sql.types import IntervalUnit, K, Type
 from ..storage.column import EPOCH, decimal_str_to_int
-from . import dates, decwide, strings
+from . import bytestr, dates, decwide, strings
 
 INT64_MAX = (1 << 63) - 1
 INT64_MIN = -(1 << 63)
@@ -679,10 +679,15 @@ def _eval_like(a: SCol, p: SCol, t: Type, ci: bool) -> SCol:
     if not _is_const_string(p):
         raise EvalError("LIKE with non-constant pattern not supported yet")
     pat = str(p.dictionary[0])
-    # the pattern is matched against the dictionary on the host; the
-    # reference's device-side byte-plane matcher for high-cardinality
-    # dictionaries (ops/bytestr.py) is not ported yet (ROADMAP queue A)
-    lut = strings.like_lut(a.dictionary, pat, ci)
+    lut = None
+    if be.is_torch(a.data) and len(a.dictionary) >= bytestr.DEVICE_DICT_MIN:
+        # high-cardinality dictionary with codes on the tensor tier: match
+        # the pattern over the dictionary's byte planes on the codes'
+        # device instead of a host loop (reference: StringRuntime.cpp byte
+        # matchers); None where the pattern or the data needs the host
+        lut = bytestr.device_like_mask(a.dictionary, pat, ci, a.data.device)
+    if lut is None:
+        lut = strings.like_lut(a.dictionary, pat, ci)
     return SCol(t, be.lut_take(lut, a.data), a.valid)
 
 

@@ -16,10 +16,12 @@ top of a chain of dimension joins) goes to the fused chain
 learned capacity. A TopK over either folds into that program as an epilogue
 (`_try_fused_topk`): the program emits the top candidates and the host
 re-sorts only those. Where a program declines, the EAGER operators below
-run: one operator at a time, each materializing its result. The JAX
-package also has sharded mesh operators and an out-of-core streaming
-aggregate; here those exist as methods that always decline (return None)
-until they are ported — see ROADMAP.md, queue A.
+run: one operator at a time, each materializing its result. An aggregate
+over a scan larger than system.device_byte_budget streams the table
+through the card in chunks (`_try_chunked_agg`, runtime/chunked.py). The
+JAX package also has sharded mesh operators; here those exist as methods
+that always decline (return None) until they are ported -- see ROADMAP.md,
+queue A9.
 """
 
 from __future__ import annotations
@@ -77,6 +79,15 @@ class Executor:
         # set while _try_fused_chain builds its dimension sides eagerly: a
         # chain among them runs the eager operators
         self._in_fused_chain = False
+        # the working table of each executing Iterate (holder seq -> VTable)
+        self._iter_tables: dict[int, VTable] = {}
+        # the out-of-core aggregate's last engage decision (chunked_plan's
+        # dict plus what the stream moved), None until one engaged
+        self.last_chunked: Optional[dict] = None
+        # rounds of the last Iterate, left chunks of the last chunked
+        # non-equi join
+        self.last_iterate_rounds: Optional[int] = None
+        self.last_nonequi_chunks: Optional[int] = None
 
     # ------------------------------------------------------------- dispatch
     def execute(self, plan: L.Materialize) -> ResultTable:
@@ -175,12 +186,241 @@ class Executor:
                 f"DEBUG {type(op).__name__}: output columns {missing} "
                 f"missing from result")
 
+    # ------------------------------------------------ out-of-core aggregate
+    def chunked_plan(self, table: str, scan_cols) -> Optional[dict]:
+        """The chunk layout when a scan of `scan_cols` of `table` exceeds
+        the device byte budget and its columns can stream (no wide-decimal
+        object column), else None: rows, bytes a row (the scanned columns'
+        data and validity), chunk rows `m` (a power of two, at least 2^18,
+        a third of the budget's rows) and the chunk count."""
+        from ..utils.settings import get_setting
+
+        entry = self.session.catalog.get_table(table)
+        if entry is None or entry.storage.num_rows == 0:
+            return None
+        rows = entry.storage.num_rows
+        width = 0
+        for c in scan_cols:
+            col = entry.storage.column(c.name)
+            if np.asarray(col.data).dtype == np.object_:
+                return None  # wide host decimals: no device image
+            width += col.data.dtype.itemsize + (1 if col.valid is not None else 0)
+        budget = int(get_setting("system.device_byte_budget"))
+        if rows * width <= budget:
+            return None
+        m = max(1 << 18, (budget // 3) // max(width, 1))
+        m = 1 << (m.bit_length() - 1)  # pow2 floor
+        return {"table": table, "rows": rows, "width": width, "budget": budget,
+                "chunk_rows": m, "chunks": -(-rows // m)}
+
+    def _try_chunked_agg(self, op, steps, scan) -> Optional[VTable]:
+        """Out-of-core streaming scan+aggregate: when the scan columns
+        exceed the device byte budget, stream the base table in fixed-size
+        chunks through device memory (the copy of chunk i+1 on a side stream
+        overlapping chunk i's compute, runtime/chunked.py) and combine
+        per-chunk dense aggregates on the host. One function of static
+        shapes serves every chunk. The streamed table is never uploaded
+        whole (session.device_table is not asked for it).
+
+        Scope: Scan -> Select/Map* -> dense/global Aggregate (the q1/q6
+        shape) -- exactly where beyond-memory tables first bite. Reference
+        analogue: morsel-driven scans are size-oblivious by construction
+        (src/runtime/storage/LingoDBTable.cpp:360-470); here the morsel is
+        a device-sized chunk and the merge is the host-side combine (the
+        ThreadLocal::merge role). The engage decision is kept in
+        `self.last_chunked`."""
+        from . import device as dv
+        from .chunked import ChunkStream
+
+        if dv.get_mesh() is not None:
+            return None
+        plan = self.chunked_plan(scan.table, scan.cols)
+        if plan is None:
+            return None
+        entry = self.session.catalog.get_table(scan.table)
+        cols = [entry.storage.column(c.name) for c in scan.cols]
+        if any(a.distinct for a in op.aggs):
+            return None
+        if any(a.fn not in ("sum", "count", "count_star", "min", "max",
+                            "any_value") for a in op.aggs):
+            return None
+        radices = []
+        domain = 1
+        key_templates = []
+        col_of = {c.cid: i for i, c in enumerate(scan.cols)}
+        for cid in op.group_by:
+            i = col_of.get(cid)
+            if i is None:
+                return None  # map-computed group key: not streamed
+            col = cols[i]
+            d = gb.small_domain(SCol(col.type, col.data, col.valid,
+                                     col.dictionary))
+            if d is None:
+                return None
+            radices.append(d)
+            domain *= d
+            key_templates.append((col.type, col.dictionary,
+                                  col.valid is not None))
+        if domain > gb.DENSE_DOMAIN_LIMIT:
+            return None
+
+        rows, m, n_chunks = plan["rows"], plan["chunk_rows"], plan["chunks"]
+        self.last_chunked = plan
+
+        templates = [(info.cid, col.type, col.dictionary,
+                      col.valid is not None)
+                     for info, col in zip(scan.cols, cols)]
+        meta = {"mode": "dense", "domain": domain, "radices": radices,
+                "key_templates": key_templates, "agg_dicts": {},
+                "agg_limbs": set(), "key_offsets": None, "join_sis": ()}
+        kinds = ["sum"]  # the `present` lane
+        for spec in op.aggs:
+            if spec.fn in ("count_star", "count"):
+                kinds += ["sum", "sum"]
+            elif spec.fn == "sum":
+                if (spec.out.type.kind == K.DECIMAL
+                        and dec_is_wide(spec.out.type)):
+                    kinds += ["limb", "lo", "sum"]
+                else:
+                    kinds += ["sum", "sum"]
+            elif spec.fn == "min":
+                kinds += ["min", "sum"]
+            else:  # max / any_value
+                kinds += ["max", "sum"]
+
+        def fn(nvalid, arrs):
+            env = {}
+            i = 0
+            for cid, t, d, hv in templates:
+                data = arrs[i]
+                i += 1
+                valid = None
+                if hv:
+                    valid = arrs[i]
+                    i += 1
+                env[cid] = SCol(t, data, valid, d)
+            ref = arrs[0]
+            mask = be.iota(m, jnp.int64, ref) < nvalid
+            for r in scan.restrictions:
+                mask = mask & sc.truth_mask(sc.eval_expr(r, env))
+            for st in steps:
+                node = st[1]
+                if isinstance(node, L.Select):
+                    mask = mask & sc.truth_mask(
+                        sc.eval_expr(node.predicate, env))
+                else:
+                    for info, e in node.computed:
+                        env[info.cid] = sc.eval_expr(e, env)
+            if op.group_by:
+                key_cols = [sc._bcast(env[c], m) for c in op.group_by]
+                gid, _dom2 = gb.dense_gid(key_cols)
+            else:
+                gid = be.full(m, 0, jnp.int32, ref)
+
+            def msum(w):
+                wm = jnp.where(mask, w, jnp.zeros_like(w))
+                return be.segment_sum(wm, gid, num_segments=domain)
+
+            ones = be.full(m, 1, jnp.int64, ref)
+            outs = [msum(ones)]
+            for spec in op.aggs:
+                if spec.fn == "count_star":
+                    outs.append(outs[0])
+                    outs.append(outs[0])
+                    continue
+                arg = sc._bcast(env[spec.arg], m)
+                avalid = arg.valid
+                vm = ones if avalid is None else be.astype(avalid, jnp.int64)
+                cnt = msum(vm)
+                if spec.fn == "count":
+                    outs.append(cnt)
+                    outs.append(cnt)
+                    continue
+                if spec.fn == "sum":
+                    data = be.astype(arg.data, np_dtype(spec.out.type))
+                    if avalid is not None:
+                        data = jnp.where(avalid, data, jnp.zeros_like(data))
+                    if (spec.out.type.kind == K.DECIMAL
+                            and dec_is_wide(spec.out.type)
+                            and be.dt(data) == np.int64):
+                        meta["agg_limbs"].add(spec.out.cid)
+                        outs.append(msum(data >> 32))
+                        outs.append(msum(data & 0xFFFFFFFF))
+                        outs.append(cnt)
+                        continue
+                    outs.append(msum(data))
+                    outs.append(cnt)
+                    continue
+                sentinel = gb._extreme(be.dt(arg.data),
+                                       maximum=(spec.fn == "min"))
+                keep = mask if avalid is None else (mask & avalid)
+                data = jnp.where(keep, arg.data, sentinel)
+                red = (be.segment_min if spec.fn == "min"
+                       else be.segment_max)(data, gid, num_segments=domain)
+                meta["agg_dicts"][spec.out.cid] = arg.dictionary
+                outs.append(red)
+                outs.append(cnt)
+            return outs
+
+        parts = []
+        for (_cid, _t, _d, hv), col in zip(templates, cols):
+            parts.append(col.data)
+            if hv:
+                parts.append(col.valid)
+        stream = ChunkStream(parts, rows, m, self.session.device)
+
+        def _norm(host):
+            """Chunk lanes -> accumulable form (limb pairs become ONE exact
+            object lane; the placeholder keeps indices aligned)."""
+            out = list(host)
+            for i, k in enumerate(kinds):
+                if k == "limb":
+                    out[i] = (out[i].astype(object) * (1 << 32)
+                              + out[i + 1].astype(object))
+                    out[i + 1] = np.zeros_like(host[i + 1])
+            return out
+
+        acc = None
+        with tracer.Trace("execution", f"chunked_agg:{scan.table}"):
+            stream.stage(0)
+            for ci in range(n_chunks):
+                nv, arrs = stream.take(ci)
+                outs = fn(nv, arrs)
+                stream.release(ci)
+                if ci + 1 < n_chunks:
+                    stream.stage(ci + 1)  # its copy rides this chunk's compute
+                got = dv.fetch_arrays_np({i: o for i, o in enumerate(outs)})
+                host = _norm([got[i] for i in range(len(outs))])
+                del arrs, outs
+                if acc is None:
+                    acc = host
+                    continue
+                for i, k in enumerate(kinds):
+                    if k in ("sum", "limb"):
+                        acc[i] = acc[i] + host[i]
+                    elif k == "min":
+                        acc[i] = np.minimum(acc[i], host[i])
+                    elif k == "max":
+                        acc[i] = np.maximum(acc[i], host[i])
+                    # "lo": placeholder, stays zero
+            stream.finish()
+        plan["bytes_copied"] = stream.bytes_copied
+        plan["host_fill_ms"] = stream.fill_s * 1e3
+        plan["allocated_after_chunk"] = stream.allocated_after_chunk
+        # re-split exact limb totals into (hi, lo) int64 lanes for the
+        # shared dense finish (combine_limbs(hi, lo) == hi*2^32 + lo)
+        for i, k in enumerate(kinds):
+            if k == "limb":
+                tot = acc[i]
+                acc[i] = np.array([int(x) >> 32 for x in tot], np.int64)
+                acc[i + 1] = np.array([int(x) & 0xFFFFFFFF for x in tot],
+                                      np.int64)
+        res = {"lanes": acc, "extras": (), "step_counts": (), "oob": None}
+        return self._finish_fused_dense(op, res, meta)
+
     # ------------------------------------------ paths that are not ported yet
     # Each declines, as the reference's own versions may, and the eager
-    # operator then runs (ROADMAP.md queue A).
-    def _try_chunked_agg(self, op, steps, scan) -> Optional[VTable]:
-        return None
-
+    # operator then runs (ROADMAP.md queue A9).
     def _try_sharded_agg(self, op, vt) -> Optional[VTable]:
         return None
 
@@ -190,21 +430,6 @@ class Executor:
 
     def _try_distributed_sort(self, op, vt) -> Optional[VTable]:
         return None
-
-    def _run_window(self, op) -> VTable:
-        raise ExecError("not yet ported: window functions (ROADMAP queue A8)")
-
-    def _run_iterate(self, op) -> VTable:
-        raise ExecError("not yet ported: Iterate / WITH RECURSIVE "
-                        "(ROADMAP queue A8)")
-
-    def _run_iterref(self, op) -> VTable:
-        raise ExecError("not yet ported: Iterate / WITH RECURSIVE "
-                        "(ROADMAP queue A8)")
-
-    def _chunked_nonequi_join(self, op, kind, lvt, rvt) -> VTable:
-        raise ExecError("not yet ported: non-equi join beyond 2^26 candidate "
-                        "pairs (ROADMAP queue A8)")
 
     # ------------------------------------------------------------- leaves
     def _run_scan(self, op: L.Scan) -> VTable:
@@ -336,6 +561,92 @@ class Executor:
     def _run_materialize(self, op: L.Materialize) -> VTable:
         return self.run(op.child).dense()
 
+    def _run_iterref(self, op: L.IterRef) -> VTable:
+        vt = self._iter_tables.get(op.holder.seq)
+        if vt is None:
+            raise ExecError("IterRef outside an executing Iterate")
+        # positional rename: working cols -> this reference's cids
+        work = list(vt.cols.values())
+        return VTable({c.cid: s for c, s in zip(op.cols, work)}, vt.num_rows)
+
+    def _run_iterate(self, op: L.Iterate) -> VTable:
+        """Iterate-until-fixpoint (reference: subop.loop lowering in
+        SubOpToControlFlow.cpp; SQL WITH RECURSIVE lowers here).
+
+        Each round runs the step plan with the working table rebound; the
+        only extra host sync per round is the row-count check that decides
+        termination -- the same one-sync-per-size-changing-op contract as
+        the rest of the executor. Semi-naive for UNION: the working table
+        holds only never-seen-before rows. The rounds run are kept in
+        `self.last_iterate_rounds`."""
+        from . import device as dv
+
+        base = self.run(op.base).dense()
+        cur = VTable({c.cid: base.col(s) for c, s in zip(op.cols, op.lmap)},
+                     base.num_rows)
+        if op.distinct and cur.num_rows:
+            grp = gb.group_rows([cur.col(c.cid) for c in op.cols], cur.num_rows)
+            cur = cur.take(grp["rep_rows"], grp["num_groups"])
+        acc = cur
+        it = 0
+        while cur.num_rows:
+            it += 1
+            if it > op.max_iters:
+                raise ExecError(
+                    f"Iterate exceeded max_iters={op.max_iters} (possible "
+                    f"non-terminating recursion)")
+            prev = self._iter_tables.get(op.holder.seq)
+            self._iter_tables[op.holder.seq] = cur
+            try:
+                out = self.run(op.step).dense()
+            finally:
+                if prev is None:
+                    self._iter_tables.pop(op.holder.seq, None)
+                else:
+                    self._iter_tables[op.holder.seq] = prev
+            nxt = VTable({c.cid: out.col(s) for c, s in zip(op.cols, op.smap)},
+                         out.num_rows)
+            if op.distinct:
+                nxt = self._iter_new_rows(nxt, acc, op.cols)
+            if nxt.num_rows == 0:
+                break
+            a, b = dv.align_devices(acc, nxt)
+            acc = _vconcat(a, b, op.cols)
+            cur = b
+        self.last_iterate_rounds = it
+        return acc if op.emit == "all" else cur
+
+    def _iter_new_rows(self, nxt: VTable, acc: VTable, cols) -> VTable:
+        """Semi-naive delta: distinct rows of `nxt` not present in `acc`."""
+        from . import device as dv
+
+        if nxt.num_rows == 0:
+            return nxt
+        acc_a, nxt_a = dv.align_devices(acc, nxt)
+        both = _vconcat(acc_a, nxt_a, cols)
+        ref = _first_tensor(both)
+        grp = gb.group_rows([both.col(c.cid) for c in cols], both.num_rows)
+        seg, g, order = grp["seg"], grp["num_groups"], grp["order"]
+        tag = jnp.concatenate([
+            be.full(acc_a.num_rows, 0, jnp.int64, ref),
+            be.full(nxt_a.num_rows, 1, jnp.int64, ref),
+        ])
+        t = tag if order is None else jnp.take(tag, order)
+        seen = be.segment_sum(1 - t, seg, num_segments=g,
+                              indices_are_sorted=grp["sorted"])
+        keep = (seen == 0)
+        rep = grp["rep_rows"]
+        keep_np = be.to_host(keep)
+        rep_np = be.to_host(rep)
+        idx = rep_np[keep_np]
+        return both.take(be.like(idx, ref), len(idx))
+
+    # ------------------------------------------------------------- window
+    def _run_window(self, op: L.Window) -> VTable:
+        from ..ops import window as winmod
+
+        vt = self.run(op.child).dense()
+        return winmod.run_window(op, vt)
     def _run_tmp(self, op: L.Tmp) -> VTable:
         """Materialize the shared subtree ONCE per execution; every Tmp
         reference renames the holder's columns to its own cids (reference:
@@ -343,7 +654,10 @@ class Executor:
         vt = self._tmp_results.get(id(op.holder))
         if vt is None:
             vt = self.run(op.holder.plan).dense()
-            self._tmp_results[id(op.holder)] = vt
+            if not _has_iterref(op.holder.plan):
+                # over an Iterate's working table the result holds for
+                # one round only
+                self._tmp_results[id(op.holder)] = vt
         cols = {c.cid: vt.col(s) for s, c in op.mapping}
         return VTable(cols, vt.num_rows)
 
@@ -696,7 +1010,7 @@ class Executor:
         def _ret(vt, applied):
             return (vt, applied) if want_pair else vt
 
-        if any(a.distinct for a in op.aggs):
+        if any(a.distinct for a in op.aggs) or _has_iterref(op):
             return None
         # any_value evaluates as a reduction of any kind: within a group the
         # value is arbitrary (SQL any_value) or constant (FD-reduced keys)
@@ -707,7 +1021,7 @@ class Executor:
         if isinstance(cur, L.Scan) and all(st[0] == "sm" for st in steps):
             ck = self._try_chunked_agg(op, steps, cur)  # out-of-core
             if ck is not None:
-                return ck
+                return _ret(ck, False)
         if isinstance(cur, L.Scan):
             entry = self.session.catalog.get_table(cur.table)
             if entry.storage.num_rows == 0:
@@ -1388,7 +1702,7 @@ class Executor:
 
         # (the reference declines under a device mesh; the port runs on one
         # card: ROADMAP A9)
-        if self._in_fused_chain:
+        if self._in_fused_chain or _has_iterref(op):
             return None
         steps, cur = self._walk_spine(op)
         if not any(st[0] == "join" for st in steps):
@@ -1909,6 +2223,47 @@ class Executor:
                                                         monotone=p_sorted)
         return out.merge(rcols)
 
+    def _chunked_nonequi_join(self, op, kind, lvt: VTable, rvt: VTable) -> VTable:
+        """Blockwise nested loop for non-equi joins whose full pair matrix
+        exceeds the 2^26 buffer bound: the left side processes in chunks of
+        C = 2^26 / nr rows against the whole right side, so every kind's
+        per-left-row decisions stay exact (reference: the morsel-driven
+        nested-loop join handles any size; this matches that without ever
+        materializing more than one chunk of pairs)."""
+        nl, nr = lvt.num_rows, rvt.num_rows
+        ref = _first_tensor(lvt, rvt)
+        C = max(1, (1 << 26) // max(nr, 1))
+        parts: list[VTable] = []
+        matched_r = be.full(nr, False, jnp.bool_, ref)  # full: right matched
+        chunk_kind = "left" if kind == "full" else kind
+        for lo in range(0, nl, C):
+            hi = min(lo + C, nl)
+            # monotone positions: the left chunk's gather is a sorted one
+            idx = be.iota(hi - lo, jnp.int64, ref) + lo
+            lch = lvt.take(idx, hi - lo, monotone=True)
+            pidx, bidx, total = _all_pairs(hi - lo, nr, ref)
+            if kind == "full":
+                env = _pair_env(lch, rvt, pidx, bidx, op.predicate)
+                mask = jnp.broadcast_to(
+                    sc.truth_mask(sc.eval_expr(op.predicate, env)), (total,))
+                matched_r = matched_r | joinops.matched_flags(bidx, mask, nr)
+            parts.append(self._finish_pairs_join(
+                op, chunk_kind, lch, rvt, pidx, bidx, total))
+        self.last_nonequi_chunks = len(parts)
+        out = parts[0]
+        ocols = op.output_cols()
+        for p in parts[1:]:
+            out = _vconcat(out, p, ocols)
+        if kind == "full":
+            n_ur = int(jnp.sum(~matched_r))
+            if n_ur:
+                (ui,) = jnp.nonzero(~matched_r, size=n_ur)
+                cols = {cid: _null_scol(lvt.col(cid), n_ur) for cid in lvt.cols}
+                for c in op.right.output_cols():
+                    cols[c.cid] = rvt.col(c.cid).take(ui)
+                out = _vconcat(out, VTable(cols, n_ur), ocols)
+        return out
+
     def _finish_pairs_join(self, op, kind, lvt, rvt, pidx, bidx, total) -> VTable:
         """Evaluate the full predicate on candidate pairs and assemble the
         join result for every join kind."""
@@ -2086,6 +2441,21 @@ def _candidate_vtable(templates, lanes, rows: int) -> VTable:
         data = next(it)
         cols[cid] = SCol(t, data, next(it) if has_valid else None, d)
     return VTable(cols, rows)
+
+
+def _has_iterref(node) -> bool:
+    """True when the plan reads an Iterate's working table. Its result
+    changes every round under the same plan and table versions, so the
+    caches keyed by those (the fused programs' preps and learned
+    capacities, shared subtrees) must not hold it: the fused programs
+    decline such plans and a shared subtree over it is not kept. (The
+    reference keys them the same way and returns the first round's build
+    side in every later round once the tables are on the device tier.)"""
+    if isinstance(node, L.IterRef):
+        return True
+    if isinstance(node, L.Tmp) and _has_iterref(node.holder.plan):
+        return True
+    return any(_has_iterref(c) for c in node.children())
 
 
 def _first_tensor(*vts: VTable):

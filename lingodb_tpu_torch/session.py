@@ -33,6 +33,15 @@ from .utils import tracer
 from .utils.settings import get_setting
 
 
+class Prepared:
+    """A parsed + optimized query awaiting execution (its scans uploaded)."""
+
+    def __init__(self, query: str, stmts, plan):
+        self.query = query
+        self.stmts = stmts
+        self.plan = plan
+
+
 class Session:
     def __init__(self, db_dir: str | None = None, device=None):
         from .runtime.device import resolve_device
@@ -58,6 +67,77 @@ class Session:
 
     def sql_stmt(self, query: str) -> None:
         self.sql(query)
+
+    # ------------------------------------------------- pipelined execution
+    def prepare(self, query: str) -> "Prepared":
+        """Parse, bind and optimize without executing, and upload every scan
+        column the plan touches. This is the unit `sql_many` overlaps with
+        the previous query's execution (reference: compilation runs inside
+        scheduler tasks so one query compiles while another executes over
+        warm contexts, src/execution/Execution.cpp:294-325)."""
+        stmts = parse_sql(query)
+        plan = None
+        if stmts and isinstance(stmts[-1], A.SelectStmt):
+            plan = optimize(Binder(self.catalog).bind_query(stmts[-1]),
+                            self.catalog)
+            self._prefetch_plan(plan)
+        return Prepared(query, stmts, plan)
+
+    def execute_prepared(self, prepared: "Prepared"):
+        result = None
+        for i, stmt in enumerate(prepared.stmts):
+            if i == len(prepared.stmts) - 1 and prepared.plan is not None:
+                result = self._execute_plan(prepared.plan)
+            else:
+                result = self._execute_statement(stmt)
+        return result
+
+    def _prefetch_plan(self, plan) -> None:
+        """Upload the plan's scan columns now. On sql_many's worker thread
+        the copies go to the card's default stream, which every thread
+        shares: the main thread's kernels that read a column are queued
+        after the column is cached, so after its copy. A scan the
+        out-of-core aggregate would stream (its columns exceed
+        system.device_byte_budget) is not uploaded. Best-effort: an error
+        is swallowed here and raised again by the execution."""
+        for op in L.walk_plan(plan):
+            if isinstance(op, L.Scan):
+                try:
+                    if self.executor.chunked_plan(op.table, op.cols) is not None:
+                        continue
+                    dev = self.device_table(op.table)
+                    dev["__num_rows__"]
+                    for c in op.cols:
+                        dev[c.name]
+                except Exception:
+                    pass  # prefetch is best-effort; execution re-raises
+
+    def sql_many(self, queries, overlap: bool | None = None) -> list:
+        """Execute a sequence of SQL strings, overlapping each query's
+        frontend, optimizer and uploads with the previous one's execution.
+        overlap=None follows the system.overlap setting."""
+        import concurrent.futures as cf
+
+        if overlap is None:
+            overlap = bool(get_setting("system.overlap"))
+        queries = list(queries)
+        if not overlap or len(queries) <= 1:
+            return [self.sql(q) for q in queries]
+        out = []
+        with cf.ThreadPoolExecutor(max_workers=1) as pool:
+            nxt = pool.submit(self.prepare, queries[0])
+            for i in range(len(queries)):
+                pq = nxt.result()
+                nxt = None
+                # only pure SELECTs overlap the next prepare: a DDL/DML
+                # statement mutates the catalog the concurrent bind would read
+                pure = all(isinstance(st, A.SelectStmt) for st in pq.stmts)
+                if pure and i + 1 < len(queries):
+                    nxt = pool.submit(self.prepare, queries[i + 1])
+                out.append(self.execute_prepared(pq))
+                if nxt is None and i + 1 < len(queries):
+                    nxt = pool.submit(self.prepare, queries[i + 1])
+        return out
 
     def explain(self, query: str) -> str:
         stmts = parse_sql(query)
@@ -114,6 +194,23 @@ class Session:
         self.catalog.save_reference(db_dir)
 
     # ------------------------------------------------------------ statements
+    def _execute_plan(self, plan):
+        try:
+            res = self.executor.execute(plan)
+        except torch.cuda.OutOfMemoryError:
+            # device memory exhausted (working sets + cached uploads exceed
+            # the card): drop every cached device buffer and retry once.
+            # Reference analogue: buffer-manager eviction under memory
+            # pressure; our unit is whole cached columns.
+            import sys
+
+            print("# device OOM: evicting cached buffers and retrying",
+                  file=sys.stderr)
+            self._evict_device_memory()
+            res = self.executor.execute(plan)
+        self._relieve_memory_pressure()
+        return res
+
     def _execute_statement(self, stmt):
         t = tracer.Timing()
         if isinstance(stmt, A.SelectStmt):
@@ -123,20 +220,7 @@ class Session:
             with t.time("QOpt"):
                 plan = optimize(plan, self.catalog)
             with t.time("execution"):
-                try:
-                    res = self.executor.execute(plan)
-                except torch.cuda.OutOfMemoryError:
-                    # device memory exhausted (working sets + cached uploads
-                    # exceed the card): drop every cached device buffer and
-                    # retry once. Reference analogue: buffer-manager eviction
-                    # under memory pressure; our unit is whole cached columns.
-                    import sys
-
-                    print("# device OOM: evicting cached buffers and "
-                          "retrying", file=sys.stderr)
-                    self._evict_device_memory()
-                    res = self.executor.execute(plan)
-            self._relieve_memory_pressure()
+                res = self._execute_plan(plan)
             if get_setting("sql.report_times"):
                 print(t.report())
             return res
@@ -341,6 +425,11 @@ class Session:
         if self.device.type != "cuda":
             return
         free, total = torch.cuda.mem_get_info(self.device)
+        # blocks the caching allocator keeps but no tensor holds serve the
+        # next query as well: without them, one large query's working set
+        # evicts every cached table after it
+        free += (torch.cuda.memory_reserved(self.device)
+                 - torch.cuda.memory_allocated(self.device))
         if total and free < 0.2 * total:
             import sys
 

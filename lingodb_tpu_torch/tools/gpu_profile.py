@@ -79,6 +79,52 @@ def syncs_and_peak(torch, fn):
     return syncs, torch.cuda.max_memory_allocated(), before
 
 
+def copy_overlap(torch, fn) -> dict:
+    """Host -> device copies against kernels in one traced call of fn: the
+    copies' summed time on the card and the share of it that lies under
+    some kernel (a copy on a side stream while the compute stream runs).
+    None where the trace holds no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_device = torch.autograd.DeviceType.CUDA
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != on_device:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if span[1] <= span[0]:
+            continue
+        name = e.name.lower()
+        if "memcpy" in name and "htod" in name:
+            copies.append(span)
+        elif "memcpy" not in name and "memset" not in name:
+            kernels.append(span)
+    if not copies:
+        return {"copy_ms": None, "hidden_share": None, "copies": 0}
+    kernels.sort()
+    merged: list = []
+    for a, b in kernels:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = hidden = 0.0
+    for a, b in copies:
+        total += b - a
+        for ka, kb in merged:
+            if kb <= a:
+                continue
+            if ka >= b:
+                break
+            hidden += min(b, kb) - max(a, ka)
+    return {"copy_ms": total / 1e3, "hidden_share": hidden / total,
+            "copies": len(copies)}
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, name, None)
@@ -134,7 +180,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=19920601)
-    ap.add_argument("--queries", default="6,1,14,3,4")
+    ap.add_argument("--queries", default="6,1,14,3,4",
+                    help="TPC-H query numbers, comma-separated ('' for none)")
+    ap.add_argument("--sql", action="append", default=[],
+                    help="a query's text, profiled as sql1, sql2, ... "
+                         "(repeatable)")
     ap.add_argument("--paths", default="fused,eager")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -153,11 +203,13 @@ def main() -> int:
     for path in args.paths.split(","):
         report["paths"][path] = {}
         with path_context(path):
-            for q in args.queries.split(","):
-                sql = open(os.path.join("queries", "tpch", f"{q}.sql")).read()
+            texts = {q: open(os.path.join("queries", "tpch", f"{q}.sql")).read()
+                     for q in args.queries.split(",") if q}
+            texts.update({f"sql{i}": t for i, t in enumerate(args.sql, 1)})
+            for q, sql in texts.items():
                 r = profile_query(torch, s, sql)
                 report["paths"][path][q] = r
-                print(f"[{path}] q{q}: wall {r['wall_ms']:.2f} ms, device "
+                print(f"[{path}] {q}: wall {r['wall_ms']:.2f} ms, device "
                       f"{r['device_ms']:.2f} ms, idle share "
                       f"{r['device_idle_share']:.3f}, {r['device_kernels']} "
                       f"kernels, {r['scalar_reads']} scalar reads, "
