@@ -21,9 +21,11 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               ones, set bits only in the last tile, count = k + 1, count >> k,
               k >> count, an unaligned mask, uint8 and int8 masks, a second
               stream, two calls back to back, calls after one that raised
-              before its launch), count and slots bit for bit, and from two
-              threads on the default stream at once (50 calls each, sel 0.5
-              and 0.02, with a time limit on the join: a hang fails);
+              before its launch, a call at the wrap of the call number the
+              kernel keeps on the card), count and slots bit for bit, and
+              from two threads on the default stream at once (50 calls
+              each, sel 0.5 and 0.02, with a time limit on the join: a hang
+              fails);
               segscan is only
               checked here (at lineitem's length, runs of 4 and one run over
               the whole array; then n below one tile and at a tile's edges,
@@ -109,6 +111,30 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               memory; q9, q13 and q20 with device LIKE engaged on the card,
               rows equal to the CPU session's, the device mask equal to the
               host's and timed against it (strings.like_lut)
+  10. graphs  the fused programs as CUDA graphs (runtime/exestore.py):
+              (a) compact_positions captured in a graph and replayed over
+              masks written into its input buffer (sel 0, 0.5 and 1, a
+              count above k, the call number at its wrap), then two threads
+              each replaying its own graph on its own stream (time limit on
+              the join), and gather_chunked, gather_sorted and segscan
+              captured and replayed once each: bit for bit against the
+              plain versions;
+              (b) the fused queries of phases 4 and 4b (q6, q1, q14, q3,
+              q4 and the eleven; 15 distinct) from an empty stage cache and
+              store with system.capstore_dir set: three runs each, run 1
+              calibrates and captures, runs 2 and 3 capture, build and
+              calibrate nothing and replay; rows equal the CPU session's;
+              per query the wall ms and host syncs replayed against run
+              uncaptured (the store's switch), the capture seconds, the
+              graph pool's MiB and the device idle share of both
+              (tools/gpu_profile.py);
+              (c) a fresh session over the same capstore: no calibration
+              run, rows equal;
+              (d) after Session._evict_device_memory the next run captures
+              again, rows equal;
+              (e) execution mode PERF over q6 and q3, its speed of light
+              against system.hbm_gbps set to the H100 SXM data sheet's
+              3350 GB/s (the setting has no default)
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -285,8 +311,10 @@ def check_compact(torch, pg, n, cases):
 
 def check_compact_threads(torch, pg, u, calls=50, limit_s=300.0):
     """compact_positions from two threads on the default stream at once,
-    each `calls` times on its own mask (sel 0.5 and 0.02, k = count): the
-    threads share one scratch and its call numbers. Each thread waits for
+    each `calls` times on its own mask (sel 0.5 and 0.02, k = count): each
+    thread has a scratch of its own (a call is two launches, the prologue
+    that numbers it and the kernel, which two threads on one stream would
+    interleave). Each thread waits for
     the card, and the joins have a time limit: a hang fails the run here.
     Then every result, count and slots, bit for bit against the plain
     version."""
@@ -413,6 +441,23 @@ def check_compact_edges(torch, pg, u):
         pg._compact_scratch_for = take
     same("after a call that raised before its launch", b, kb)
     same("and the call after that", a, ka)
+    # the wrap of the call number the kernel keeps on the card: the number
+    # at its last value and every status word tagged with number 1 (as the
+    # words of a call 2^30 - 1 calls ago might be), so that the call after
+    # the wrap finds them all ready unless its prologue zeroes them
+    stale_scratch(torch, pg._compact_scratch_for(
+        u.device, torch.cuda.current_stream().cuda_stream, n, False))
+    same("at the call number's wrap", sparse, c)
+    same("the call after the wrap", b, kb)
+
+
+def stale_scratch(torch, scratch):
+    """Set a compact_positions scratch to the last call number before the
+    wrap (2^30 - 1, tile counter 0) with every status word inclusive, tagged
+    with number 1 and a wrong count."""
+    torch.cuda.synchronize()
+    scratch[0] = (1 << 30) - 1
+    scratch[1:] = (((1 << 2) | 2) << 32) | 12345
 
 
 def check_sorted(torch, pg, s, mask, cases):
@@ -744,6 +789,11 @@ def checked_kernel_calls(torch, pg, shapes: list):
 
     @contextlib.contextmanager
     def block():
+        # the checked calls read counts to the host: the fused programs run
+        # as they are called (a graph's replay calls no wrapper)
+        from lingodb_tpu_torch.runtime import exestore
+
+        old_capture, exestore.CAPTURE = exestore.CAPTURE, False
         orig = (pg.compact_positions, pg.gather_sorted_planes,
                 pg.gather_chunked_planes)
         pg.compact_positions = compact(orig[0], pg.compact_positions_plain)
@@ -756,6 +806,7 @@ def checked_kernel_calls(torch, pg, shapes: list):
         finally:
             (pg.compact_positions, pg.gather_sorted_planes,
              pg.gather_chunked_planes) = orig
+            exestore.CAPTURE = old_capture
 
     return block()
 
@@ -1300,6 +1351,294 @@ def executor_slice_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, args,
     log(f"# slice: phase 9 took {time.perf_counter() - t_phase:.1f}s")
 
 
+# ---- phase 10: the fused programs as CUDA graphs
+GRAPH_THREAD_REPLAYS = 50
+
+
+def replay_check(torch, label, got, want):
+    """got and want: lists of tensors, compared bit for bit (int64)."""
+    torch.cuda.synchronize()
+    if max_abs_err(torch, [g.reshape(-1) for g in got],
+                   [w.reshape(-1) for w in want]):
+        fail(f"graph replay differs from the plain version: {label}")
+
+
+def capture(torch, fn, stream=None, scratch=None):
+    """fn() captured in a new CUDA graph (its compact_positions calls on
+    `scratch`): (graph, fn's outputs, which the graph's replays refill)."""
+    from lingodb_tpu_torch.ops import pgather as pg
+
+    g = torch.cuda.CUDAGraph()
+    stream = stream or torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    if scratch is None:
+        scratch = pg.new_compact_scratch("cuda")
+    with pg.capture_scratch(scratch), torch.cuda.stream(stream):
+        g.capture_begin()
+        out = fn()
+        g.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    return g, out, scratch
+
+
+def check_graph_kernels(torch, pg, u, limit_s=300.0):
+    """Phase 10 (a), see the module docstring."""
+    n = u.numel()
+    masks = {"sel 0": u < 0, "sel 0.5": u < 0.5, "sel 1": u < 2,
+             "count above k": u < 0.8, "sel 0.02": u < 0.02}
+    k = int(masks["sel 0.5"].sum())
+    static = torch.zeros(n, dtype=torch.bool, device="cuda")
+    g, (cnt, pos), scratch = capture(
+        torch, lambda: pg.compact_positions(static, k))
+    for label in list(masks) + ["wrap"]:
+        m = masks["sel 0.5" if label == "wrap" else label]
+        if label == "wrap":
+            stale_scratch(torch, scratch)
+        static.copy_(m)
+        g.replay()
+        cnt_p, pos_p = pg.compact_positions_plain(m, k)
+        replay_check(torch, f"compact_positions, {label}", [cnt, pos],
+                     [cnt_p, pos_p])
+    log(f"# graphs: compact_positions replayed over {len(masks) + 1} masks "
+        f"(n={n}, k={k}), equal to the plain version")
+    # two threads, each replaying its own graph on its own stream
+    graphs = []
+    for label in ("sel 0.5", "sel 0.02"):
+        st = torch.cuda.Stream()
+        mk = masks[label]
+        kk = int(mk.sum())
+        gi, outs, _scr = capture(torch, lambda m=mk, kk=kk:
+                                 pg.compact_positions(m, kk), stream=st)
+        graphs.append((label, st, gi, outs,
+                       pg.compact_positions_plain(mk, kk)))
+    results, errors = [[], []], []
+
+    def work(t):
+        label, st, gi, (c, p), _want = graphs[t]
+        try:
+            with torch.cuda.stream(st):
+                for _ in range(GRAPH_THREAD_REPLAYS):
+                    gi.replay()
+                    results[t].append((c.clone(), p.clone()))
+            st.synchronize()
+        except Exception as exc:  # reported after the join
+            errors.append(f"thread {t}: {exc!r}")
+
+    threads = [threading.Thread(target=work, args=(t,), daemon=True)
+               for t in range(2)]
+    deadline = time.perf_counter() + limit_s
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(max(0.0, deadline - time.perf_counter()))
+    if any(th.is_alive() for th in threads):
+        print(f"chip_smoke: FAILED: graph replays from two threads did not "
+              f"finish within {limit_s:.0f} s (a hang)", file=sys.stderr,
+              flush=True)
+        os._exit(1)  # a thread waits on the card: no orderly exit
+    if errors:
+        fail(f"graph replays from two threads raised: {errors}")
+    for t, (label, _st, _g, _o, want) in enumerate(graphs):
+        for c, p in results[t]:
+            replay_check(torch, f"compact_positions from thread {t} ({label})",
+                         [c, p], list(want))
+    log(f"# graphs: compact_positions from two threads, each replaying its "
+        f"own graph {GRAPH_THREAD_REPLAYS} times on its own stream, equal to "
+        "the plain version")
+    # gather_chunked, gather_sorted and segscan: one replay each, new
+    # indices (and keys) written into the captured inputs first
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    planes = [torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                            device="cuda", generator=gen) for _ in range(2)]
+    small = [p[:10_000].clone() for p in planes]
+    idx = torch.zeros(n, dtype=torch.int32, device="cuda")
+    sidx = torch.zeros(n // 2, dtype=torch.int32, device="cuda")
+    gid = torch.zeros(n, dtype=torch.int32, device="cuda")
+    for name, fn, fill, plain in (
+            ("gather_chunked", lambda: pg.gather_chunked_planes(small, idx),
+             lambda: idx.copy_(torch.randint(0, 10_000, (n,), device="cuda",
+                                             generator=gen)),
+             lambda: pg.gather_chunked_planes_plain(small, idx)),
+            ("gather_sorted", lambda: pg.gather_sorted_planes(planes, sidx),
+             lambda: sidx.copy_(torch.sort(torch.randint(
+                 0, n, (n // 2,), device="cuda", generator=gen)).values),
+             lambda: pg.gather_sorted_planes_plain(planes, sidx)),
+            ("segscan", lambda: pg.segscan_i32(gid, planes),
+             lambda: gid.copy_(torch.arange(n, device="cuda") // 4),
+             lambda: pg.segscan_i32_plain(gid, planes))):
+        gk, out, _scr = capture(torch, fn)
+        fill()
+        gk.replay()
+        replay_check(torch, name, list(out), list(plain()))
+    log("# graphs: gather_chunked, gather_sorted and segscan replayed with "
+        "new inputs, equal to their plain versions")
+
+
+def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
+                 mask_u):
+    """Phase 10 (see the module docstring)."""
+    from lingodb_tpu_torch.runtime import exestore
+    from lingodb_tpu_torch.tools import tpchgen
+    from lingodb_tpu_torch.utils import capstore, compilestats
+    from lingodb_tpu_torch.utils.settings import CAPSTORE_DIR
+
+    t_phase = time.perf_counter()
+    check_graph_kernels(torch, pg, mask_u)
+    queries = list(dict.fromkeys(QUERIES + TOPK_CHAIN_QUERIES))
+    sqls = {q: open(f"queries/tpch/{q}.sql").read() for q in queries}
+    for q in queries:
+        if q not in cpu_rows:
+            cpu_rows[q] = cpu.sql(sqls[q]).format_rows()
+    # (b) from an empty stage cache and store, the capstore written anew
+    store_dir = os.path.join("build", "capstore_smoke")
+    if os.path.exists(os.path.join(store_dir, "capacities.json")):
+        os.remove(os.path.join(store_dir, "capacities.json"))
+    CAPSTORE_DIR.set(store_dir)
+    capstore.reset()
+    gpu.stage_cache.clear()
+    gpu.exestore.clear()
+    table = {}
+    for q in queries:
+        runs = []
+        pool0 = gpu.exestore.pool_memory()[0]
+        for r in range(3):
+            cs0 = compilestats.snapshot()
+            pg.reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = gpu.sql(sqls[q]).format_rows()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            d = compilestats.delta(cs0)
+            d["launches"] = dict(pg.LAUNCHES)
+            if rows != cpu_rows[q]:
+                fail(f"q{q} [graphs, run {r + 1}]: GPU rows differ from the "
+                     "CPU session's")
+            runs.append((ms, d))
+        # what the store's one shared pool grew by over the query's runs
+        pool_mib = (gpu.exestore.pool_memory()[0] - pool0) / 2**20
+        for r in (1, 2):
+            d = runs[r][1]
+            if d["captures"] or d["builds"] or d["calibrations"]:
+                fail(f"q{q} [graphs, run {r + 1}]: {d}")
+            if d["replays"] < 1:
+                fail(f"q{q} [graphs, run {r + 1}]: no replay")
+        if runs[0][1]["captures"] < 1:
+            fail(f"q{q} [graphs, run 1]: nothing captured")
+        syncs, peak, _ = gpu_profile.syncs_and_peak(
+            torch, lambda: gpu.sql(sqls[q]).format_rows())
+        prof = gpu_profile.profile_query(torch, gpu, sqls[q])
+        split = front_and_execution(torch, gpu, sqls[q])
+        with gpu_profile.uncaptured_path():
+            gpu.sql(sqls[q]).format_rows()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = gpu.sql(sqls[q]).format_rows()
+            torch.cuda.synchronize()
+            un_ms = (time.perf_counter() - t0) * 1e3
+            un_syncs, _, _ = gpu_profile.syncs_and_peak(
+                torch, lambda: gpu.sql(sqls[q]).format_rows())
+            un_prof = gpu_profile.profile_query(torch, gpu, sqls[q])
+            un_split = front_and_execution(torch, gpu, sqls[q])
+        if rows != cpu_rows[q]:
+            fail(f"q{q} [uncaptured]: GPU rows differ from the CPU session's")
+        table[q] = {
+            "runs": [{"ms": ms, **d} for ms, d in runs],
+            "captured": {"wall_ms": runs[2][0], "syncs": syncs,
+                         "front_ms": split[0], "execution_ms": split[1],
+                         "idle": prof["device_idle_share"],
+                         "device_ms": prof["device_ms"],
+                         "profiled_wall_ms": prof["wall_ms"],
+                         "replays": prof["replays"], "peak_mib": peak / 2**20},
+            "uncaptured": {"wall_ms": un_ms, "syncs": un_syncs,
+                           "front_ms": un_split[0],
+                           "execution_ms": un_split[1],
+                           "idle": un_prof["device_idle_share"],
+                           "device_ms": un_prof["device_ms"],
+                           "profiled_wall_ms": un_prof["wall_ms"]},
+            "capture_ms": runs[0][1]["capture_secs"] * 1e3,
+            "pool_mib": pool_mib}
+        t = table[q]
+        by_run = [(d["captures"], d["replays"], d["calibrations"])
+                  for _m, d in runs]
+        log(f"# graphs q{q}: captures/replays/calibrations by run {by_run}; "
+            f"launches by run {[d['launches'] for _m, d in runs]}; "
+            f"wall_ms replayed {t['captured']['wall_ms']:.2f} uncaptured "
+            f"{un_ms:.2f}; syncs {syncs} / {un_syncs}; idle "
+            f"{t['captured']['idle']:.3f} / {t['uncaptured']['idle']:.3f}; "
+            f"device_ms {prof['device_ms']:.3f} / {un_prof['device_ms']:.3f}; "
+            f"capture_ms {t['capture_ms']:.1f}; pool_mib {pool_mib:.1f}; "
+            f"front/execution ms {split[0]:.2f}/{split[1]:.2f} replayed, "
+            f"{un_split[0]:.2f}/{un_split[1]:.2f} uncaptured")
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "graphs_phase.json"), "w") as f:
+        json.dump(table, f, indent=1)
+    # (c) a fresh session over the capstore: no calibration run
+    capstore.reset()
+    fresh = ldb.create_in_memory()
+    tpchgen.install(fresh, tables)
+    cs0 = compilestats.snapshot()
+    for q in queries:
+        if fresh.sql(sqls[q]).format_rows() != cpu_rows[q]:
+            fail(f"q{q} [fresh session over the capstore]: rows differ")
+    d = compilestats.delta(cs0)
+    if d["calibrations"]:
+        fail(f"a fresh session over the capstore calibrated: {d}")
+    log(f"# graphs (c): a fresh session over the capstore ran the "
+        f"{len(queries)} queries with {d['calibrations']} calibration runs, "
+        f"{d['captures']} captures, rows equal")
+    fresh._evict_device_memory()
+    del fresh
+    CAPSTORE_DIR.set("")
+    capstore.reset()
+    # (d) eviction drops the graphs: the next run captures again
+    gpu._evict_device_memory()
+    if gpu.exestore.entries:
+        fail("graphs (d): entries left after _evict_device_memory")
+    cs0 = compilestats.snapshot()
+    for q in ("6", "3", "9"):
+        if gpu.sql(sqls[q]).format_rows() != cpu_rows[q]:
+            fail(f"q{q} [graphs, after eviction]: rows differ")
+    d = compilestats.delta(cs0)
+    if d["captures"] < 3:
+        fail(f"graphs (d): after eviction the queries captured {d}")
+    log(f"# graphs (d): after eviction q6, q3, q9 captured again "
+        f"({d['captures']} captures), rows equal")
+    # (e) execution mode PERF on the card, its speed of light against the
+    # H100 SXM data sheet's 3.35 TB/s (system.hbm_gbps has no default)
+    from lingodb_tpu_torch.utils.settings import EXECUTION_MODE, HBM_GBPS
+
+    HBM_GBPS.set(HBM_BYTES_PER_S / 1e9)
+    EXECUTION_MODE.set("PERF")
+    try:
+        for q in ("6", "3"):
+            if gpu.sql(sqls[q]).format_rows() != cpu_rows[q]:
+                fail(f"q{q} [PERF mode]: rows differ")
+            for rec in gpu.executor.last_op_profile:
+                log(f"# perf q{q}: {rec[0]} self={rec[1]:.3f}ms "
+                    f"incl={rec[3]:.3f}ms rows={rec[2]} bytes={rec[4]} "
+                    f"sol={rec[5]} (system.hbm_gbps={HBM_GBPS.get():g})")
+    finally:
+        EXECUTION_MODE.set("DEFAULT")
+        HBM_GBPS.reset()
+    log(f"# graphs: phase 10 took {time.perf_counter() - t_phase:.1f}s "
+        f"(capture switch {exestore.CAPTURE})")
+
+
+def front_and_execution(torch, session, sql) -> tuple:
+    """(ms to parse, bind and optimize, ms to execute and format the rows)
+    of one run: Session.prepare, then Session.execute_prepared."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prepared = session.prepare(sql)
+    t1 = time.perf_counter()
+    session.execute_prepared(prepared).format_rows()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=1.0, help="TPC-H scale factor")
@@ -1555,6 +1894,14 @@ def main() -> int:
     # ---- phase 9: the executor slice
     executor_slice_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, args,
                          launches)
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 10")
+    # ---- phase 10: the fused programs as CUDA graphs
+    cpu_rows.update(want)
+    graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
+                 torch.rand(n_li, device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(3)))
 
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",

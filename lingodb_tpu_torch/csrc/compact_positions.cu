@@ -48,21 +48,23 @@
 //     before the tile counter has run out.
 //   - No status word of an earlier call may read as ready, and the tile
 //     counter must start at zero. Both live in a scratch buffer that the
-//     caller keeps for each stream from call to call, and numbers the calls
-//     on it (the epoch, from 1, below 2^30). A word of an earlier call
-//     carries an earlier epoch. Call e takes its tiles from counter e & 1,
-//     which call e - 1 zeroed, and zeroes the other for call e + 1: calls on
-//     one stream run in order. At epoch 1 (a new buffer, or the numbers
-//     begun again) the entry point zeroes the buffer with one memset; every
-//     other call is one launch and nothing else: no memset a call, and no
-//     fence and atomic at the end of every block, as a clean-up by the last
-//     block to finish would need. The caller counts a call only once this
-//     entry point has returned 0: a call that fails before its launch
-//     zeroes no counter, so the next call must take its number again, or
-//     it would read a counter that still holds the count of call e - 2 and
-//     its blocks would wait for tiles that no block takes. For the same
-//     reason a CUDA graph cannot hold this launch: each replay would repeat
-//     the captured epoch.
+//     caller keeps for each stream and thread (or a CUDA graph keeps for
+//     its replays): word 0 holds the call number (the epoch, from 1, below
+//     2^30) in its low half and the tile counter in its high half, then one
+//     status word a tile. The numbering is the card's own: each call is a
+//     one-thread-block prologue launch, then the main launch, on one stream.
+//     The prologue bumps the call number and zeroes the tile counter; the
+//     main kernel reads its epoch from the word. A word of an earlier call
+//     carries an earlier epoch. When the number wraps (2^30 - 1 calls) the
+//     prologue zeroes every status word first, since a word that old could
+//     carry any number. Nothing is counted on the host, so a CUDA graph can
+//     hold both launches: each replay runs the prologue again and gets a
+//     new number and a zeroed counter. A buffer is zeroed when it is made
+//     (number 0); a call that fails leaves it consistent, since the next
+//     prologue numbers and zeroes again. The prologue is a launch of its
+//     own (about a kernel's launch gap on the card, PERF.md) rather than a
+//     clean-up by the last block to finish, which would need a fence and an
+//     atomic at the end of every block.
 //
 // No atomics on the data: the output is bit-equal to numpy.flatnonzero for
 // every run.
@@ -232,15 +234,38 @@ __device__ __forceinline__ uint32_t look_back(const unsigned long long* state,
   }
 }
 
-// scratch: two tile counters, then one status word a tile. Call `epoch`
-// takes its tiles from counter epoch & 1, which the call before it zeroed,
-// and zeroes the other for the call after it; its status words carry the
-// epoch, so a word of an earlier call never reads as ready.
+// The number of a call wraps to 1 after kEpochs - 1: it fits the 30 bits a
+// status word keeps above its status.
+constexpr uint32_t kEpochs = 1u << 30;
+
+// The prologue of a call, one block launched just before compact_kernel on
+// the same stream: the next call number into scratch word 0's low half, the
+// tile counter (its high half) zeroed, and, when the number wraps, every
+// one of the `words` status words zeroed first (a word written 2^30 - 1
+// calls ago may carry any number). A new buffer is all zero: number 0.
+__global__ void __launch_bounds__(kThreads)
+compact_prologue(unsigned* __restrict__ scratch, int64_t words) {
+  const uint32_t last = scratch[0];  // read by every thread before the write
+  const uint32_t epoch = last % (kEpochs - 1u) + 1u;
+  if (epoch == 1u && last != 0u) {
+    auto* state = reinterpret_cast<unsigned long long*>(scratch + 2);
+    for (int64_t w = threadIdx.x; w < words; w += kThreads) state[w] = 0ull;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    scratch[0] = epoch;
+    scratch[1] = 0u;
+  }
+}
+
+// scratch: the call number and the tile counter (both set by the
+// prologue), then one status word a tile. The status words carry the
+// number, so a word of an earlier call never reads as ready.
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 compact_kernel(const uint8_t* __restrict__ mask, int64_t n, int num_tiles,
                int* __restrict__ out, int64_t k, int* __restrict__ count,
-               unsigned* __restrict__ scratch, uint32_t epoch) {
+               unsigned* __restrict__ scratch) {
   constexpr int kPer = Tile<V>::kPerThread;
   constexpr int kTile = Tile<V>::kBytes;
   extern __shared__ int staged[];
@@ -249,11 +274,11 @@ compact_kernel(const uint8_t* __restrict__ mask, int64_t n, int num_tiles,
   __shared__ uint32_t sh_sum[kWarps];
   __shared__ int sh_next;
   __shared__ int64_t sh_total;  // the exact count, once this block knows it
-  unsigned* counter = scratch + (epoch & 1u);
+  const uint32_t epoch = scratch[0];
+  unsigned* counter = scratch + 1;
   auto* state = reinterpret_cast<unsigned long long*>(scratch + 2);
   const bool solo = gridDim.x == 1;  // walks the tiles in order by itself
   if (threadIdx.x == 0) {
-    if (blockIdx.x == 0) scratch[(epoch + 1u) & 1u] = 0u;
     sh_total = -1;
     sh_next = solo ? 0 : (int)atomicAdd(counter, 1u);
   }
@@ -371,13 +396,16 @@ int resident_blocks() {
 
 template <int V>
 int launch(const uint8_t* mask, int64_t n, int* out, int64_t k, int* count,
-           unsigned* scratch, uint32_t epoch, cudaStream_t st) {
+           unsigned* scratch, int64_t words, cudaStream_t st) {
   const int num_tiles = (int)((n + Tile<V>::kBytes - 1) / Tile<V>::kBytes);
   int grid = resident_blocks<V>();
   if (grid < 1) return -4;
   if (grid > num_tiles) grid = num_tiles;
+  compact_prologue<<<1, kThreads, 0, st>>>(scratch, words);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   compact_kernel<V><<<grid, kThreads, Tile<V>::kStagedBytes, st>>>(
-      mask, n, num_tiles, out, k, count, scratch, epoch);
+      mask, n, num_tiles, out, k, count, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -386,15 +414,13 @@ int launch(const uint8_t* mask, int64_t n, int* out, int64_t k, int* count,
 // mask: n bytes, 16-byte aligned, 1 <= n < 2^31 - 1. out: k int32 slots,
 // 16-byte aligned. count: one int32, always written. scratch:
 // scratch_bytes >= 8 + 8 * ceil(n / ldb_compact_tile()), 8-byte aligned,
-// kept by the caller from call to call on one stream, with `epoch` counting
-// from 1 (below 2^30) the calls on it that this function answered with 0.
-// At epoch 1 (a new buffer, or the count begun again) the whole buffer is
-// zeroed here first, with one memset. One kernel launch. Returns the CUDA error (0 = none), or a
-// negative code for arguments it does not take.
+// zeroed when it was made, and used by one stream at a time: calls in
+// order, each a prologue launch and the main launch, nothing counted on
+// the host (a CUDA graph may hold both launches). Returns the CUDA error
+// (0 = none), or a negative code for arguments it does not take.
 extern "C" int ldb_compact_positions(const void* mask, int64_t n, void* out,
                                      int64_t k, void* count, void* scratch,
-                                     int64_t scratch_bytes, int epoch,
-                                     void* stream) {
+                                     int64_t scratch_bytes, void* stream) {
   if (n < 1 || n >= 2147483647 || k < 0) return -1;
   if ((reinterpret_cast<uintptr_t>(mask) | reinterpret_cast<uintptr_t>(out)) &
       15)
@@ -403,21 +429,16 @@ extern "C" int ldb_compact_positions(const void* mask, int64_t n, void* out,
   if ((reinterpret_cast<uintptr_t>(scratch) & 7) ||
       scratch_bytes < 8 + 8 * tiles)
     return -3;
-  if (epoch < 1 || epoch >= (1 << 30)) return -5;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* words = static_cast<unsigned*>(scratch);
-  if (epoch == 1) {
-    const cudaError_t err = cudaMemsetAsync(words, 0, scratch_bytes, st);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int64_t status_words = scratch_bytes / 8 - 1;
   const auto* m = static_cast<const uint8_t*>(mask);
   int* o = static_cast<int*>(out);
   int* c = static_cast<int*>(count);
-  const uint32_t e = (uint32_t)epoch;
   // larger tiles where there are enough of them to fill the card
-  if (n >= kWideRows) return launch<4>(m, n, o, k, c, words, e, st);
-  if (n >= kMidRows) return launch<2>(m, n, o, k, c, words, e, st);
-  return launch<1>(m, n, o, k, c, words, e, st);
+  if (n >= kWideRows) return launch<4>(m, n, o, k, c, words, status_words, st);
+  if (n >= kMidRows) return launch<2>(m, n, o, k, c, words, status_words, st);
+  return launch<1>(m, n, o, k, c, words, status_words, st);
 }
 
 // Mask bytes per tile of the smallest tile: the caller sizes `scratch`

@@ -19,6 +19,7 @@ below.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -110,13 +111,63 @@ def to_host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def const(value, device, dtype=None) -> torch.Tensor:
+    """A 0-dim tensor holding a host scalar, made on `device` by a fill
+    kernel: no host-to-device copy, so a CUDA graph can capture it. The
+    dtype is torch.tensor's for the value unless given."""
+    dtype = None if dtype is None else tdtype(dtype)
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+# The uploads a capture in progress on this thread made (a list that the
+# capturing code keeps beside its graph), or None outside a capture.
+_capture_uploads = threading.local()
+
+
+@contextlib.contextmanager
+def capture_uploads(keep: list):
+    """Within the block, to_device of a host array under capture uploads it
+    beside the capture and appends the tensor to `keep`: the graph reads it
+    at every replay, so the graph's owner keeps it alive."""
+    prev = getattr(_capture_uploads, "keep", None)
+    _capture_uploads.keep = keep
+    try:
+        yield keep
+    finally:
+        _capture_uploads.keep = prev
+
+
+def capturing(device) -> bool:
+    """Whether this thread's current stream on `device` is being captured
+    into a CUDA graph."""
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
 def to_device(x, device) -> torch.Tensor:
-    """numpy array (or tensor) -> tensor on `device`."""
+    """numpy array (or tensor) -> tensor on `device`. A 0-dim array becomes
+    a fill (const). Under a CUDA graph's capture a host array cannot be
+    copied on the captured stream (the copy would wait for the host): it is
+    copied on a side stream beside the capture, once, and kept with the
+    graph (capture_uploads); every replay reads that copy."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
     a = np.asarray(x)
+    if a.ndim == 0 and a.dtype in _NP2T:
+        return const(a.item(), device, a.dtype)
     if not a.flags.writeable or not a.flags.c_contiguous:
         a = np.array(a, copy=True)
+    if capturing(device):
+        keep = getattr(_capture_uploads, "keep", None)
+        if keep is None:
+            raise RuntimeError("host array uploaded under a capture that "
+                               "keeps no uploads (capture_uploads)")
+        # the default stream is never the captured one (a capture runs on
+        # a side stream) and its copy waits for the host, as it must
+        with torch.cuda.stream(torch.cuda.default_stream(device)):
+            t = torch.from_numpy(a).to(device)
+        keep.append(t)
+        return t
     return torch.from_numpy(a).to(device)
 
 
@@ -138,8 +189,6 @@ def _co(x, device):
     if isinstance(x, torch.Tensor):
         return x
     if isinstance(x, np.ndarray):
-        if x.ndim == 0:
-            return torch.tensor(x.item(), dtype=tdtype(x.dtype), device=device)
         return to_device(x, device)
     if isinstance(x, np.generic):
         return x.item()
@@ -151,7 +200,7 @@ def _tensor(x, device):
     x = _co(x, device)
     if isinstance(x, torch.Tensor):
         return x
-    return torch.tensor(x, device=device)
+    return const(x, device)
 
 
 # ------------------------------------------------------------ torch twins
@@ -162,8 +211,7 @@ def _t_where(c, x, y):
     if not isinstance(x, torch.Tensor) and not isinstance(y, torch.Tensor):
         # two Python scalars: numpy semantics give int64 / float64 / bool
         both = np.result_type(np.asarray(x), np.asarray(y))
-        x = torch.tensor(x, dtype=tdtype(both), device=dev)
-        y = torch.tensor(y, dtype=tdtype(both), device=dev)
+        x, y = const(x, dev, both), const(y, dev, both)
     elif isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
         if x.dtype != y.dtype:
             # numpy promotion, not torch's 0-dim "scalar" rule: an int64
@@ -198,6 +246,9 @@ def _t_take(a, idx, axis=0, mode=None):
         idx = idx.to(torch.int64)
     if mode == "clip":
         idx = idx.clamp(0, max(a.shape[0] - 1, 0))
+    if a.ndim == 1 and idx.ndim == 0:
+        # a 0-dim index would be read to the host as an integer
+        return a[idx.reshape(1)].reshape(())
     if a.ndim == 1 and idx.ndim <= 1:
         return a[idx]
     return torch.index_select(a, axis, idx.reshape(-1).to(torch.int64))
@@ -261,7 +312,7 @@ def _binary(fn):
         dev = device_of(x, y)
         x, y = _co(x, dev), _co(y, dev)
         if not isinstance(x, torch.Tensor):
-            x = torch.tensor(x, device=dev)
+            x = const(x, dev)
         return fn(x, y)
 
     return call
@@ -271,7 +322,7 @@ def _t_floor_divide(x, y):
     dev = device_of(x, y)
     x, y = _co(x, dev), _co(y, dev)
     if not isinstance(x, torch.Tensor):
-        x = torch.tensor(x, device=dev)
+        x = const(x, dev)
     return torch.div(x, y, rounding_mode="floor")
 
 

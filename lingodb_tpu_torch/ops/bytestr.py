@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import backend as be
+
 # dictionaries below this stay on the host LUT path: plane build + device
 # dispatch costs more than a small host loop
 DEVICE_DICT_MIN = 1 << 14
@@ -37,14 +39,14 @@ _PLANE_CACHE: dict[tuple, tuple] = {}
 _MASK_CACHE: dict[tuple, tuple] = {}
 
 
-def _planes(dictionary: np.ndarray, device):
+def _planes(dictionary: np.ndarray, device, cached: bool = True):
     """(bytes2d (D, Lpad) uint8, lens (D,) int32, ascii_only, exact) on
-    `device`. Built once per dictionary object and device; exact=False
-    flags embedded NUL bytes (S-dtype trims them -- the planes are then
-    truncated and the caller must match on the host)."""
+    `device`. Built once per dictionary object and device (with `cached`);
+    exact=False flags embedded NUL bytes (S-dtype trims them -- the planes
+    are then truncated and the caller must match on the host)."""
     device = torch.device(device)
     key = (id(dictionary), str(device))
-    hit = _PLANE_CACHE.get(key)
+    hit = _PLANE_CACHE.get(key) if cached else None
     if hit is not None and hit[0] is dictionary:
         return hit[1]
     enc = np.char.encode(dictionary.astype(str), "utf-8")
@@ -66,8 +68,10 @@ def _planes(dictionary: np.ndarray, device):
             (len(str(x).encode("utf-8")) for x in dictionary),
             np.int32, len(dictionary))
         exact = bool(np.array_equal(true_lens, lens))
-    out = (torch.from_numpy(buf).to(device), torch.from_numpy(lens).to(device),
-           ascii_only, exact)
+    out = (be.to_device(buf, device), be.to_device(lens, device), ascii_only,
+           exact)
+    if not cached:
+        return out
     if len(_PLANE_CACHE) >= 8:
         # evict the single oldest entry (insertion-ordered dict): each entry
         # pins a (D, Lpad) uint8 plane on its device
@@ -118,7 +122,13 @@ def device_like_mask(dictionary: np.ndarray, pattern: str,
                      case_insensitive: bool = False, device="cpu"):
     """Per-dictionary-entry LIKE mask computed on `device`, or None when
     the pattern/data needs the host path. Returns a bool (D,) tensor,
-    cached per (dictionary, device, pattern, ci)."""
+    cached per (dictionary, device, pattern, ci). Under a CUDA graph's
+    capture nothing is read from or kept in the caches: a mask made there
+    lives in the graph's pool, which its replays overwrite, and the graph
+    must not read a cached tensor that the cache may drop."""
+    if be.capturing(device):
+        return _device_like_mask_uncached(dictionary, pattern,
+                                          case_insensitive, device, False)
     ck = (id(dictionary), str(torch.device(device)), pattern, case_insensitive)
     hit = _MASK_CACHE.get(ck)
     if hit is not None and hit[0] is dictionary:
@@ -132,12 +142,13 @@ def device_like_mask(dictionary: np.ndarray, pattern: str,
 
 
 def _device_like_mask_uncached(dictionary: np.ndarray, pattern: str,
-                               case_insensitive: bool, device):
+                               case_insensitive: bool, device,
+                               cached_planes: bool = True):
     try:
         pattern.encode("ascii")
     except UnicodeEncodeError:
         return None
-    b2d, lens, ascii_only, exact = _planes(dictionary, device)
+    b2d, lens, ascii_only, exact = _planes(dictionary, device, cached_planes)
     if not exact:
         return None  # embedded NULs: plane bytes/lengths are truncated
     segments, a_start, a_end = _tokenize(pattern)

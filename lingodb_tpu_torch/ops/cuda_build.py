@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils import compilestats
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("compact_positions", "gather_sorted", "gather_chunked", "segscan",
@@ -82,8 +84,11 @@ def build_all() -> dict[str, ctypes.CDLL]:
         raise KernelBuildError("nvcc failed for " + "\n".join(failures))
     if procs:
         build_seconds = time.perf_counter() - t0
+        compilestats.add("builds", len(procs))
+        compilestats.add("build_secs", build_seconds)
     for name in SOURCES:
         _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+        compilestats.add("loads")
     _declare(_LIBS)
     return _LIBS
 
@@ -91,7 +96,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
 def _declare(libs) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     f = libs["compact_positions"].ldb_compact_positions
-    f.argtypes = [vp, i64, vp, i64, vp, vp, i64, i32, vp]
+    f.argtypes = [vp, i64, vp, i64, vp, vp, i64, vp]
     f.restype = i32
     t = libs["compact_positions"].ldb_compact_tile
     t.argtypes = []

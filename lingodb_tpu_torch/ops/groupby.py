@@ -30,11 +30,45 @@ DENSE_DOMAIN_LIMIT = 1 << 16
 
 def small_domain(c: SCol) -> int | None:
     """Dense-domain size if the column is cheaply dense-encodable."""
-    if c.type.is_string and c.dictionary is not None:
-        return len(c.dictionary) + (1 if c.valid is not None else 0)
-    if c.type.kind == K.BOOL:
-        return 2 + (1 if c.valid is not None else 0)
+    return _domain(c.type, c.dictionary, c.valid is not None)
+
+
+def _domain(t, dictionary, nullable: bool) -> int | None:
+    if t.is_string and dictionary is not None:
+        return len(dictionary) + (1 if nullable else 0)
+    if t.kind == K.BOOL:
+        return 2 + (1 if nullable else 0)
     return None
+
+
+def bounded_layout(templates, bounds):
+    """(total, radices, offsets) of bounded_gid's mixed-radix id for keys
+    described by (type, dictionary, nullable) templates, or None when a key
+    has neither a small domain nor usable bounds, or the domain exceeds
+    DENSE_DOMAIN_LIMIT. An offset of None: the key's value is its code."""
+    from ..sql.types import K as _K
+
+    total = 1
+    radices = []
+    offsets = []
+    for (t, dictionary, nullable), b in zip(templates, bounds):
+        d = _domain(t, dictionary, nullable)
+        if d is not None:
+            radices.append(d)
+            offsets.append(None)  # value IS the code
+        elif b is not None and t.kind in (_K.INT, _K.BIGINT, _K.DATE):
+            kmin, kmax = b
+            if kmax < kmin:
+                kmin, kmax = 0, 0  # no surviving rows at calibration
+            d = (int(kmax) - int(kmin) + 1) + (1 if nullable else 0)
+            radices.append(d)
+            offsets.append(int(kmin))
+        else:
+            return None
+        total *= d
+        if total > DENSE_DOMAIN_LIMIT:
+            return None
+    return total, radices, offsets
 
 
 def bounded_gid(key_cols: list[SCol], bounds):
@@ -52,29 +86,11 @@ def bounded_gid(key_cols: list[SCol], bounds):
     known, so the static dense_gid() below cannot see it (the reference's
     runtime hash table is naturally value-oblivious; here adaptive
     recompilation learns the domain instead)."""
-    from ..sql.types import K as _K
-
-    total = 1
-    radices = []
-    offsets = []
-    for c, b in zip(key_cols, bounds):
-        d = small_domain(c)
-        if d is not None:
-            radices.append(d)
-            offsets.append(None)  # value IS the code
-        elif (b is not None
-              and c.type.kind in (_K.INT, _K.BIGINT, _K.DATE)):
-            kmin, kmax = b
-            if kmax < kmin:
-                kmin, kmax = 0, 0  # no surviving rows at calibration
-            d = (int(kmax) - int(kmin) + 1) + (1 if c.valid is not None else 0)
-            radices.append(d)
-            offsets.append(int(kmin))
-        else:
-            return None, None, None, None, None
-        total *= d
-        if total > DENSE_DOMAIN_LIMIT:
-            return None, None, None, None, None
+    templates = [(c.type, c.dictionary, c.valid is not None) for c in key_cols]
+    layout = bounded_layout(templates, bounds)
+    if layout is None:
+        return None, None, None, None, None
+    total, radices, offsets = layout
     gid = None
     oob = None
     for c, r, off in zip(key_cols, radices, offsets):

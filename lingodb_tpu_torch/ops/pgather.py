@@ -24,7 +24,9 @@ speed. Kernels (sources under csrc/, all int32 in-kernel; wrappers limb-split
 Beside each kernel stands a plain PyTorch version (`*_plain`) of the same
 signature. A wrapper takes it only for tensors that lie on the CPU; for CUDA
 tensors it launches the kernel or raises. Each wrapper counts its launches in
-LAUNCHES, and nowhere else.
+LAUNCHES, and nowhere else. A call captured into a CUDA graph launches
+nothing: it is counted in the capture's tally (capture_scratch), which the
+graph's owner adds to LAUNCHES at every replay (runtime/exestore.py).
 """
 
 from __future__ import annotations
@@ -49,6 +51,24 @@ LAUNCHES = {"compact_positions": 0, "gather_sorted": 0, "gather_chunked": 0,
 def reset_counters() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _launched(name: str) -> None:
+    """One launch of kernel `name` by its wrapper: counted in LAUNCHES, or,
+    where the call is being captured, in the capture's tally."""
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_compact_local, "tally", None)
+        if tally is not None:
+            tally[name] = tally.get(name, 0) + 1
+    else:
+        LAUNCHES[name] += 1
+
+
+def count_replay(tally: dict) -> None:
+    """The launches of one replay of a graph whose capture counted
+    `tally`."""
+    for name, v in tally.items():
+        LAUNCHES[name] += v
 
 
 def _check(err: int, what: str) -> None:
@@ -141,7 +161,7 @@ def gather_chunked_planes(tables, idx, outs=None):
         with torch.cuda.device(idx.device):
             err = fn(pin, sin, pout, sout, len(tables), s, flat.data_ptr(), n,
                      per_sm * sms, _stream(idx))
-        LAUNCHES["gather_chunked"] += 1
+        _launched("gather_chunked")
         _check(err, "gather_chunked")
     return [o.reshape(idx.shape) for o in outs]
 
@@ -157,50 +177,71 @@ def gather_chunked_i32(table, idx):
 # --------------------------------------------------------------------------
 
 _compact_tile = 0  # mask bytes per tile, asked of the built library once
-# the look-back's scratch of compact_positions, one per (device, stream):
-# (int64 buffer, calls made on it). Its status words carry the call's
-# number, so none of an earlier call reads as ready in a later one. A call
-# is counted only once its kernel is launched: call e zeroes the tile
-# counter of call e + 1, so a number taken by a call that never launched
-# must be taken again by the next
-_compact_scratch: dict = {}
-_EPOCHS = 1 << 30  # a call number fits 30 bits; then the buffer is zeroed
-# held from taking a number to keeping it: two threads share a key (each
-# thread's current stream is the default stream unless it sets one), and
-# the launch releases the GIL
-_compact_lock = threading.Lock()
+# The look-back's scratch of compact_positions: the call number and tile
+# counter in word 0, then a status word a tile. The kernel numbers its calls
+# itself (a prologue launch bumps the number and zeroes the counter), so a
+# scratch needs no host state, only one owner at a time: uncaptured calls
+# take the scratch of their thread, device and stream (two threads on one
+# stream each launch two kernels a call, so they must not share one), and a
+# call captured in a CUDA graph takes the graph's (capture_scratch). A
+# scratch made under capture would come out of the graph's private pool,
+# which the graph's replays overwrite: a wrapper never makes one there.
+_compact_local = threading.local()
+# status words of a graph's scratch: enough for any mask (n < 2^31), 4 MiB
+CAPTURE_SCRATCH_WORDS = 1 + -(-(2 ** 31 - 1) // 4096)
 
 
-def _compact_scratch_for(key, device, n: int):
-    """The scratch of a compact_positions call over n mask bytes on `key`
-    (device, stream) and the call's number on it, from 1: two tile counters
-    in word 0, then a status word a tile. At number 1 (a new buffer, or
-    numbers begun again) the kernel's entry point zeroes the buffer first.
-    Nothing is kept here: _compact_launch stores (buffer, number) in
-    _compact_scratch after the launch succeeded."""
+def new_compact_scratch(device, words: int = CAPTURE_SCRATCH_WORDS):
+    """A zeroed compact_positions scratch of `words` int64 words (call
+    number 0). Made outside any capture: a graph keeps one for its replays."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("compact_positions: a scratch made under capture "
+                           "would live in the graph's pool")
+    return torch.zeros((words,), dtype=torch.int64, device=device)
+
+
+class capture_scratch:
+    """Within the block, compact_positions calls on this thread that are
+    being captured use `scratch` (made by new_compact_scratch before the
+    capture began), and the kernel calls captured are counted by name in
+    `tally`, if given."""
+
+    def __init__(self, scratch, tally=None):
+        self.scratch, self.tally = scratch, tally
+
+    def __enter__(self):
+        self.prev = (getattr(_compact_local, "captured", None),
+                     getattr(_compact_local, "tally", None))
+        _compact_local.captured, _compact_local.tally = self.scratch, self.tally
+        return self.scratch
+
+    def __exit__(self, *exc):
+        _compact_local.captured, _compact_local.tally = self.prev
+
+
+def _compact_scratch_for(device, stream: int, n: int, capturing: bool):
+    """The scratch of a compact_positions call over n mask bytes: the
+    graph's while a capture is on (it must hold n), else this thread's for
+    (device, stream), made or grown (zeroed, twice the old size) here."""
     words = 1 + -(-n // _compact_tile)
-    entry = _compact_scratch.get(key)
-    if entry is None or entry[0].numel() < words:
-        old = 0 if entry is None else entry[0].numel()
-        return torch.empty((max(words, 2 * old),), dtype=torch.int64,
-                           device=device), 1
-    return entry[0], entry[1] % (_EPOCHS - 1) + 1
-
-
-def _compact_launch(key, device, n: int, launch) -> int:
-    """Take the scratch and call number of a compact_positions call over n
-    mask bytes on `key`, run `launch(scratch, number)` (the C call; returns
-    its error code) and keep (scratch, number) only if it returned 0, all
-    under one lock: no two calls take one number. The launch is
-    asynchronous, so the lock is held for the host's launch cost only."""
-    with _compact_lock:
-        scratch, epoch = _compact_scratch_for(key, device, n)
-        err = launch(scratch, epoch)
-        if err:  # a scratch whose memset may not have run is not kept
-            _compact_scratch.pop(key, None)
-        else:
-            _compact_scratch[key] = (scratch, epoch)
-    return err
+    if capturing:
+        buf = getattr(_compact_local, "captured", None)
+        if buf is None:
+            raise RuntimeError("compact_positions captured without a "
+                               "scratch of the graph's (capture_scratch)")
+        if buf.numel() < words:
+            raise RuntimeError(f"compact_positions: the graph's scratch holds "
+                               f"{buf.numel()} words, {words} needed")
+        return buf
+    mine = getattr(_compact_local, "scratch", None)
+    if mine is None:
+        mine = _compact_local.scratch = {}
+    key = (str(device), stream)
+    buf = mine.get(key)
+    if buf is None or buf.numel() < words:
+        old = 0 if buf is None else buf.numel()
+        buf = mine[key] = new_compact_scratch(device, max(words, 2 * old))
+    return buf
 
 
 def compact_positions_plain(mask, k: int):
@@ -209,7 +250,7 @@ def compact_positions_plain(mask, k: int):
     cnt = pos.shape[0]
     out = torch.full((k,), SENTINEL, dtype=torch.int32, device=mask.device)
     out[: min(cnt, k)] = pos[:k].to(torch.int32)
-    return torch.tensor(cnt, dtype=torch.int32, device=mask.device), out
+    return be.const(cnt, mask.device, torch.int32), out
 
 
 def compact_positions(mask, k: int):
@@ -241,17 +282,15 @@ def compact_positions(mask, k: int):
     # one allocation: the k slots (rounded up to 16 bytes), then the count
     kp = -(-k // 4) * 4
     work = torch.empty((kp + 1,), dtype=torch.int32, device=mask.device)
-    key = (mask.device, _stream(mask))
-
-    def launch(scratch, epoch):
-        with torch.cuda.device(mask.device):
-            err = lib.ldb_compact_positions(
-                m.data_ptr(), n, work.data_ptr(), k, work.data_ptr() + 4 * kp,
-                scratch.data_ptr(), 8 * scratch.numel(), epoch, key[1])
-        LAUNCHES["compact_positions"] += 1
-        return err
-
-    _check(_compact_launch(key, mask.device, n, launch), "compact_positions")
+    stream = _stream(mask)
+    scratch = _compact_scratch_for(mask.device, stream, n,
+                                   torch.cuda.is_current_stream_capturing())
+    with torch.cuda.device(mask.device):
+        err = lib.ldb_compact_positions(
+            m.data_ptr(), n, work.data_ptr(), k, work.data_ptr() + 4 * kp,
+            scratch.data_ptr(), 8 * scratch.numel(), stream)
+    _launched("compact_positions")
+    _check(err, "compact_positions")
     return work[kp], work[:k]
 
 
@@ -297,7 +336,7 @@ def gather_sorted_planes(tables, idx, outs=None):
         with torch.cuda.device(idx.device):
             err = fn(pin, sin, pout, sout, len(tables), s, idx.data_ptr(), n,
                      _stream(idx))
-        LAUNCHES["gather_sorted"] += 1
+        _launched("gather_sorted")
         _check(err, "gather_sorted")
     return list(outs)
 
@@ -376,7 +415,7 @@ def segscan_i32(gid, vals):
             err = lib.ldb_segscan(gid.data_ptr(), n, pin, sin, pout, sout,
                                   len(grp), scratch.data_ptr() + 8 * off,
                                   _stream(gid))
-        LAUNCHES["segscan"] += 1
+        _launched("segscan")
         _check(err, "segscan")
     return outs
 

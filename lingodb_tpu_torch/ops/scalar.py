@@ -546,7 +546,7 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
         lut = strings.value_lut(a.dictionary, len, np.int64)
         return SCol(e.type, be.lut_take(lut, a.data), a.valid)
     if op == "substring":
-        return _eval_substring(args, e.type)
+        return _eval_substring(args, e.type, e.args)
     if op == "concat":
         return _eval_concat(args, e.type)
     if op == "replace":
@@ -704,11 +704,20 @@ def _eval_string_map(op: str, a: SCol, t: Type) -> SCol:
     return SCol(t, be.lut_take(remap, a.data), a.valid, nd)
 
 
-def _eval_substring(args: list[SCol], t: Type) -> SCol:
+def _host_int(expr, c: SCol) -> int:
+    """A constant argument's value on the host: the plan's constant itself
+    where it is one (its evaluated copy may lie on the card, and reading it
+    back would stall the stream)."""
+    if isinstance(expr, Const):
+        return 0 if expr.value is None else int(expr.value)
+    return int(c.data)
+
+
+def _eval_substring(args: list[SCol], t: Type, exprs) -> SCol:
     a, start, ln = args
     if start.data.ndim == 0 and ln.data.ndim == 0:
-        s0 = int(start.data)
-        l0 = int(ln.data)
+        s0 = _host_int(exprs[1], start)
+        l0 = _host_int(exprs[2], ln)
 
         def fn(s):
             b = max(s0 - 1, 0)

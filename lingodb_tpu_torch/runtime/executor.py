@@ -15,13 +15,17 @@ top of a chain of dimension joins) goes to the fused chain
 (`_try_fused_chain`), which emits the surviving rows compacted into a
 learned capacity. A TopK over either folds into that program as an epilogue
 (`_try_fused_topk`): the program emits the top candidates and the host
-re-sorts only those. Where a program declines, the EAGER operators below
-run: one operator at a time, each materializing its result. An aggregate
-over a scan larger than system.device_byte_budget streams the table
-through the card in chunks (`_try_chunked_agg`, runtime/chunked.py). The
-JAX package also has sharded mesh operators; here those exist as methods
-that always decline (return None) until they are ported -- see ROADMAP.md,
-queue A9.
+re-sorts only those. On the card each fused program is captured once per
+plan and learned capacities as a CUDA graph and replayed after that
+(`_run_program`, runtime/exestore.py); its capacities are learned by an
+uncaptured calibration run and kept in session.stage_cache and, with
+system.capstore_dir set, across processes (utils/capstore.py). Where a
+program declines, the EAGER operators below run: one operator at a time,
+each materializing its result. An aggregate over a scan larger than
+system.device_byte_budget streams the table through the card in chunks
+(`_try_chunked_agg`, runtime/chunked.py). The JAX package also has sharded
+mesh operators; here those exist as methods that always decline (return
+None) until they are ported -- see ROADMAP.md, queue A9.
 """
 
 from __future__ import annotations
@@ -51,6 +55,30 @@ from .vtable import SCol, VTable, dec_is_wide, is_obj, np_dtype
 
 class ExecError(Exception):
     pass
+
+
+def _base_keys_dense(group_by, base_cols):
+    """Whether group keys that are all base columns give a dense id by their
+    own domains (groupby.dense_gid's test, made on the host from their
+    templates); None when a key comes from a join or a Map."""
+    base = dict(base_cols)
+    if not all(cid in base for cid in group_by):
+        return None
+    templates = [(base[c].type, base[c].dictionary, base[c].valid is not None)
+                 for c in group_by]
+    return gb.bounded_layout(templates, [None] * len(group_by)) is not None
+
+
+def _vtable_bytes(vt: VTable) -> int:
+    """Bytes of a table's columns: rows x itemsize each (+1 a row for a
+    validity mask; wide-decimal object columns count 16 bytes a row)."""
+    total = 0
+    for c in vt.cols.values():
+        itemsize = 16 if is_obj(c.data) else be.dt(c.data).itemsize
+        total += vt.num_rows * itemsize
+        if c.valid is not None:
+            total += vt.num_rows
+    return total
 
 
 # The fused aggregate's lead compaction capacity: the estimated survivor
@@ -88,6 +116,12 @@ class Executor:
         # non-equi join
         self.last_iterate_rounds: Optional[int] = None
         self.last_nonequi_chunks: Optional[int] = None
+        # PERF mode: (operator, self ms, rows, inclusive ms, bytes, sol) per
+        # operator of the last statement, None in the other modes
+        self.last_op_profile: list | None = None
+        self._prof_children: list = [0.0]
+        self._prof_child_bytes: list = [0]
+        self._prof_seen_ids: set = set()
 
     # ------------------------------------------------------------- dispatch
     def execute(self, plan: L.Materialize) -> ResultTable:
@@ -96,14 +130,36 @@ class Executor:
 
         self._tmp_results.clear()
         self._materialized_bases.clear()
-        # execution modes (reference: ExecutionMode + CPULLVMDebugBackend,
-        # src/execution/LLVMBackends.cpp:939-1010):
+        # execution modes (reference: ExecutionMode + CPULLVMDebugBackend /
+        # perf backend, src/execution/LLVMBackends.cpp:939-1010):
         #   DEFAULT  fast path
         #   DEBUG    verify every operator's output invariants
-        # (the reference's PERF per-operator profile is not ported yet)
+        #   PERF     per-operator wall time, rows, bytes and speed of light
+        #            in last_op_profile, printed to stderr with the
+        #            statement's captures, replays, builds and calibrations
         self._mode = str(EXECUTION_MODE.get()).upper()
+        self.last_op_profile = [] if self._mode == "PERF" else None
+        self._prof_children = [0.0]
+        self._prof_child_bytes = [0]
+        self._prof_seen_ids = set()
+        if self.last_op_profile is not None:
+            from ..utils import compilestats
+
+            cs0 = compilestats.snapshot()
         with tracer.Trace("execution", "run_plan"):
             vt = self.run(plan.child).dense()
+        if self.last_op_profile is not None:
+            import sys
+
+            for name, ms, rows, incl, nbytes, sol in self.last_op_profile:
+                print(f"# perf {name}: self={ms:.3f}ms incl={incl:.3f}ms "
+                      f"rows={rows} bytes={nbytes} sol={sol}", file=sys.stderr)
+            cs = compilestats.delta(cs0)
+            print(f"# perf captures={cs['captures']} "
+                  f"capture_secs={cs['capture_secs']:.3f} "
+                  f"replays={cs['replays']} builds={cs['builds']} "
+                  f"build_secs={cs['build_secs']:.1f} "
+                  f"calibrations={cs['calibrations']}", file=sys.stderr)
         # ONE packed device->host transfer for the whole result
         needed = VTable({cid: vt.col(cid) for cid in set(plan.cids)}, vt.num_rows)
         host = dv.fetch_vtable_np(needed) if vt.num_rows else {}
@@ -128,7 +184,10 @@ class Executor:
         method = getattr(self, "_run_" + type(op).__name__.lower(), None)
         if method is None:
             raise ExecError(f"no executor for {type(op).__name__}")
-        vt = method(op)
+        if self.last_op_profile is not None:
+            vt = self._profiled(op, method)
+        else:
+            vt = method(op)
         if self._mode == "DEBUG":
             self._debug_verify(op, vt)
         if self.track_tuples is not None:
@@ -144,6 +203,71 @@ class Executor:
 
             vt = dv.demote_small(vt)
         return vt
+
+    def _profiled(self, op, method) -> VTable:
+        """PERF mode: run one operator, timing it to the card's completion
+        (a sync before and after, so that its device work lands on it and
+        not on the operator that syncs next), and record (name, self ms,
+        rows, inclusive ms, bytes, sol). Bytes: its children's outputs read,
+        its own output written, and the base-table bytes of the scans its
+        fused program read without running them as operators; sol is the
+        self time over those bytes at system.hbm_gbps ("unknown" while the
+        setting is unset: no bandwidth is assumed)."""
+        from ..utils.settings import HBM_GBPS
+
+        t0 = self._perf_sync()
+        self._prof_children.append(0.0)
+        self._prof_child_bytes.append(0)
+        vt = method(op)
+        dt = self._perf_sync() - t0
+        child = self._prof_children.pop()
+        in_bytes = self._prof_child_bytes.pop()
+        out_bytes = _vtable_bytes(vt)
+        self._prof_children[-1] += dt
+        self._prof_child_bytes[-1] += out_bytes
+        nbytes = in_bytes + out_bytes + self._unprofiled_scan_bytes(op)
+        self._prof_seen_ids.add(id(op))
+        self_ms = (dt - child) * 1e3
+        gbps = HBM_GBPS.get()
+        sol = "unknown"
+        if gbps and nbytes:
+            sol = round(self_ms / (nbytes / (gbps * 1e9) * 1e3), 1)
+        self.last_op_profile.append(
+            (type(op).__name__, self_ms, vt.num_rows, dt * 1e3, nbytes, sol))
+        return vt
+
+    def _unprofiled_scan_bytes(self, op) -> int:
+        """Base-table bytes of the Scans under `op` that never ran as an
+        operator (a fused program or a cached join prep read them). Each
+        is charged once, to the first operator that covers it."""
+        total = 0
+        for node in L.walk_plan(op):
+            if (isinstance(node, L.Scan)
+                    and id(node) not in self._prof_seen_ids):
+                self._prof_seen_ids.add(id(node))
+                e = self.session.catalog.get_table(node.table)
+                rows = e.storage.num_rows if e is not None else 0
+                for c in node.cols:
+                    total += rows * np.dtype(np_dtype(c.type)).itemsize
+        return total
+
+    def _perf_note(self, msg: str) -> None:
+        """PERF mode: a detail line (the path a fused program took, a
+        capture, a rebuild) on stderr."""
+        if self.last_op_profile is not None:
+            import sys
+
+            print(f"# perf {msg}", file=sys.stderr)
+
+    def _perf_sync(self) -> float:
+        """A timestamp; in PERF mode taken after the card has finished what
+        was queued, so that a span times the device work inside it."""
+        import time
+
+        if (self.last_op_profile is not None
+                and self.session.device.type == "cuda"):
+            torch.cuda.synchronize(self.session.device)
+        return time.perf_counter()
 
     def _debug_verify(self, op: L.LogicalOp, vt: VTable) -> None:
         """DEBUG execution mode: operator-output invariant checks (the
@@ -1068,6 +1192,8 @@ class Executor:
                if epi is not None else basekey)
         if cache.get(key) == "eager":
             return None
+        self._load_capacities(basekey, n, cache,
+                              ("kg", "kbounds", "stepcaps", "dense"))
 
         # dimension builds (eager, small), cached per plan and versions
         sorted_cids = frozenset()
@@ -1127,13 +1253,49 @@ class Executor:
 
         dev = self.session.device
         kg_learned = None if force_cal else cache.get(("fused_kg", basekey))
-        meta = {}
-        try:
+        # a materialized base is the program's input: a captured program
+        # reads it from static inputs, into which it is copied every run
+        inputs = ([] if isinstance(cur, L.Scan)
+                  else [p for _cid, c in base_cols for p in (c.data, c.valid)
+                        if p is not None])
+
+        def program(static):
+            cols = _rebind_cols(base_cols, static) if static else base_cols
+            m = {"base_rows": n}
             with be.no_host_reads():
-                res = self._fused_program(
-                    op, steps, join_preps, base_cols, base_restrictions, n,
-                    dev, meta, spine=spine, kbounds=kbounds,
-                    presorted=presorted_group, kg=kg_learned, epi=epi)
+                r = self._fused_program(
+                    op, steps, join_preps, cols, base_restrictions, n, dev, m,
+                    spine=spine, kbounds=kbounds, presorted=presorted_group,
+                    kg=kg_learned, epi=epi)
+            return r, m
+
+        from . import exestore
+
+        material = (
+            exestore.signature(base_cols) if not inputs
+            else tuple((tuple(t.shape), str(t.dtype)) for t in inputs),
+            exestore.signature(join_preps), spine["compact_k"],
+            tuple(sorted(spine["mid_caps"].items())), kg_learned,
+            repr(kbounds), force_cal, presorted_group, dv.SMALL_ROWS, n)
+        # whether the run calibrates is decided on the host, as the chain
+        # does: with no group capacity learned it does, unless its keys give
+        # a dense id, with learned bounds or by their own domains. Those
+        # domains are known from the keys' templates: here where every key
+        # is a base column, else from an earlier run ("fused_dense"). A run
+        # that may calibrate, and a first run over join steps whose
+        # survivors no calibration taught, run uncaptured; the program at
+        # what they learned is captured right after them.
+        dense = cache.get(("fused_dense", basekey))
+        if dense is None:
+            dense = _base_keys_dense(op.group_by, base_cols)
+        dense = not op.group_by or kbounds is not None or bool(dense)
+        learning = ((kg_learned is None and not dense)
+                    or (bool(spine["join_sis"])
+                        and ("fused_stepcaps", basekey) not in cache))
+        try:
+            res, meta = self._run_program(
+                basekey, key[len(basekey):] or None, material, program, inputs,
+                calibrating=learning)
         except (F.NotDense, be.HostRead, NotImplementedError):
             # a column or expression the program cannot carry on the device
             # (the reference's trace fails on the same ones): eager, for
@@ -1141,6 +1303,10 @@ class Executor:
             cache[key] = "eager"
             return None
         try:
+            if op.group_by and ("fused_dense", basekey) not in cache:
+                self._learn(basekey, n, "dense", gb.bounded_layout(
+                    meta["key_templates"],
+                    [None] * len(op.group_by)) is not None)
             if meta.get("calibrating"):
                 self._learn_calibration(basekey, cache, meta, res)
                 return self._try_fused_agg(op, epi)
@@ -1153,13 +1319,21 @@ class Executor:
                 vt_out = self._finish_fused_dense(op, res, meta)
             self._learn_stepcaps(basekey, cache, meta)
             if meta.get("kbounds_useless"):
-                cache[("fused_kbounds_dead", basekey)] = True
+                self._learn(basekey, n, "kbounds", False)
+            if learning:
+                # this run's rows are dropped: the program at what it
+                # learned is captured and replayed now
+                from ..utils import compilestats
+
+                compilestats.add("calibrations")
+                return self._try_fused_agg(op, epi)
             self._materialized_bases.pop(id(cur), None)
             return _ret(vt_out, applied)
         except F.CompactOverflow:
             # the estimated survivor bound was too small: no lead compaction
             # for this plan and these versions
             cache[("fused_nocompact", basekey)] = True
+            self._rebuild(basekey, "lead compaction outgrown")
             return self._try_fused_agg(op, epi)
         except F.MidCompactOverflow as mo:
             # a learned post-join cap was outgrown: record the observed count;
@@ -1167,24 +1341,27 @@ class Executor:
             si_o, v_o = mo.args
             stepcaps2 = dict(cache.get(("fused_stepcaps", basekey)) or {})
             stepcaps2[si_o] = int(v_o)
-            cache[("fused_stepcaps", basekey)] = stepcaps2
+            self._learn(basekey, n, "stepcaps", stepcaps2)
+            self._rebuild(basekey, f"step {si_o} cap outgrown ({v_o})")
             return self._try_fused_agg(op, epi)
         except F.CapacityOverflow as ce:
             # the learned group capacity was outgrown: twice the true count
             g_real = ce.args[0]
-            cache[("fused_kg", basekey)] = 1 << (2 * g_real - 1).bit_length()
+            self._learn(basekey, n, "kg", 1 << (2 * g_real - 1).bit_length())
+            self._rebuild(basekey, f"group capacity outgrown (g={g_real})")
             return self._try_fused_agg(op, epi)
         except F.KBoundsOverflow:
             # key values outside the calibrated bounds: drop the bounded
             # dense path for this plan and rebuild general
-            cache[("fused_kbounds_dead", basekey)] = True
-            cache.pop(("fused_kbounds", basekey), None)
+            self._learn(basekey, n, "kbounds", False)
+            self._rebuild(basekey, "key values outside the learned bounds")
             return self._try_fused_agg(op, epi)
         except F.EpiOverflow:
             # the TopK candidates could not be proven exact: the plain
             # program and the eager epilogue, for this plan and these
             # versions
             cache[("fused_epi_decline", basekey)] = True
+            self._rebuild(basekey, "TopK epilogue declined")
             return self._try_fused_agg(op, epi)
         # No counterpart here of the reference's retry "without Pallas
         # kernels" (_GatherOverflow, ("fused_nopallas", basekey)): the
@@ -1403,8 +1580,14 @@ class Executor:
     def _learn_calibration(self, basekey, cache, meta, res) -> None:
         """Count-only calibration run: learn the group capacity, the per-step
         survivor counts and the per-key value bounds (one fetch), once every
-        compaction is known to have held its survivors."""
+        compaction is known to have held its survivors. Bounds that cannot
+        give a dense group id (a key without a small domain or bounds, or a
+        domain too large) are learned as of no use at once, so that the
+        program at the learned sizes is the one every later run replays."""
         from . import device as dv
+        from ..utils import compilestats
+
+        compilestats.add("calibrations")
 
         fetch = {"g": res["g"].reshape(1)}
         for j, c in enumerate(res.get("kb", ())):
@@ -1421,20 +1604,23 @@ class Executor:
                                         for j in range(len(res["extras"]))])
         g = host["g"]
         tight = 1 << (max(4 * g, dv.SMALL_ROWS) - 1).bit_length()
-        cache[("fused_kg", basekey)] = min(tight, meta.get("n", tight))
+        self._learn(basekey, meta["base_rows"], "kg",
+                    min(tight, meta.get("n", tight)))
         n_kb = len(res.get("kb", ()))
         if n_kb:
             it = iter(host[f"kb{j}"] for j in range(n_kb))
             bounds = [(next(it), next(it)) if flagk else None
                       for flagk in meta["kb_kinds"]]
-            cache[("fused_kbounds", basekey)] = bounds
+            useful = gb.bounded_layout(meta["key_templates"], bounds)
+            self._learn(basekey, meta["base_rows"], "kbounds",
+                        bounds if useful is not None else False)
         elif meta.get("kb_kinds") is not None:
             # calibrated with bounds support but no key qualified
-            cache[("fused_kbounds_dead", basekey)] = True
+            self._learn(basekey, meta["base_rows"], "kbounds", False)
         if meta["join_sis"]:
             counts = {si: host[f"sc{j}"]
                       for j, si in enumerate(meta["join_sis"])}
-            cache[("fused_stepcaps", basekey)] = counts
+            self._learn(basekey, meta["base_rows"], "stepcaps", counts)
 
     def _check_fused_extras(self, meta, vals) -> None:
         """Each compaction's true survivor count against its static
@@ -1454,7 +1640,87 @@ class Executor:
         counts = meta.get("last_stepcounts")
         if not counts or cache.get(("fused_stepcaps", basekey)):
             return
-        cache[("fused_stepcaps", basekey)] = counts
+        self._learn(basekey, meta["base_rows"], "stepcaps", counts)
+
+    # the stage-cache names of the learned capacities, and their capstore
+    # key prefixes (utils/capstore.py; the reference's keys)
+    _LEARNED = {"kg": ("fused_kg", ""),
+                "dense": ("fused_dense", "dense::"),
+                "kbounds": ("fused_kbounds", "kbounds::"),
+                "stepcaps": ("fused_stepcaps", "stepcaps::"),
+                "outcap": ("fused_outcap", "outcap::")}
+
+    def _learn(self, basekey, n, what, value) -> None:
+        """Keep a learned capacity of the fused program `basekey` over n base
+        rows in session.stage_cache and in the capstore, if one is set. For
+        "kbounds", False means none of use (the bounded dense path is dead
+        for this plan and these versions)."""
+        from ..utils import capstore
+
+        cache = self.session.stage_cache
+        name, prefix = self._LEARNED[what]
+        stored = value
+        if what == "kbounds":
+            cache[("fused_kbounds_dead", basekey)] = value is False
+            if value is False:
+                cache.pop((name, basekey), None)
+            else:
+                cache[(name, basekey)] = value
+                stored = [list(b) if b else None for b in value]
+        else:
+            cache[(name, basekey)] = value
+            if what == "stepcaps":
+                stored = {str(k): int(v) for k, v in value.items()}
+        capstore.put(prefix + repr((basekey, n)), stored)
+
+    def _load_capacities(self, basekey, n, cache, whats) -> None:
+        """Fill what session.stage_cache has not learned for `basekey` from
+        the capstore: a fresh session over a store calibrates nothing."""
+        from ..utils import capstore
+
+        for what in whats:
+            name, prefix = self._LEARNED[what]
+            dead = what == "kbounds" and ("fused_kbounds_dead", basekey) in cache
+            if (name, basekey) in cache or dead:
+                continue
+            v = capstore.get(prefix + repr((basekey, n)))
+            if v is None:
+                continue
+            if what == "kbounds":
+                if v is False:
+                    cache[("fused_kbounds_dead", basekey)] = True
+                else:
+                    cache[(name, basekey)] = [tuple(b) if b else None
+                                              for b in v]
+            elif what == "stepcaps":
+                cache[(name, basekey)] = {int(k): int(c) for k, c in v.items()}
+            elif what == "dense":
+                cache[(name, basekey)] = bool(v)
+            else:
+                cache[(name, basekey)] = int(v)
+
+    def _rebuild(self, basekey, why: str) -> None:
+        """A learned capacity was outgrown: the captured programs of
+        `basekey` are dropped, the caller runs the program again."""
+        self.session.exestore.drop(basekey)
+        self._perf_note(f"rebuild {basekey[0]}: {why}")
+
+    def _run_program(self, basekey, variant, material, program, inputs,
+                     calibrating=False):
+        """(outputs, meta) of a fused program: replayed from its CUDA graph
+        (runtime/exestore.py, captured on the first run at these learned
+        capacities), or run as it is called where it calibrates or the
+        store's comparison switch is off."""
+        from . import exestore
+
+        if exestore.CAPTURE and not calibrating:
+            t0 = self._perf_sync()
+            got = self.session.exestore.run(basekey, variant, material,
+                                            program, inputs)
+            self._perf_note(f"{basekey[0]} from its graph: "
+                            f"{(self._perf_sync() - t0) * 1e3:.3f} ms")
+            return got
+        return program(inputs)
 
     def _finish_fused_dense(self, op, res, meta) -> VTable:
         """Dense mode: ONE packed fetch of every (domain,)-sized lane and
@@ -1571,7 +1837,9 @@ class Executor:
             return VTable({c.cid: _empty_scol(c.type, lanes[0] if lanes else None)
                            for c in op.output_cols()}, 0)
         limb_overflow = bool(scalars.get("limbflag", 0))
-        sliced = [a[:g] for a in lanes]
+        # a graph's lanes hold until the next replay (runtime/exestore.py)
+        sliced = [a[:g].clone() if meta.get("from_graph") else a[:g]
+                  for a in lanes]
 
         def dev_col(t, data, valid, dictionary=None):
             return SCol(t, data, valid, dictionary)
@@ -1665,7 +1933,8 @@ class Executor:
             raise F.EpiOverflow("wide-sum limb overflow")
         if g > kk and scalars["tie"] > kk:
             raise F.EpiOverflow(f"tie overflow at cutoff ({scalars['tie']} > {kk})")
-        return _candidate_vtable(e["templates"], res["lanes"], min(g, kk))
+        return _candidate_vtable(e["templates"], res["lanes"], min(g, kk),
+                                 bool(meta.get("from_graph")))
 
     def _finish_fused_agg(self, spec, val, cnt, make_col, dictionary) -> SCol:
         t = spec.out.type
@@ -1764,11 +2033,12 @@ class Executor:
             self._propagate_sorted_probe(join_preps, sorted_cids)
             cache[prep_key] = join_preps
 
+        self._load_capacities(basekey, n, cache, ("outcap", "stepcaps"))
         spine = self._plan_spine(steps, join_preps, cur, entry,
                                  cur.restrictions, n, basekey, cache, out_cids)
-        # the output capacity: learned by a calibration run (the learned
-        # capacities live in session.stage_cache only; the reference also
-        # keeps them in a store across processes, ROADMAP A8)
+        # the output capacity: learned by a calibration run (kept in
+        # session.stage_cache and, with system.capstore_dir set, across
+        # processes)
         outcap_obs = cache.get(("fused_outcap", basekey))
         meta = {"calibrating": outcap_obs is None, "do_compact": False}
         if outcap_obs is not None:
@@ -1779,18 +2049,31 @@ class Executor:
                                    - 1).bit_length()
             meta["do_compact"] = meta["outcap"] <= final_n // 2
         dev = self.session.device
-        try:
+
+        def program(_static):
+            m = dict(meta, base_rows=n)
             with be.no_host_reads():
-                res = self._fused_chain_program(
-                    steps, join_preps, base_cols, cur.restrictions, n, dev,
-                    meta, spine=spine, out_cids=out_cids, epi=epi)
+                r = self._fused_chain_program(
+                    steps, join_preps, base_cols, cur.restrictions, n, dev, m,
+                    spine=spine, out_cids=out_cids, epi=epi)
+            return r, m
+
+        from . import exestore
+
+        material = (exestore.signature(base_cols),
+                    exestore.signature(join_preps), spine["compact_k"],
+                    tuple(sorted(spine["mid_caps"].items())),
+                    meta.get("outcap"), meta["do_compact"], dv.SMALL_ROWS, n)
+        variant = ("epi", plan_key(epi["node"])) if epi is not None else None
+        try:
+            # the calibration run (no output capacity yet) is not captured
+            res, meta = self._run_program(basekey, variant, material, program,
+                                          [], calibrating=meta["calibrating"])
         except (F.NotDense, be.HostRead, NotImplementedError):
             # a column or expression the program cannot carry on the device
             # (the reference's trace fails on the same ones)
             cache[basekey] = "eager"
             return None
-        # (no exe-store and no compile: the program runs as it is called,
-        # ROADMAP A3/A8)
         try:
             out = self._finish_fused_chain(op, res, meta, basekey, cache)
             if out is None:  # calibrated: run again at the learned sizes
@@ -1798,18 +2081,22 @@ class Executor:
             return _ret(out, meta.get("epi") is not None)
         except F.CompactOverflow:
             cache[("fused_nocompact", basekey)] = True
+            self._rebuild(basekey, "lead compaction outgrown")
             return self._try_fused_chain(op, epi)
         except F.MidCompactOverflow as mo:
             si_o, v_o = mo.args
             stepcaps = dict(cache.get(("fused_stepcaps", basekey)) or {})
             stepcaps[si_o] = int(v_o)
-            cache[("fused_stepcaps", basekey)] = stepcaps
+            self._learn(basekey, n, "stepcaps", stepcaps)
+            self._rebuild(basekey, f"step {si_o} cap outgrown ({v_o})")
             return self._try_fused_chain(op, epi)
         except F.CapacityOverflow as ce:
-            cache[("fused_outcap", basekey)] = ce.args[0]
+            self._learn(basekey, n, "outcap", ce.args[0])
+            self._rebuild(basekey, f"output capacity outgrown ({ce.args[0]})")
             return self._try_fused_chain(op, epi)
         except F.EpiOverflow:
             cache[("fused_epi_decline", basekey)] = True
+            self._rebuild(basekey, "TopK epilogue declined")
             return self._try_fused_chain(op, epi)
         # No counterpart of the reference's retry without Pallas kernels
         # (_GatherOverflow): see _try_fused_agg.
@@ -1888,9 +2175,13 @@ class Executor:
         scalars = self._fetch_fused_scalars(res, meta, named)
         survivors = scalars["survivors"]
         if meta["calibrating"]:
-            cache[("fused_outcap", basekey)] = survivors
+            from ..utils import compilestats
+
+            compilestats.add("calibrations")
+            n = meta["base_rows"]
+            self._learn(basekey, n, "outcap", survivors)
             if meta["join_sis"]:
-                cache[("fused_stepcaps", basekey)] = meta["last_stepcounts"]
+                self._learn(basekey, n, "stepcaps", meta["last_stepcounts"])
             return None
         if meta.get("epi") is not None:
             kk = meta["epi"]["kk"]
@@ -1907,10 +2198,18 @@ class Executor:
         self._learn_stepcaps(basekey, cache, meta)
         if self.track_tuples is not None:
             self.track_tuples[id(op)] = survivors
+        # a graph's outputs hold until the next replay (runtime/exestore.py):
+        # the rows that leave as device tensors are copied out
+        own = bool(meta.get("from_graph"))
         if rows is not None:
-            return _candidate_vtable(meta["templates"], res["lanes"], rows)
+            return _candidate_vtable(meta["templates"], res["lanes"], rows,
+                                     own)
         vt = _candidate_vtable(meta["templates"], res["lanes"], meta["rows"])
-        return vt.select_mask(res["mask"])
+        out = vt.select_mask(res["mask"])
+        if own and out is vt:  # every row survived: the lanes themselves
+            out = _candidate_vtable(meta["templates"], res["lanes"],
+                                    meta["rows"], True)
+        return out
 
     # ------------------------------------------------------------- aggregate
     def _run_aggregate(self, op: L.Aggregate) -> VTable:
@@ -2428,15 +2727,26 @@ def _topk_rows(op: L.TopK, vt: VTable) -> VTable:
     return vt.take(perm[lo:hi], hi - lo)
 
 
-def _candidate_vtable(templates, lanes, rows: int) -> VTable:
+def _rebind_cols(base_cols, tensors):
+    """base_cols ((cid, SCol) pairs) with their data and validity tensors
+    replaced, in order, by `tensors` (a captured program's static inputs)."""
+    it = iter(tensors)
+    return [(cid, SCol(c.type, next(it),
+                       None if c.valid is None else next(it), c.dictionary))
+            for cid, c in base_cols]
+
+
+def _candidate_vtable(templates, lanes, rows: int, own=False) -> VTable:
     """A fused program's output lanes, sliced to their first `rows` slots on
     the device, as a VTable (templates: (cid, type, dictionary, has
-    validity) per column, the validity lane after the data lane)."""
+    validity) per column, the validity lane after the data lane); copies of
+    the slices with `own` (lanes of a CUDA graph, which its next replay
+    overwrites)."""
     if rows == 0:
         return VTable({cid: _empty_scol(t, lanes[0] if lanes else None)
                        for cid, t, _d, _v in templates}, 0)
     cols = {}
-    it = iter(a[:rows] for a in lanes)
+    it = iter(a[:rows].clone() if own else a[:rows] for a in lanes)
     for cid, t, d, has_valid in templates:
         data = next(it)
         cols[cid] = SCol(t, data, next(it) if has_valid else None, d)

@@ -7,12 +7,15 @@ selection, and the exceptions by which a run asks to be rebuilt with other
 capacities.
 
 The JAX package traces these into one jitted XLA program per query. Here
-the program is a Python function run eagerly on the session's tensors: no
-trace, no compile, no CUDA graph. What it keeps is what makes the program
-cheap on the card: static capacities size every compaction and every group
-result, so nothing inside reads a value back to the host; the executor makes
-one packed fetch at the end. Data movement goes through ops/pgather.py
-(compact_positions, gather_sorted, gather_chunked).
+the program is a Python function on the session's tensors, which the
+executor captures once per plan and learned capacities as a CUDA graph and
+then replays (runtime/exestore.py). What makes that possible also makes the
+program cheap on the card: static capacities size every compaction and
+every group result, so nothing inside reads a value back to the host or
+copies one from it (constants are fills, backend.const; host arrays go
+through backend.to_device); the executor makes one packed fetch at the end.
+Data movement goes through ops/pgather.py (compact_positions,
+gather_sorted, gather_chunked).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import backend as be
 from ..ops import keys as keymod
 from ..ops import pgather
 from ..ops import scalar as sc
@@ -95,7 +99,7 @@ def on_device(x, n: int, dev):
     """A length-n tensor on `dev` from a column part that may be a 0-dim or
     broadcast host array (constants)."""
     if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        x = be.to_device(np.ascontiguousarray(x), dev)
     if x.ndim == 0:
         x = x.reshape(1)
     if x.shape[0] != n:
@@ -373,7 +377,7 @@ def run_spine(steps, join_preps, base_cols, base_restrictions, n: int, dev,
                 # survivors after every narrowing join: the engine LEARNS
                 # where to compact from them
                 if mask is None:
-                    step_counts.append(torch.tensor(cur_n, device=dev))
+                    step_counts.append(be.const(cur_n, dev))
                 elif mask.ndim == 0:
                     step_counts.append(
                         torch.where(on_device(mask, 1, dev)[0], cur_n, 0))
@@ -605,7 +609,7 @@ def general_group(op, key_cols, env, mask, n: int, meta, dev, presorted=False,
         pay_s = got[:len(payload)]
         inm_s = got[len(payload)]
         boundary = torch.zeros((n,), dtype=torch.bool, device=dev)
-        boundary[0] = True
+        boundary[:1].fill_(True)  # a fill: no host scalar is copied
         for w in got[len(payload) + 1:]:
             boundary[1:] |= w[1:] != w[:-1]
         boundary &= inm_s

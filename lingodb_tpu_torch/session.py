@@ -23,6 +23,7 @@ from .catalog.catalog import Catalog, FunctionEntry
 from .opt.optimizer import optimize
 from .plan import logical as L
 from .runtime.executor import Executor
+from .runtime.exestore import GraphStore
 from .runtime.result import ResultTable
 from .runtime.vtable import SCol
 from .sql import ast as A
@@ -54,6 +55,8 @@ class Session:
         # versions: join preps (uploaded LUTs + payloads), learned
         # capacities, decline markers
         self.stage_cache: dict = {}
+        # the fused programs captured as CUDA graphs (runtime/exestore.py)
+        self.exestore = GraphStore(self.device)
 
     # ----------------------------------------------------------- public API
     def sql(self, query: str):
@@ -402,9 +405,11 @@ class Session:
     # ----------------------------------------------------------- device data
     def _evict_device_memory(self) -> None:
         """Drop every cached device buffer this session pins: uploaded table
-        columns, fused join preps (LUTs + payloads) and one-shot
-        materializations. Everything is rebuildable; the next query
-        re-uploads what it actually touches."""
+        columns, fused join preps (LUTs + payloads), the captured programs
+        with their memory pool, and one-shot materializations. Everything is
+        rebuildable; the next query re-uploads what it actually touches and
+        captures its program again."""
+        self.exestore.clear()
         for _version, dev in self._device_cache.values():
             dev.evict()
         for k in [k for k in self.stage_cache
@@ -425,12 +430,18 @@ class Session:
         if self.device.type != "cuda":
             return
         free, total = torch.cuda.mem_get_info(self.device)
+        if not total or free >= 0.2 * total:
+            return
         # blocks the caching allocator keeps but no tensor holds serve the
         # next query as well: without them, one large query's working set
-        # evicts every cached table after it
-        free += (torch.cuda.memory_reserved(self.device)
-                 - torch.cuda.memory_allocated(self.device))
-        if total and free < 0.2 * total:
+        # evicts every cached table after it. The free blocks of the
+        # captured programs' pool are not among them: they serve only the
+        # graphs' replays
+        pool_reserved, pool_allocated = self.exestore.pool_memory()
+        free += max(0, torch.cuda.memory_reserved(self.device)
+                    - torch.cuda.memory_allocated(self.device)
+                    - (pool_reserved - pool_allocated))
+        if free < 0.2 * total:
             import sys
 
             print(f"# device memory {(total - free) / 1e9:.1f}/{total / 1e9:.1f}GB:"

@@ -111,7 +111,7 @@ _kept: dict = {}  # the kept libraries, as first built
 
 def use(name: str, lib) -> None:
     """Bind `lib` (None: the kept build) as kernel library `name`."""
-    from ..ops import cuda_build, pgather
+    from ..ops import cuda_build
 
     if not _kept:
         _kept.update(cuda_build.build_all())
@@ -120,7 +120,6 @@ def use(name: str, lib) -> None:
         libs[name] = lib
     cuda_build._declare(libs)
     cuda_build._LIBS[name] = libs[name]
-    pgather._compact_scratch.clear()  # a new buffer, zeroed at its first call
 
 
 def counters(torch, fn, trace_path) -> dict:

@@ -4,13 +4,17 @@
         --paths fused,eager --out out/gpu_profile.json
 
 For each path (the fused programs: the fused aggregate, the fused chain and
-the TopK epilogue; or the eager operators with all three declined) and each query (tables already uploaded, one warm
-run first) it reports the wall time of `Session.sql` + `format_rows`, the
+the TopK epilogue, replayed from their CUDA graphs; the same programs run as
+they are called, "uncaptured"; or the eager operators with all three
+declined) and each query (tables already uploaded, one warm run first) it
+reports the wall time of `Session.sql` + `format_rows`, the
 summed device time of all kernels and copies, the device's idle share of the
 wall time, how many kernels were launched, how many host<->device scalar
 reads (`aten::item`) the query made, the kernels that took the most device
-time, and from one more run outside the profiler the host syncs
-(torch.cuda.set_sync_debug_mode) and the peak of allocated device memory.
+time, the fused programs captured and replayed in the profiled run
+(utils/compilestats.py), and from one more run outside the profiler the host
+syncs (torch.cuda.set_sync_debug_mode) and the peak of allocated device
+memory.
 Needs a CUDA device; fails without one."""
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import warnings
 # (each in an anonymous namespace, which tells them apart from PyTorch's own
 # reduce/scan kernels); tests/test_torch_pgather.py holds the list against
 # the sources
-PORT_KERNELS = ("compact_kernel", "gather_sorted_kernel",
+PORT_KERNELS = ("compact_prologue", "compact_kernel", "gather_sorted_kernel",
                 "gather_chunked_kernel", "segscan_kernel")
 _PORT_KERNEL_RE = re.compile(r"\(anonymous namespace\)::(%s)[<(]"
                              % "|".join(PORT_KERNELS))
@@ -54,10 +58,28 @@ def eager_path():
             setattr(Executor, name, fn)
 
 
+@contextlib.contextmanager
+def uncaptured_path():
+    """Within the block, the fused programs run as they are called: no CUDA
+    graph is captured or replayed (runtime/exestore.py's switch)."""
+    from ..runtime import exestore
+
+    old = exestore.CAPTURE
+    exestore.CAPTURE = False
+    try:
+        yield
+    finally:
+        exestore.CAPTURE = old
+
+
 def path_context(path: str):
-    if path not in ("fused", "eager"):
+    if path not in ("fused", "uncaptured", "eager"):
         raise ValueError(f"unknown path {path!r}")
-    return eager_path() if path == "eager" else contextlib.nullcontext()
+    if path == "eager":
+        return eager_path()
+    if path == "uncaptured":
+        return uncaptured_path()
+    return contextlib.nullcontext()
 
 
 def syncs_and_peak(torch, fn):
@@ -136,13 +158,17 @@ def _device_us(evt) -> float:
 def profile_query(torch, session, sql: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    session.sql(sql).format_rows()  # warm: uploads, allocator
+    from ..utils import compilestats
+
+    session.sql(sql).format_rows()  # warm: uploads, allocator, captures
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cs0 = compilestats.snapshot()
         t0 = time.perf_counter()
         rows = session.sql(sql).format_rows()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        cs = compilestats.delta(cs0)
     events = prof.key_averages()
     # kernel and copy rows only: operator rows repeat their kernels' time
     on_device = torch.autograd.DeviceType.CUDA
@@ -159,6 +185,8 @@ def profile_query(torch, session, sql: str) -> dict:
     syncs, peak, before = syncs_and_peak(
         torch, lambda: session.sql(sql).format_rows())
     return {
+        "captures": cs["captures"],
+        "replays": cs["replays"],
         "syncs": syncs,
         "peak_bytes": peak,
         "resident_bytes": before,
@@ -185,7 +213,7 @@ def main() -> int:
     ap.add_argument("--sql", action="append", default=[],
                     help="a query's text, profiled as sql1, sql2, ... "
                          "(repeatable)")
-    ap.add_argument("--paths", default="fused,eager")
+    ap.add_argument("--paths", default="fused,uncaptured,eager")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
@@ -212,7 +240,8 @@ def main() -> int:
                 print(f"[{path}] {q}: wall {r['wall_ms']:.2f} ms, device "
                       f"{r['device_ms']:.2f} ms, idle share "
                       f"{r['device_idle_share']:.3f}, {r['device_kernels']} "
-                      f"kernels, {r['scalar_reads']} scalar reads, "
+                      f"kernels, {r['captures']} captures, {r['replays']} "
+                      f"replays, {r['scalar_reads']} scalar reads, "
                       f"{r['syncs']} syncs, peak {r['peak_bytes'] / 2**20:.1f} MiB "
                       f"({r['resident_bytes'] / 2**20:.1f} resident before)")
                 for t in r["top_device"][:6]:

@@ -108,3 +108,9 @@ OVERLAP = Setting("system.overlap", True, bool)
 # morsel-driven size-oblivious scans, LingoDBTable.cpp:360-470). Default
 # sized for a 16 GB accelerator with working-set slack; unmeasured on this card.
 DEVICE_BYTE_BUDGET = Setting("system.device_byte_budget", 10 << 30, int)
+# learned capacities of the fused programs kept across processes
+# (utils/capstore.py): the directory of capacities.json; empty, no store
+CAPSTORE_DIR = Setting("system.capstore_dir", "")
+# the card's memory bandwidth in GB/s that PERF mode's speed-of-light
+# figure (sol) divides bytes by; unset, sol is reported as unknown
+HBM_GBPS = Setting("system.hbm_gbps", None, float)

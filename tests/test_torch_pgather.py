@@ -5,6 +5,8 @@ results are compared exactly. On CPU tensors the port's wrappers run the
 kernels' plain versions; the CUDA kernels themselves are compared with those
 plain versions on the card by chip_smoke.py."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -106,140 +108,127 @@ def test_compact_positions_capacity(n, p, k):
     assert (pos.numpy()[c:] == pg.SENTINEL).all()
 
 
-class _NotLaunched(Exception):
-    pass
+def _scratch(n, stream=7, capturing=False):
+    return pg._compact_scratch_for("cpu", stream, n, capturing)
 
 
-def _take_and_launch(key, n, launched=True):
-    """compact_positions' bookkeeping for one call, through
-    pgather._compact_launch with a fake launch that records the scratch
-    and number it is given and returns 0 (the kernel launched), or raises
-    before launching (as a call does that fails between taking its number
-    and its launch). Returns what the launch was given."""
-    given = []
-
-    def launch(scratch, epoch):
-        given.append((scratch, epoch))
-        if not launched:
-            raise _NotLaunched
-        return 0
-
-    try:
-        assert pg._compact_launch(key, "cpu", n, launch) == 0
-    except _NotLaunched:
-        assert not launched
-    return given[0]
-
-
-@pytest.mark.parametrize("case", ["new", "numbered", "not_launched",
-                                  "grows", "wraps", "per_stream"])
-def test_compact_scratch_numbers_only_launched_calls(monkeypatch, case):
-    """The status words and tile counters of compact_positions' kernel are
-    right only if every call number but the first follows a call that
-    launched: call e zeroes call e + 1's tile counter. A number taken by a
-    call that raised before its launch is taken again by the next call; a
-    new or larger buffer, or numbers run out, start again at 1 (where the
-    entry point zeroes the buffer)."""
+@pytest.fixture
+def fresh_scratch(monkeypatch):
+    """compact_positions' scratch bookkeeping with no buffers yet, for the
+    kernel's tile size."""
     monkeypatch.setattr(pg, "_compact_tile", _COMPACT_TILE)
-    monkeypatch.setattr(pg, "_compact_scratch", {})
-    key = ("cpu", 7)
-    words = 1 + 3  # two counters in word 0, then a status word a tile
+    monkeypatch.setattr(pg, "_compact_local", threading.local())
+
+
+@pytest.mark.parametrize("case", ["new", "kept", "grows", "shorter",
+                                  "per_stream", "per_thread"])
+def test_compact_scratch_layout_and_owners(fresh_scratch, case):
+    """An uncaptured call's scratch: one zeroed int64 buffer of one word
+    (call number and tile counter) and a status word a tile, owned by one
+    (thread, device, stream). The kernel numbers its calls itself, so the
+    host keeps the buffer and nothing else: a call takes it as it is, a
+    longer mask replaces it by a zeroed buffer twice as large, and another
+    stream or another thread (two threads on one stream would interleave
+    their prologue and main launches) has its own."""
     n = 3 * _COMPACT_TILE
-    buf, epoch = _take_and_launch(key, n, launched=case != "new")
-    assert epoch == 1 and buf.dtype == torch.int64 and buf.numel() >= words
-    if case == "new":
-        assert pg._compact_scratch == {}
-        assert pg._compact_scratch_for(key, "cpu", n)[1] == 1
-    elif case == "numbered":
-        for want in (2, 3, 4):
-            again, epoch = _take_and_launch(key, n)
-            assert epoch == want and again is buf
-    elif case == "not_launched":
-        assert _take_and_launch(key, n, launched=False)[1] == 2
-        assert _take_and_launch(key, n, launched=False)[1] == 2
-        assert _take_and_launch(key, n)[1] == 2
-        assert _take_and_launch(key, n)[1] == 3
+    buf = _scratch(n)
+    assert buf.dtype == torch.int64 and buf.numel() == 1 + 3
+    assert not buf.any()
+    if case == "kept":
+        buf[0] = 5  # what the card's prologue would have left there
+        again = _scratch(n)
+        assert again is buf and int(again[0]) == 5
     elif case == "grows":
-        assert _take_and_launch(key, n)[1] == 2
-        bigger, epoch = _take_and_launch(key, 20 * _COMPACT_TILE)
-        assert epoch == 1 and bigger.numel() >= max(21, 2 * buf.numel())
-        # a shorter mask keeps the larger buffer and its numbering
-        assert _take_and_launch(key, 1) == (bigger, 2)
-    elif case == "wraps":
-        pg._compact_scratch[key] = (buf, pg._EPOCHS - 1)
-        assert _take_and_launch(key, n) == (buf, 1)
-        assert _take_and_launch(key, n)[1] == 2
-    else:
-        other = ("cpu", 8)
-        assert _take_and_launch(other, n)[1] == 1
-        assert _take_and_launch(key, n)[1] == 2
-        assert _take_and_launch(other, n)[1] == 2
-
-
-@pytest.mark.parametrize("outcome", ["error", "raises"])
-def test_compact_launch_keeps_only_launched_numbers(monkeypatch, outcome):
-    """A launch whose C call returns an error drops the key's scratch (its
-    memset may not have run): the error is returned, and the next call
-    starts again at 1 on a new buffer, which the entry point zeroes. A
-    launch that raises leaves the entry as it was: the next call takes the
-    same number on the same buffer. Other keys are left alone."""
-    monkeypatch.setattr(pg, "_compact_tile", _COMPACT_TILE)
-    monkeypatch.setattr(pg, "_compact_scratch", {})
-    key, other, n = ("cpu", 7), ("cpu", 8), 3 * _COMPACT_TILE
-    buf, _ = _take_and_launch(key, n)
-    assert _take_and_launch(key, n) == (buf, 2)
-    assert _take_and_launch(other, n)[1] == 1
-    given = []
-
-    def launch(scratch, epoch):
-        given.append((scratch, epoch))
-        if outcome == "raises":
-            raise _NotLaunched
-        return 719  # any CUDA error code
-
-    if outcome == "error":
-        assert pg._compact_launch(key, "cpu", n, launch) == 719
-        assert key not in pg._compact_scratch
-        again, epoch = _take_and_launch(key, n)
-        assert epoch == 1 and again is not buf
-    else:
-        with pytest.raises(_NotLaunched):
-            pg._compact_launch(key, "cpu", n, launch)
-        assert pg._compact_scratch[key] == (buf, 2)
-        assert _take_and_launch(key, n) == (buf, 3)
-    assert given == [(buf, 3)]
-    assert pg._compact_scratch[other][1] == 1
-    assert not pg._compact_lock.locked()
-
-
-def test_compact_numbers_taken_once_across_threads(monkeypatch):
-    """Threads share a scratch key (the default stream), and the launch
-    releases the GIL between taking a number and keeping it: 8 threads x
-    100 calls on one key must launch with 1 ... 800, each exactly once, in
-    launch order."""
-    import threading
-    import time
-
-    monkeypatch.setattr(pg, "_compact_tile", _COMPACT_TILE)
-    monkeypatch.setattr(pg, "_compact_scratch", {})
-    key, n, launched = ("cpu", 0), 3 * _COMPACT_TILE, []
-
-    def fake_launch(_scratch, epoch):
-        time.sleep(0)  # yield the GIL, as the ctypes call does
-        launched.append(epoch)
-        return 0
-
-    def calls():
-        for _ in range(100):
-            assert pg._compact_launch(key, "cpu", n, fake_launch) == 0
-
-    threads = [threading.Thread(target=calls) for _ in range(8)]
-    for t in threads:
+        bigger = _scratch(20 * _COMPACT_TILE)
+        assert bigger is not buf and bigger.numel() == 21 and not bigger.any()
+        assert _scratch(30 * _COMPACT_TILE).numel() == 2 * 21
+    elif case == "shorter":
+        bigger = _scratch(20 * _COMPACT_TILE)
+        assert _scratch(1) is bigger and _scratch(n) is bigger
+    elif case == "per_stream":
+        other = _scratch(n, stream=8)
+        assert other is not buf and _scratch(n) is buf
+    elif case == "per_thread":
+        got = []
+        t = threading.Thread(target=lambda: got.append(_scratch(n)))
         t.start()
-    for t in threads:
         t.join()
-    assert launched == list(range(1, 801))
-    assert pg._compact_scratch[key][1] == 800
+        assert got[0] is not buf and _scratch(n) is buf
+    else:
+        assert _scratch(n - 1) is buf
+
+
+@pytest.mark.parametrize("case", ["graph_owned", "no_scratch", "too_small",
+                                  "restored", "made_under_capture"])
+def test_compact_scratch_under_capture(fresh_scratch, monkeypatch, case):
+    """A call being captured in a CUDA graph takes the scratch the graph
+    made before its capture (capture_scratch): none is made or kept for the
+    thread, since one made under capture would come out of the graph's
+    private pool, which its replays overwrite. Capturing without one, or
+    with one too small for the mask, raises; so does making one under
+    capture."""
+    n = 3 * _COMPACT_TILE
+    graph_buf = pg.new_compact_scratch("cpu", 1 + 3)
+    assert graph_buf.dtype == torch.int64 and not graph_buf.any()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    if case == "graph_owned":
+        with pg.capture_scratch(graph_buf):
+            assert _scratch(n, capturing=True) is graph_buf
+            assert _scratch(1, capturing=True) is graph_buf
+        assert getattr(pg._compact_local, "scratch", None) is None
+    elif case == "no_scratch":
+        with pytest.raises(RuntimeError, match="capture_scratch"):
+            _scratch(n, capturing=True)
+    elif case == "too_small":
+        with pg.capture_scratch(graph_buf):
+            with pytest.raises(RuntimeError, match="5 needed"):
+                _scratch(4 * _COMPACT_TILE, capturing=True)
+    elif case == "restored":
+        inner = torch.zeros(9, dtype=torch.int64)
+        with pg.capture_scratch(graph_buf):
+            with pg.capture_scratch(inner):
+                assert _scratch(n, capturing=True) is inner
+            assert _scratch(n, capturing=True) is graph_buf
+        with pytest.raises(RuntimeError):
+            _scratch(n, capturing=True)
+    else:
+        with pytest.raises(RuntimeError, match="graph's pool"):
+            pg.new_compact_scratch("cpu")
+    # a graph's scratch covers any mask the wrapper takes
+    assert pg.CAPTURE_SCRATCH_WORDS >= 1 + -(-(2 ** 31 - 2) // _COMPACT_TILE)
+
+
+@pytest.mark.parametrize("case", ["uncaptured", "captured", "no_tally",
+                                  "replayed"])
+def test_launches_counted_where_the_card_runs_them(monkeypatch, case):
+    """A wrapper counts its launch in LAUNCHES; a call being captured
+    launches nothing and is counted in the capture's tally instead (none
+    without a tally), which count_replay adds to LAUNCHES at each replay."""
+    monkeypatch.setattr(pg, "LAUNCHES", dict.fromkeys(pg.LAUNCHES, 0))
+    monkeypatch.setattr(pg, "_compact_local", threading.local())
+    capturing = case in ("captured", "no_tally")
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    tally: dict = {}
+    buf = torch.zeros(4, dtype=torch.int64)
+    with pg.capture_scratch(buf, None if case == "no_tally" else tally):
+        for name in ("gather_sorted", "compact_positions", "gather_sorted"):
+            pg._launched(name)
+    if case == "uncaptured":
+        assert pg.LAUNCHES["gather_sorted"] == 2 and not tally
+    elif case == "captured":
+        assert tally == {"gather_sorted": 2, "compact_positions": 1}
+        assert not any(pg.LAUNCHES.values())
+    elif case == "no_tally":
+        assert not tally and not any(pg.LAUNCHES.values())
+    else:
+        pg.count_replay({"gather_sorted": 2, "compact_positions": 1})
+        pg.count_replay({"gather_sorted": 2, "compact_positions": 1})
+        assert pg.LAUNCHES["gather_sorted"] == 2 + 4
+        assert pg.LAUNCHES["compact_positions"] == 1 + 2
+    assert getattr(pg._compact_local, "tally", None) is None  # restored
 
 
 def test_compact_positions_overflow_reports_count():
