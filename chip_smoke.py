@@ -135,6 +135,34 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               (e) execution mode PERF over q6 and q3, its speed of light
               against system.hbm_gbps set to the H100 SXM data sheet's
               3350 GB/s (the setting has no default)
+  11. tools   user-defined functions on the card and the tools that drive
+              the engine, each kernel call (K1, K2, K3) checked bit for bit
+              against its plain version and counted ("p11"):
+              (a) a Python UDF, a C UDF and the Python UDF in the isolated
+              worker (SET udf_isolation = 'process') over SF1 lineitem, in
+              a WHERE under an aggregate (over a join with supplier and
+              nation) and in an aggregate's argument: the aggregate over
+              the UDF declines its fused program on the host, as on the CPU
+              session (an aggregate above it may run fused over its eager
+              result), no UDF is called inside a fused program, the filter
+              launches K3 and K2; rows equal the CPU session's; per query the wall
+              ms, the UDF's device -> host -> device round trip, host syncs
+              and launches; a UDF that kills its worker raises UDFError and
+              the next call succeeds;
+              (b) the CLI as subprocesses over the TPC-H tables written to
+              a database directory under .cache/: run-sql q1, q6, q3 (rows
+              equal the in-process card session's), sql-to-plan, profile,
+              sql-to-artifact q3 and run-artifact in a fresh process (rows
+              equal; no parse, no optimizer, 0 calibrations);
+              (c) the 22 TPC-H queries on the card at sf 0.005 against
+              sqlite3 (tools/sqlite_oracle.py; sqlite runs on a thread
+              beside (a) and (b));
+              (d) the sqllogictest runner over tests/data/torch_basic.test,
+              every table on the tensor tier: every record passes;
+              (e) TPC-DS at the scale factor (tools/tpcdsgen.py): a star
+              join of store_sales, date_dim and item grouped by brand and
+              year (the shape of TPC-DS q3) through the fused aggregate,
+              rows equal the CPU session's
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -1626,6 +1654,414 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
         f"(capture switch {exestore.CAPTURE})")
 
 
+# ---- phase 11: user-defined functions on the card, the tools that drive the
+# engine (CLI, sqlite3 oracle, sqllogictest runner) and TPC-DS
+UDF_FUNCTIONS = {
+    "pmix": "create function pmix(x int) returns bigint as $$\n"
+            "def pmix(x):\n    return (x % 997) * 7 % 1000\n$$ language python",
+    "cmix": "create function cmix(x int) returns bigint language c as "
+            "$$ return (x % 997) * 7 % 1000; $$",
+    "boom": "create function boom(x int) returns int as $$\n"
+            "def boom(x):\n    import os\n    os._exit(3)\n$$ language python",
+}
+# a UDF in the WHERE under an aggregate over a join with two small tables
+# (the eager join gathers the 10,000-row supplier), and one in an
+# aggregate's argument
+UDF_QUERIES = {
+    "where": "select n_name, count(*), sum(l_quantity) from lineitem, "
+             "supplier, nation where l_suppkey = s_suppkey and s_nationkey = "
+             "n_nationkey and {f}(l_partkey) < 100 group by n_name order by "
+             "n_name",
+    "argument": "select l_returnflag, l_linestatus, sum({f}(l_partkey)), "
+                "count(*) from lineitem group by l_returnflag, l_linestatus "
+                "order by l_returnflag, l_linestatus",
+}
+# (label, function, system.udf_isolation)
+UDF_RUNS = (("python", "pmix", "none"), ("c", "cmix", "none"),
+            ("python isolated", "pmix", "process"))
+CLI_QUERIES = ("1", "6", "3")
+CLI_DEVICE_ARGS: list = []  # rehearsals on the host pass ["--device", "cpu"]
+ORACLE_SF = 0.005  # the JAX package's oracle scale (tests/test_tpch.py:12)
+RUNNER_FILE = os.path.join("tests", "data", "torch_basic.test")
+# the shape of TPC-DS q3: store_sales joined to date_dim and item, grouped by
+# brand and year (no TPC-DS query text is in the repo)
+TPCDS_STAR = (
+    "select dt.d_year, item.i_brand_id brand_id, item.i_brand brand, "
+    "sum(ss_ext_sales_price) sum_agg from date_dim dt, store_sales, item "
+    "where dt.d_date_sk = store_sales.ss_sold_date_sk and "
+    "store_sales.ss_item_sk = item.i_item_sk and item.i_manufact_id = 128 "
+    "and dt.d_moy = 11 group by dt.d_year, item.i_brand, item.i_brand_id "
+    "order by dt.d_year, sum_agg desc, brand_id limit 100")
+
+
+def oracle_rows(small, out: dict) -> None:
+    """sqlite3's rows of the 22 TPC-H queries over `small` (run on a thread:
+    sqlite releases the interpreter lock while it steps)."""
+    import sqlite3
+
+    from lingodb_tpu_torch.tools import sqlite_oracle as so
+    from lingodb_tpu_torch.tools import tpchgen
+
+    try:
+        t0 = time.perf_counter()
+        conn = sqlite3.connect(":memory:")
+        tpchgen.to_sqlite(conn, small)
+        for i in range(1, 23):
+            out[str(i)] = so.run_sqlite(
+                conn, open(f"queries/tpch/{i}.sql").read())
+        conn.close()
+        out["seconds"] = time.perf_counter() - t0
+    except Exception as e:  # reported by the main thread
+        out["error"] = repr(e)
+
+
+def timed_udf(torch, sc, spent: list):
+    """ops.scalar._eval_udf with the wall ms of each call (the device ->
+    host -> device round trip and the function) appended to `spent`; a
+    call inside a fused program (where no host read is allowed) fails."""
+    from lingodb_tpu_torch.ops import backend as be
+
+    orig = sc._eval_udf
+
+    def call(*a, **k):
+        if be._no_host_reads:
+            fail("udf: a UDF was evaluated inside a fused program")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(*a, **k)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    return orig, call
+
+
+def udf_part(torch, pg, ex, gpu_profile, gpu, cpu, p11):
+    """Phase 11 (a)."""
+    from lingodb_tpu_torch.ops import scalar as sc
+    from lingodb_tpu_torch.runtime import sandbox
+    from lingodb_tpu_torch.runtime.udf import UDFError
+    from lingodb_tpu_torch.utils.settings import UDF_ISOLATION
+
+    for s in (gpu, cpu):
+        for name in ("pmix", "cmix"):
+            if s.catalog.get_function(name) is None:
+                s.sql_stmt(UDF_FUNCTIONS[name])
+    # which aggregates the fused program took (True) or declined (False),
+    # in order: the one over the UDF declines; an aggregate above it may
+    # run fused over its eager result (the UDF is not in its program)
+    engaged: list = []
+    orig_fused = ex.Executor._try_fused_agg
+
+    def spy(self, op, epi=None):
+        r = orig_fused(self, op, epi)
+        engaged.append(r is not None)
+        return r
+
+    spent: list = []
+    orig_udf, timed = timed_udf(torch, sc, spent)
+    ex.Executor._try_fused_agg = spy
+    sc._eval_udf = timed
+    want: dict = {}
+    try:
+        for label, fn, iso in UDF_RUNS:
+            UDF_ISOLATION.set(iso)
+            try:
+                for place, text in UDF_QUERIES.items():
+                    sql = text.format(f=fn)
+                    if sql not in want:
+                        engaged.clear()
+                        want[sql] = (cpu.sql(sql).to_pylist(), list(engaged))
+                    engaged.clear()
+                    rows, counts, nchk = run_checked(
+                        torch, pg, lambda: gpu.sql(sql).to_pylist())
+                    seen = (False in engaged, True in engaged)
+                    if (seen != (False in want[sql][1], True in want[sql][1])
+                            or False not in engaged):
+                        fail(f"udf ({label}, {place}): fused aggregates "
+                             f"engaged {engaged} on the card, "
+                             f"{want[sql][1]} on the CPU session (the one "
+                             "over the UDF must decline)")
+                    if not same_rows(rows, want[sql][0]) or not rows:
+                        fail(f"udf ({label}, {place}): card rows differ from "
+                             f"the CPU session's\n{rows[:3]}\n"
+                             f"{want[sql][0][:3]}")
+                    if place == "where" and not (counts["K2"] and counts["K3"]):
+                        fail(f"udf ({label}, {place}): the filter's K3 and "
+                             f"K2 were not launched ({counts})")
+                    for k, v in counts.items():
+                        p11[k] = p11.get(k, 0) + v
+                    spent.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    again = gpu.sql(sql).to_pylist()
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    udf_ms, udf_calls = sum(spent), len(spent)
+                    syncs, peak, _ = gpu_profile.syncs_and_peak(
+                        torch, lambda: gpu.sql(sql).to_pylist())
+                    if not same_rows(again, want[sql][0]):
+                        fail(f"udf ({label}, {place}): second run differs")
+                    log(f"# udf ({label}, {place}): rows={len(rows)} "
+                        f"wall_ms={ms:.2f} (second run) udf_round_trip_ms="
+                        f"{udf_ms:.2f} in {udf_calls} call(s) syncs={syncs} "
+                        f"launches={json.dumps(counts)} checked={nchk} "
+                        f"peak_mib={peak / 2**20:.1f} fused aggregates "
+                        f"engaged={engaged}")
+            finally:
+                UDF_ISOLATION.set("none")
+        # a crash in the isolated worker surfaces as UDFError; the next call
+        # restarts the worker and succeeds
+        UDF_ISOLATION.set("process")
+        try:
+            gpu.sql_stmt(UDF_FUNCTIONS["boom"])
+            try:
+                gpu.sql("select boom(n_nationkey) from nation")
+                fail("udf: a crashing isolated UDF raised nothing")
+            except UDFError as e:
+                log(f"# udf crash: UDFError({str(e)[:80]!r})")
+            got = gpu.sql("select pmix(n_nationkey) from nation order by "
+                          "n_nationkey").to_pylist()
+            if [r[0] for r in got] != [(k % 997) * 7 % 1000 for k in range(25)]:
+                fail(f"udf: the call after a crash gave {got[:5]}")
+            log("# udf crash: the next call restarted the worker, rows right")
+        finally:
+            UDF_ISOLATION.set("none")
+            if sandbox._GLOBAL_WORKER is not None:
+                sandbox._GLOBAL_WORKER.close()
+    finally:
+        ex.Executor._try_fused_agg = orig_fused
+        sc._eval_udf = orig_udf
+
+
+def cli_part(torch, ldb, gpu, tables, sf):
+    """Phase 11 (b): the CLI as subprocesses over a database directory."""
+    import shutil
+
+    t0 = time.perf_counter()
+    db = os.path.join(".cache", f"chip_smoke_cli_sf{sf:g}")
+    shutil.rmtree(db, ignore_errors=True)
+    w = ldb.connect_to_db(db, device="cpu")
+    from lingodb_tpu_torch.tools import tpchgen
+
+    tpchgen.install(w, tables)
+    w.close()
+    log(f"# cli: database sf={sf:g} written to {db} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    art = os.path.join(db, "q3.lqa")
+    cli = [sys.executable, "-m", "lingodb_tpu_torch.tools.cli"]
+
+    def start(argv, env=None):
+        return (time.perf_counter(), subprocess.Popen(
+            cli + argv + CLI_DEVICE_ARGS, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env))
+
+    def finish(label, job, timeout=600):
+        t_start, proc = job
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"cli {label}: no answer in {timeout}s")
+        if proc.returncode != 0:
+            fail(f"cli {label} exited {proc.returncode}: {err[-3000:]}")
+        log(f"# cli {label}: {time.perf_counter() - t_start:.1f}s (process "
+            f"wall, run beside the others)")
+        return out, err
+
+    jobs: dict = {}
+    try:
+        # the tools side by side, each its own process on the card; the
+        # artifact's cold run starts once the artifact is written
+        for q in CLI_QUERIES:
+            jobs[f"run-sql q{q}"] = start(["run-sql", f"queries/tpch/{q}.sql",
+                                           db])
+        jobs["sql-to-plan q3"] = start(["sql-to-plan", "queries/tpch/3.sql",
+                                        db])
+        # profile writes its per-pass plans to system.snapshot_dir
+        jobs["profile q6"] = start(["profile", "queries/tpch/6.sql", db],
+                                   dict(os.environ, LINGODB_SNAPSHOT_DIR=db))
+        jobs["sql-to-artifact q3"] = start(["sql-to-artifact",
+                                            "queries/tpch/3.sql", art, db])
+        outs = {"sql-to-artifact q3": finish("sql-to-artifact q3",
+                                             jobs["sql-to-artifact q3"])}
+        jobs["run-artifact q3"] = start(["run-artifact", art, db])
+        for label, job in jobs.items():
+            if label not in outs:
+                outs[label] = finish(label, job)
+    finally:
+        for _t, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for q in CLI_QUERIES:
+        want = gpu.sql(open(f"queries/tpch/{q}.sql").read()).pretty(
+            max_rows=10_000) + "\n"
+        if outs[f"run-sql q{q}"][0] != want:
+            fail(f"cli run-sql q{q}: rows differ from the in-process card "
+                 f"session's\n{outs[f'run-sql q{q}'][0][:400]}\n{want[:400]}")
+    if not outs["sql-to-plan q3"][0].startswith("Materialize"):
+        fail(f"cli sql-to-plan: {outs['sql-to-plan q3'][0][:300]}")
+    prof = outs["profile q6"][0]
+    if "== operator profile (self time) ==" not in prof or "TOTAL" not in prof:
+        fail(f"cli profile: no operator profile\n{prof[-1500:]}")
+    lines = prof.splitlines()
+    at = lines.index("== operator profile (self time) ==")
+    for line in lines[at + 1:]:
+        if not line.startswith(("  ", "== host")):
+            break
+        log(f"# cli profile q6: {line.strip()}")
+    log(f"# cli sql-to-artifact: {outs['sql-to-artifact q3'][0].strip()}")
+    want3 = gpu.sql(open("queries/tpch/3.sql").read()).pretty(
+        max_rows=10_000) + "\n"
+    out, err = outs["run-artifact q3"]
+    if out != want3:
+        fail(f"cli run-artifact q3: rows differ\n{out[:400]}\n{want3[:400]}")
+    stats = next((line for line in err.splitlines()
+                  if line.startswith("# cold run")), "")
+    if "parses=0 optimizations=0 calibrations=0" not in stats:
+        fail(f"cli run-artifact q3: the cold process parsed, optimized or "
+             f"calibrated: {stats!r}")
+    log(f"# cli run-artifact q3 (fresh process): {stats[2:]}, rows equal")
+    shutil.rmtree(db, ignore_errors=True)
+    log(f"# cli: part (b) took {time.perf_counter() - t0:.1f}s")
+
+
+def oracle_part(torch, pg, ldb, small, sqlite_out, thread, p11):
+    """Phase 11 (c): the card's rows of the 22 TPC-H queries against
+    sqlite3's."""
+    from lingodb_tpu_torch.tools import sqlite_oracle as so
+    from lingodb_tpu_torch.tools import tpchgen
+
+    s = ldb.create_in_memory()
+    tpchgen.install(s, small)
+    ours = {}
+    t0 = time.perf_counter()
+    for i in range(1, 23):
+        res, counts, _n = run_checked(
+            torch, pg, lambda: s.sql(open(f"queries/tpch/{i}.sql").read()))
+        ours[str(i)] = so.our_rows(res)
+        for k, v in counts.items():
+            p11[k] = p11.get(k, 0) + v
+    card_s = time.perf_counter() - t0
+    thread.join(timeout=600)
+    if thread.is_alive() or "error" in sqlite_out:
+        fail(f"oracle: sqlite3 did not answer: {sqlite_out.get('error')}")
+    for q, rows in ours.items():
+        ok, msg = so.rows_equal(rows, sqlite_out[q], ordered=True)
+        if not ok:
+            fail(f"oracle q{q}: the card's rows differ from sqlite3's: {msg}")
+    log(f"# oracle: the 22 TPC-H queries at sf {ORACLE_SF:g} on the card "
+        f"({card_s:.1f}s, each kernel call checked) pass sqlite3's rows "
+        f"(sqlite3 {sqlite_out['seconds']:.1f}s on a thread)")
+    s._evict_device_memory()
+
+
+def runner_part(ldb):
+    """Phase 11 (d): the sqllogictest runner over the in-repo .test file,
+    every table on the tensor tier."""
+    from lingodb_tpu_torch.runtime import device as dv
+    from lingodb_tpu_torch.tester import runner
+
+    small_rows, dv.SMALL_ROWS = dv.SMALL_ROWS, 2
+    try:
+        stats = runner.run_file(ldb.create_in_memory(), RUNNER_FILE,
+                                stop_on_error=False)
+    finally:
+        dv.SMALL_ROWS = small_rows
+    if not stats.ok or stats.queries < 10:
+        fail(f"runner {RUNNER_FILE}: {stats.statements} statements, "
+             f"{stats.queries} queries, failures {stats.failures[:3]}")
+    log(f"# runner {RUNNER_FILE}: {stats.statements} statements, "
+        f"{stats.queries} queries, every record passes on the card")
+
+
+def tpcds_part(torch, pg, ldb, ex, gpu_profile, sf, p11):
+    """Phase 11 (e): a star join of TPC-DS through the fused aggregate."""
+    from lingodb_tpu_torch.tools import tpcdsgen
+
+    t0 = time.perf_counter()
+    ds = tpcdsgen.generate(sf)
+    log(f"# tpcds: sf={sf:g}, store_sales={ds['store_sales'].num_rows} rows, "
+        f"generated in {time.perf_counter() - t0:.1f}s")
+    gpu_ds = ldb.create_in_memory()
+    cpu_ds = ldb.create_in_memory(device="cpu")
+    tpcdsgen.install(gpu_ds, ds)
+    tpcdsgen.install(cpu_ds, ds)
+    engaged = []
+    orig = ex.Executor._try_fused_agg
+
+    def spy(self, op, epi=None):
+        r = orig(self, op, epi)
+        engaged.append(r is not None)
+        return r
+
+    ex.Executor._try_fused_agg = spy
+    try:
+        want = cpu_ds.sql(TPCDS_STAR).to_pylist()
+        cpu_hit = any(engaged)
+        engaged.clear()
+        rows, counts, nchk = run_checked(
+            torch, pg, lambda: gpu_ds.sql(TPCDS_STAR).to_pylist())
+        card_hit = any(engaged)
+    finally:
+        ex.Executor._try_fused_agg = orig
+    if not (card_hit and cpu_hit):
+        fail(f"tpcds: the fused aggregate did not engage (card {card_hit}, "
+             f"CPU {cpu_hit})")
+    if not rows or not same_rows(rows, want):
+        fail(f"tpcds: card rows differ from the CPU session's\n{rows[:3]}\n"
+             f"{want[:3]}")
+    for k, v in counts.items():
+        p11[k] = p11.get(k, 0) + v
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    again = gpu_ds.sql(TPCDS_STAR).to_pylist()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    syncs, peak, _ = gpu_profile.syncs_and_peak(
+        torch, lambda: gpu_ds.sql(TPCDS_STAR).to_pylist())
+    if not same_rows(again, want):
+        fail("tpcds: second run differs")
+    log(f"# tpcds star join (q3 shape): rows={len(rows)} wall_ms={ms:.2f} "
+        f"(second run) syncs={syncs} launches={json.dumps(counts)} "
+        f"checked={nchk} peak_mib={peak / 2**20:.1f} fused=engaged")
+    gpu_ds._evict_device_memory()
+
+
+def tools_phase(torch, pg, ldb, ex, gpu_profile, gpu, cpu, tables, args,
+                launches):
+    """Phase 11 (see the module docstring)."""
+    from lingodb_tpu_torch.tools import tpchgen
+
+    t_phase = time.perf_counter()
+    p11: dict = {}
+    small = tpchgen.generate(ORACLE_SF, args.seed)
+    sqlite_out: dict = {}
+    thread = threading.Thread(target=oracle_rows, args=(small, sqlite_out),
+                              daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    udf_part(torch, pg, ex, gpu_profile, gpu, cpu, p11)
+    log(f"# udf: part (a) took {time.perf_counter() - t0:.1f}s")
+    cli_part(torch, ldb, gpu, tables, args.sf)
+    t0 = time.perf_counter()
+    oracle_part(torch, pg, ldb, small, sqlite_out, thread, p11)
+    runner_part(ldb)
+    log(f"# oracle and runner: parts (c), (d) took "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    tpcds_part(torch, pg, ldb, ex, gpu_profile, args.sf, p11)
+    log(f"# tpcds: part (e) took {time.perf_counter() - t0:.1f}s")
+    launches["p11"] = {"gather_chunked": p11.get("K1", 0),
+                       "gather_sorted": p11.get("K2", 0),
+                       "compact_positions": p11.get("K3", 0)}
+    log(f"# p11 launches (K1, K2, K3 over phase 11, each call checked): "
+        f"{json.dumps(p11)}")
+    log(f"# tools: phase 11 took {time.perf_counter() - t_phase:.1f}s")
+
+
 def front_and_execution(torch, session, sql) -> tuple:
     """(ms to parse, bind and optimize, ms to execute and format the rows)
     of one run: Session.prepare, then Session.execute_prepared."""
@@ -1902,6 +2338,11 @@ def main() -> int:
                  torch.rand(n_li, device="cuda",
                             generator=torch.Generator(device="cuda")
                             .manual_seed(3)))
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 11")
+    # ---- phase 11: UDFs, the CLI, the sqlite3 oracle, the runner, TPC-DS
+    tools_phase(torch, pg, ldb, ex, gpu_profile, gpu, cpu, tables, args,
+                launches)
 
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",

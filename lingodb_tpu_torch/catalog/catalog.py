@@ -127,11 +127,20 @@ def compile_function(entry: FunctionEntry):
     """Compile a UDF entry and register it for scalar eval (used both by
     CREATE FUNCTION and when loading a persisted catalog; reference:
     UDFImplementer + FunctionCatalogEntry)."""
-    # the UDF runtimes (runtime/udf.py, runtime/sandbox.py) are not ported
-    # yet (ROADMAP queue A): refuse instead of registering a function whose
-    # calls could not be evaluated
-    raise NotImplementedError(
-        f"not yet ported: user-defined functions ({entry.name})")
+    from ..ops.scalar import udf_register
+    from ..runtime import udf as udfmod
+
+    arg_names = list(entry.arg_names) or [f"a{i}" for i in range(len(entry.arg_types))]
+    if entry.language == "c":
+        entry.fn = udfmod.compile_c_udf(
+            entry.name, arg_names, entry.arg_types, entry.return_type, entry.body)
+    elif entry.language == "python":
+        entry.fn = udfmod.make_python_udf(
+            entry.name, arg_names, entry.arg_types, entry.return_type, entry.body)
+    else:
+        raise NotImplementedError(f"UDF language {entry.language}")
+    udf_register(entry.name, entry.fn)
+    return entry.fn
 
 
 class Catalog:

@@ -57,6 +57,12 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def loaded() -> dict[str, str]:
+    """{source name: hash of the source and flags} of the kernel libraries
+    this process has loaded (none on a CPU session)."""
+    return {name: _lib_path(name).stem.rsplit("-", 1)[1] for name in _LIBS}
+
+
 def build_all() -> dict[str, ctypes.CDLL]:
     """Compile (where missing) and load every kernel library."""
     global build_seconds

@@ -573,8 +573,55 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
         h = hash_columns(args)
         return SCol(e.type, be.astype(h, jnp.int64), None)
     if op.startswith("udf:"):
-        raise EvalError("not yet ported: UDF calls (ROADMAP queue A)")
+        return _eval_udf(op[4:], args, e.type)
     raise EvalError(f"unknown op {op}")
+
+
+def _eval_udf(name: str, args: list[SCol], t: Type) -> SCol:
+    """A user-defined function over whole columns, on the host: each
+    argument is broadcast to n rows and read back with one copy
+    (be.to_host), decoded to the values the function expects (str for a
+    dictionary column, datetime.date for DATE, datetime.datetime for
+    TIMESTAMP; the reference passes real PyObjects into its
+    sub-interpreters, PythonRuntime.cpp), and the result goes to the device
+    of the arguments. On the card this is a device -> host -> device round
+    trip by design. Inside a fused program be.to_host raises HostRead: the
+    program declines, as the reference's trace fails on the same call (the
+    executor declines such plans on the host before they run,
+    executor._udf_in_exprs)."""
+    import datetime as _dt
+
+    call = udfmod_registry_get(name)
+    if call is None:
+        raise EvalError(f"UDF {name} is not compiled")
+    n = max((a.data.shape[0] for a in args if a.data.ndim), default=1)
+    dev = be.device_of(*[a.data for a in args])
+    host = []
+    for a in args:
+        h = be.to_host(jnp.broadcast_to(a.data, (n,)))
+        if a.dictionary is not None:
+            codes = np.clip(h.astype(np.int64), 0, len(a.dictionary) - 1)
+            h = np.asarray(a.dictionary, dtype=object)[codes]
+        elif a.type.kind == K.DATE:
+            epoch = _dt.date(1970, 1, 1)
+            h = np.array([epoch + _dt.timedelta(days=int(d)) for d in h],
+                         dtype=object)
+        elif a.type.kind == K.TIMESTAMP:
+            epoch = _dt.datetime(1970, 1, 1)
+            h = np.array([epoch + _dt.timedelta(microseconds=int(v))
+                          for v in h], dtype=object)
+        host.append(h)
+    out = call(host)
+    valid = _and_valid(*args)
+    if t.is_string:
+        from ..storage.column import encode_strings
+
+        dct, out = encode_strings([x if isinstance(x, str) else str(x)
+                                   for x in out])
+        return SCol(t, out if dev is None else be.to_device(out, dev), valid,
+                    dct)
+    out = np.asarray(out)
+    return SCol(t, out if dev is None else be.to_device(out, dev), valid)
 
 
 _UDF_REGISTRY: dict[str, object] = {}

@@ -27,7 +27,9 @@ def optimize(plan: L.LogicalOp, catalog) -> L.LogicalOp:
     names; `system.snapshot_passes` records the plan after every pass into
     `last_pass_snapshots` and writes snapshot-<N>-<pass>.plan files under
     `system.snapshot_dir` (reference: Instrumentation.cpp snapshots)."""
-    from ..utils import settings
+    from ..utils import compilestats, settings
+
+    compilestats.add("optimizations")
 
     # shared subtrees (Tmp holders) optimize exactly once; they are leaves to
     # the per-reference rewrites below (reference: IntroduceTmp keeps the

@@ -1142,6 +1142,13 @@ class Executor:
                             "any_value") for a in op.aggs):
             return None
         steps, cur = self._walk_spine(op.child)
+        if _udf_in_exprs(_program_exprs(
+                steps, {}, cur.restrictions if isinstance(cur, L.Scan)
+                else ())):
+            # a UDF runs on the host, which a program on the card cannot
+            # call (nor a graph capture hold): decided here, before anything
+            # runs, where the reference's trace fails on the same call
+            return None
         if isinstance(cur, L.Scan) and all(st[0] == "sm" for st in steps):
             ck = self._try_chunked_agg(op, steps, cur)  # out-of-core
             if ck is not None:
@@ -1216,6 +1223,9 @@ class Executor:
                 join_preps[si] = prep
             self._propagate_sorted_probe(join_preps, sorted_cids)
             cache[prep_key] = join_preps
+        if _udf_in_exprs(_program_exprs(steps, join_preps, ())):
+            cache[key] = "eager"  # a UDF in a join step's probe keys
+            return None
 
         # a single group key riding the spine's clustered order (directly,
         # or through an inner unique-key join whose build key is the group
@@ -1292,6 +1302,14 @@ class Executor:
         learning = ((kg_learned is None and not dense)
                     or (bool(spine["join_sis"])
                         and ("fused_stepcaps", basekey) not in cache))
+        if (epi is not None and not dense and kg_learned is not None
+                and _udf_in_exprs(_epi_exprs(epi))):
+            # the general mode evaluates a TopK epilogue's Map steps in the
+            # program, and a UDF among them runs on the host: this variant
+            # declines (the dense mode, and a calibration run, leave the
+            # epilogue to the caller and run)
+            cache[key] = "eager"
+            return None
         try:
             res, meta = self._run_program(
                 basekey, key[len(basekey):] or None, material, program, inputs,
@@ -1684,20 +1702,40 @@ class Executor:
             if (name, basekey) in cache or dead:
                 continue
             v = capstore.get(prefix + repr((basekey, n)))
-            if v is None:
-                continue
-            if what == "kbounds":
-                if v is False:
-                    cache[("fused_kbounds_dead", basekey)] = True
-                else:
-                    cache[(name, basekey)] = [tuple(b) if b else None
-                                              for b in v]
-            elif what == "stepcaps":
-                cache[(name, basekey)] = {int(k): int(c) for k, c in v.items()}
-            elif what == "dense":
-                cache[(name, basekey)] = bool(v)
+            if v is not None:
+                self._keep_learned(cache, what, basekey, v)
+
+    def _keep_learned(self, cache, what, basekey, v) -> None:
+        """Put one stored capacity (its JSON form) into the stage cache."""
+        name = self._LEARNED[what][0]
+        if what == "kbounds":
+            if v is False:
+                cache[("fused_kbounds_dead", basekey)] = True
             else:
-                cache[(name, basekey)] = int(v)
+                cache[(name, basekey)] = [tuple(b) if b else None for b in v]
+        elif what == "stepcaps":
+            cache[(name, basekey)] = {int(k): int(c) for k, c in v.items()}
+        elif what == "dense":
+            cache[(name, basekey)] = bool(v)
+        else:
+            cache[(name, basekey)] = int(v)
+
+    def seed_capacities(self, entries: dict) -> None:
+        """Put learned capacities, keyed as the capstore keys them
+        (utils/capstore.py), into session.stage_cache and into the capstore
+        if one is set: the fused programs they belong to then run at these
+        sizes with no calibration run (tools/artifact.py)."""
+        import ast
+
+        from ..utils import capstore
+
+        by_prefix = sorted(self._LEARNED.items(), key=lambda kv: -len(kv[1][1]))
+        for key, v in entries.items():
+            what, prefix = next((w, p) for w, (_n, p) in by_prefix
+                                if key.startswith(p))
+            basekey, _n = ast.literal_eval(key[len(prefix):])
+            self._keep_learned(self.session.stage_cache, what, basekey, v)
+            capstore.put(key, v)
 
     def _rebuild(self, basekey, why: str) -> None:
         """A learned capacity was outgrown: the captured programs of
@@ -1978,6 +2016,8 @@ class Executor:
             return None
         if not isinstance(cur, L.Scan):
             return None  # materialized bases recurse here on their own top
+        if _udf_in_exprs(_program_exprs(steps, {}, cur.restrictions)):
+            return None  # a UDF runs on the host (see _try_fused_agg)
         entry = self.session.catalog.get_table(cur.table)
         if entry is None or entry.storage.num_rows == 0:
             return None
@@ -1985,6 +2025,12 @@ class Executor:
         basekey = ("fused_chain", plan_key(op), versions)
         cache = self.session.stage_cache
         if cache.get(basekey) == "eager":
+            return None
+        if epi is not None and _udf_in_exprs(_epi_exprs(epi)):
+            # the chain's epilogue evaluates its Map steps in the program:
+            # a UDF among them declines the chain for the plan and these
+            # versions, as the reference's trace failure does
+            cache[basekey] = "eager"
             return None
         if epi is not None and cache.get(("fused_epi_decline", basekey)):
             epi = None
@@ -2032,6 +2078,9 @@ class Executor:
                 self._in_fused_chain = False
             self._propagate_sorted_probe(join_preps, sorted_cids)
             cache[prep_key] = join_preps
+        if _udf_in_exprs(_program_exprs(steps, join_preps, ())):
+            cache[basekey] = "eager"  # a UDF in a join step's probe keys
+            return None
 
         self._load_capacities(basekey, n, cache, ("outcap", "stepcaps"))
         spine = self._plan_spine(steps, join_preps, cur, entry,
@@ -2766,6 +2815,37 @@ def _has_iterref(node) -> bool:
     if isinstance(node, L.Tmp) and _has_iterref(node.holder.plan):
         return True
     return any(_has_iterref(c) for c in node.children())
+
+
+def _udf_in_exprs(exprs) -> bool:
+    """True when any of the expressions calls a user-defined function."""
+    return any(isinstance(x, Call) and x.op.startswith("udf:")
+               for e in exprs if e is not None for x in E.walk(e))
+
+
+def _program_exprs(steps, join_preps, restrictions) -> list:
+    """The expressions a fused program evaluates itself: the base scan's
+    restrictions, the spine's Select predicates and Map expressions, and
+    each join step's probe keys and residual conjuncts (its build side runs
+    eagerly, before the program). Group keys and aggregate arguments are
+    column references into these."""
+    out = list(restrictions)
+    for si, st in enumerate(steps):
+        if st[0] == "sm":
+            if isinstance(st[1], L.Select):
+                out.append(st[1].predicate)
+            else:
+                out.extend(e for _info, e in st[1].computed)
+            continue
+        p = join_preps.get(si) or {}
+        out += [p.get("probe_expr"), p.get("probe_expr2")]
+        out += list(p.get("residual") or ())
+    return out
+
+
+def _epi_exprs(epi) -> list:
+    """The expressions of a TopK epilogue's Map steps."""
+    return [e for m in epi["maps"] for _info, e in m.computed]
 
 
 def _first_tensor(*vts: VTable):

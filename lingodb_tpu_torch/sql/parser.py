@@ -1073,4 +1073,7 @@ def _fold_cross(refs: list) -> "A.TableRef":
 
 
 def parse_sql(sql: str) -> list:
+    from ..utils import compilestats
+
+    compilestats.add("parses")
     return Parser(sql).parse_statements()

@@ -1,6 +1,7 @@
 """Counters of the work a query spends before and beside its kernels: the
-kernel libraries built and loaded, the fused programs captured as CUDA
-graphs and replayed, and the calibration runs that learn their capacities.
+statements parsed and the plans optimized, the kernel libraries built and
+loaded, the fused programs captured as CUDA graphs and replayed, and the
+calibration runs that learn their capacities.
 
 The counterpart of lingodb_tpu/utils/compilestats.py, which counts XLA
 compiles and compile-cache hits. The port compiles no program: what stands
@@ -9,6 +10,9 @@ in for a compile is an nvcc run (ops/cuda_build.py) and a graph capture
 (`# perf captures=...`), and tests assert that a repeated query builds,
 captures and calibrates nothing.
 
+  parses, optimizations
+                       parse_sql and optimize calls (a query artifact's
+                       run makes neither, tools/artifact.py)
   builds, build_secs   nvcc runs and their wall seconds
   loads                kernel libraries loaded into the process
   captures, capture_secs
@@ -23,8 +27,9 @@ from __future__ import annotations
 import threading
 
 _lock = threading.Lock()
-_stats = {"builds": 0, "build_secs": 0.0, "loads": 0, "captures": 0,
-          "capture_secs": 0.0, "replays": 0, "calibrations": 0}
+_stats = {"parses": 0, "optimizations": 0, "builds": 0, "build_secs": 0.0,
+          "loads": 0, "captures": 0, "capture_secs": 0.0, "replays": 0,
+          "calibrations": 0}
 
 
 def add(name: str, value=1) -> None:

@@ -219,24 +219,3 @@ def test_no_gpu_raises_instead_of_falling_back():
     with pytest.raises(RuntimeError):
         ldb.Session(device="cuda")
 
-
-def test_not_yet_ported_operators_raise():
-    """User-defined functions are not ported (ROADMAP A7): CREATE FUNCTION
-    refuses, and a call of a function in the catalog raises when it is
-    evaluated. Window functions run since they were ported
-    (tests/test_torch_window.py holds this table's window query)."""
-    from lingodb_tpu_torch.catalog.catalog import FunctionEntry
-    from lingodb_tpu_torch.ops.scalar import EvalError
-    from lingodb_tpu_torch.sql.types import Type
-
-    s = ldb.create_in_memory(device="cpu")
-    s.sql_stmt("CREATE TABLE t(a INT)")
-    s.sql_stmt("INSERT INTO t VALUES (1), (2)")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        s.sql_stmt("CREATE FUNCTION triple(x INT) RETURNS INT AS $$\n"
-                   "return x * 3\n$$ LANGUAGE python")
-    s.catalog.create_function(FunctionEntry(
-        "triple", [Type.int_(True)], Type.int_(True), "python",
-        "return x * 3", arg_names=["x"]))
-    with pytest.raises(EvalError, match="not yet ported"):
-        s.sql("SELECT triple(a) FROM t")
