@@ -163,6 +163,23 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               join of store_sales, date_dim and item grouped by brand and
               year (the shape of TPC-DS q3) through the fused aggregate,
               rows equal the CPU session's
+  12. mesh    the sharded operators (parallel/shuffle.py) over a mesh of 8
+              positions on the one card (the port's counterpart of the JAX
+              package's 8 virtual devices; runtime/device.get_mesh builds
+              none on one card) at the production system.shuffle_min_rows,
+              the fused programs declined on the mesh: q3 and q18 (the JAX
+              package's test_mesh_sf1.py) and the statements of its
+              test_shuffle.py over lineitem and orders (inner join with its
+              group-by, semi, anti with NULL keys, left, full, a scalar
+              subquery's single join, count and sum distinct, ORDER BY
+              descending and ascending through the sample sort, a skewed
+              probe side that takes the heavy-hitter split), each held
+              column by column against the one-card session and each
+              strategy's shuffle.STATS counter required to move; every K1,
+              K2, K3 call of the first meshed run checked bit for bit
+              against its plain version (K2 and K3 must launch: VTable.dense
+              of the lazy sharded results); wall ms, host syncs and peak
+              device memory of a second run, meshed against one card
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -170,6 +187,7 @@ line {"kernels": [...]}, then as the last line
 """
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -1518,6 +1536,8 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
     for q in queries:
         if q not in cpu_rows:
             cpu_rows[q] = cpu.sql(sqls[q]).format_rows()
+    freeze_heap()
+    gen2_before = gc.get_stats()[2]["collections"]
     # (b) from an empty stage cache and store, the capstore written anew
     store_dir = os.path.join("build", "capstore_smoke")
     if os.path.exists(os.path.join(store_dir, "capacities.json")):
@@ -1558,6 +1578,7 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
             torch, lambda: gpu.sql(sqls[q]).format_rows())
         prof = gpu_profile.profile_query(torch, gpu, sqls[q])
         split = front_and_execution(torch, gpu, sqls[q])
+        alone = front_and_execution(torch, gpu, sqls[q])
         with gpu_profile.uncaptured_path():
             gpu.sql(sqls[q]).format_rows()
             torch.cuda.synchronize()
@@ -1575,6 +1596,12 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
             "runs": [{"ms": ms, **d} for ms, d in runs],
             "captured": {"wall_ms": runs[2][0], "syncs": syncs,
                          "front_ms": split[0], "execution_ms": split[1],
+                         "execution_gc_ms": split[2], "execution_gc_gen2": split[3],
+                         "execution_counts": split[4],
+                         "alone_front_ms": alone[0],
+                         "alone_execution_ms": alone[1],
+                         "alone_gc_ms": alone[2], "alone_gc_gen2": alone[3],
+                         "alone_counts": alone[4],
                          "idle": prof["device_idle_share"],
                          "device_ms": prof["device_ms"],
                          "profiled_wall_ms": prof["wall_ms"],
@@ -1582,6 +1609,9 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
             "uncaptured": {"wall_ms": un_ms, "syncs": un_syncs,
                            "front_ms": un_split[0],
                            "execution_ms": un_split[1],
+                           "execution_gc_ms": un_split[2],
+                           "execution_gc_gen2": un_split[3],
+                           "execution_counts": un_split[4],
                            "idle": un_prof["device_idle_share"],
                            "device_ms": un_prof["device_ms"],
                            "profiled_wall_ms": un_prof["wall_ms"]},
@@ -1597,8 +1627,26 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
             f"{t['captured']['idle']:.3f} / {t['uncaptured']['idle']:.3f}; "
             f"device_ms {prof['device_ms']:.3f} / {un_prof['device_ms']:.3f}; "
             f"capture_ms {t['capture_ms']:.1f}; pool_mib {pool_mib:.1f}; "
-            f"front/execution ms {split[0]:.2f}/{split[1]:.2f} replayed, "
-            f"{un_split[0]:.2f}/{un_split[1]:.2f} uncaptured")
+            f"front/execution ms {split[0]:.2f}/{split[1]:.2f} replayed "
+            f"after the profiler (gc {split[2]:.2f} ms, gen2 {split[3]}, "
+            f"{json.dumps(split[4])}), {alone[0]:.2f}/{alone[1]:.2f} replayed "
+            f"alone (gc {alone[2]:.2f} ms, gen2 {alone[3]}), "
+            f"{un_split[0]:.2f}/{un_split[1]:.2f} uncaptured (gc "
+            f"{un_split[2]:.2f} ms, gen2 {un_split[3]})")
+    # what one generation-2 collection costs in this process now (C5: a
+    # prepared run's spikes), the frozen heap aside
+    gen2 = gc.get_stats()[2]["collections"] - gen2_before
+    tracked = len(gc.get_objects())
+    t0 = time.perf_counter()
+    gc.collect()
+    table["gc"] = {"gen2_collections_in_phase": gen2,
+                   "tracked_objects": tracked,
+                   "frozen_objects": gc.get_freeze_count(),
+                   "full_collection_ms": (time.perf_counter() - t0) * 1e3}
+    log(f"# graphs: {gen2} generation-2 collections during (b); a full "
+        f"collection now takes {table['gc']['full_collection_ms']:.1f} ms "
+        f"over {tracked} tracked objects ({gc.get_freeze_count()} frozen "
+        f"before (b))")
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "graphs_phase.json"), "w") as f:
         json.dump(table, f, indent=1)
@@ -2062,17 +2110,240 @@ def tools_phase(torch, pg, ldb, ex, gpu_profile, gpu, cpu, tables, args,
     log(f"# tools: phase 11 took {time.perf_counter() - t_phase:.1f}s")
 
 
+# ---- phase 12: the sharded operators over a mesh of 8 positions on the card
+MESH_POSITIONS = 8
+MESH_QUERIES = ("3", "18")  # the JAX package's tests/test_mesh_sf1.py
+# the statements of the JAX package's tests/test_shuffle.py over lineitem and
+# orders: name -> (sql, the shuffle.STATS counters it must move). Each is
+# ordered by a unique key (the rows compare column by column); a derived key
+# gives the anti join its NULL keys and the probe side its hot key (the
+# join on an expression keeps the optimizer from pre-aggregating it)
+MESH_STATEMENTS = {
+    "inner_join_groupby": (
+        "select l_orderkey, sum(l_quantity) from lineitem, orders where "
+        "l_orderkey = o_orderkey and o_orderdate < date '1993-01-01' "
+        "group by l_orderkey order by l_orderkey", ("joins", "groupbys")),
+    "semi": (
+        "select l_suppkey, count(*) from lineitem where l_orderkey in (select "
+        "o_orderkey from orders where o_custkey < 75000) group by l_suppkey "
+        "order by l_suppkey", ("joins", "groupbys")),
+    "anti_null_keys": (
+        "select count(*) from (select * from (select l_suppkey, case when "
+        "l_linenumber = 1 then null else l_orderkey end as k from lineitem) t "
+        "where t.k not in (select o_orderkey from orders where o_custkey < "
+        "75000) or t.k is null) u", ("joins",)),
+    "left": (
+        "select o_orderkey, count(l_quantity) from orders left join lineitem "
+        "on o_orderkey = l_orderkey and l_quantity > 25 group by o_orderkey "
+        "order by o_orderkey", ("joins", "groupbys")),
+    "full": (
+        "select count(*), count(o_orderkey), count(l_quantity), "
+        "sum(l_quantity) from orders full join lineitem on o_orderkey = "
+        "l_orderkey and l_quantity > 40", ("joins",)),
+    "single": (
+        "select count(*), count(c), sum(c) from (select (select o_custkey "
+        "from orders where o_orderkey = l_orderkey) as c from lineitem) t",
+        ("joins",)),
+    "count_distinct": (
+        "select count(*), sum(c1), sum(c2) from (select l_orderkey, "
+        "count(distinct l_linestatus) as c1, count(*) as c2 from lineitem "
+        "group by l_orderkey) t", ("groupbys",)),
+    "sum_distinct": (
+        "select l_suppkey, sum(distinct l_quantity), min(l_quantity), "
+        "count(distinct l_quantity) from lineitem group by l_suppkey "
+        "order by l_suppkey", ("groupbys",)),
+    "sort_desc": (
+        "select l_quantity, l_orderkey, l_linenumber from lineitem order by "
+        "l_quantity desc, l_orderkey, l_linenumber", ("sorts",)),
+    "sort_asc": (
+        "select o_totalprice, o_orderkey from orders order by o_totalprice, "
+        "o_orderkey", ("sorts",)),
+    "skewed_probe": (
+        "select o_custkey, count(*), max(l_shipdate) from lineitem, orders "
+        "where (case when l_linenumber > 1 then 1 else l_orderkey end) = "
+        "o_orderkey group by o_custkey order by o_custkey",
+        ("joins", "skew_splits")),
+}
+
+
+def same_table(got, want) -> bool:
+    """Two ResultTables equal column by column: the same rows in the same
+    order, integers and codes exact, floats within FLOAT_REL (no validity
+    mask: every row valid)."""
+    import numpy as np
+
+    if got.num_rows != want.num_rows or list(got.names) != list(want.names):
+        return False
+    for a, b, va, vb in zip(got.columns, want.columns, got.valids, want.valids):
+        a, b = np.asarray(a), np.asarray(b)
+        va = np.ones(a.shape[0], bool) if va is None else np.asarray(va)
+        vb = np.ones(b.shape[0], bool) if vb is None else np.asarray(vb)
+        if not np.array_equal(va, vb):
+            return False
+        a, b = np.where(va, a, 0), np.where(vb, b, 0)  # NULLs hold anything
+        if a.dtype.kind == "f" or b.dtype.kind == "f":
+            if not np.allclose(a, b, rtol=FLOAT_REL, atol=0.0, equal_nan=True):
+                return False
+        elif not np.array_equal(a, b):
+            return False
+    return True
+
+
+def mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line, sqls):
+    """Phase 12 (see the module docstring)."""
+    from lingodb_tpu_torch.parallel import shuffle as sh
+    from lingodb_tpu_torch.parallel.mesh import Mesh
+    from lingodb_tpu_torch.runtime import device as dv
+    from lingodb_tpu_torch.utils.settings import SHUFFLE_MIN_ROWS
+
+    t_phase = time.perf_counter()
+    if dv.get_mesh() is not None and torch.cuda.device_count() < 2:
+        fail("a mesh on one card without being asked for")
+    mesh = Mesh([gpu.device] * MESH_POSITIONS)
+    freeze_heap()
+    stmts = {f"q{q}": (sqls[q], ()) for q in MESH_QUERIES}
+    stmts.update(MESH_STATEMENTS)
+    p12: dict = {}
+    moved_all = {k: 0 for k in sh.STATS}
+    report = {"device": smi_line, "positions": MESH_POSITIONS,
+              "shuffle_min_rows": SHUFFLE_MIN_ROWS.get(), "statements": {}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    old = dv._MESH, dv._MESH_INIT
+    try:
+        for name, (sql, must) in stmts.items():
+            # one card: every strategy on, get_mesh() is None
+            dv._MESH, dv._MESH_INIT = None, True
+            want = gpu.sql(sql)
+            _, one_ms = timed(lambda: gpu.sql(sql))
+            one_syncs, one_peak, _ = gpu_profile.syncs_and_peak(
+                torch, lambda: gpu.sql(sql))
+            # the mesh, the fused programs declined (the JAX package's
+            # test_mesh_sf1.py): every kernel call checked, then timed
+            dv._MESH = mesh
+            with gpu_profile.eager_path():
+                before = dict(sh.STATS)
+                got, counts, nchk = run_checked(torch, pg,
+                                                lambda: gpu.sql(sql))
+                moved = {k: sh.STATS[k] - before[k] for k in sh.STATS}
+                again, mesh_ms = timed(lambda: gpu.sql(sql))
+                mesh_syncs, mesh_peak, _ = gpu_profile.syncs_and_peak(
+                    torch, lambda: gpu.sql(sql))
+            dv._MESH = None
+            for k, v in counts.items():
+                p12[k] = p12.get(k, 0) + v
+            for k, v in moved.items():
+                moved_all[k] += v
+            if not want.num_rows:
+                fail(f"mesh {name}: empty result")
+            if not same_table(got, want) or not same_table(again, want):
+                fail(f"mesh {name}: rows on the mesh differ from the one-card "
+                     f"session's\nmesh={got.format_rows()[:3]}\n"
+                     f"one card={want.format_rows()[:3]}")
+            missed = [k for k in must if not moved[k]]
+            if missed or not moved["exchanges"]:
+                fail(f"mesh {name}: strategies {missed or ['exchanges']} did "
+                     f"not engage ({moved})")
+            rec = {"rows": want.num_rows, "one_card_ms": one_ms,
+                   "one_card_syncs": one_syncs,
+                   "one_card_peak_mib": one_peak / 2**20, "mesh_ms": mesh_ms,
+                   "mesh_syncs": mesh_syncs, "mesh_peak_mib": mesh_peak / 2**20,
+                   "stats": moved, "launches": counts, "checked": nchk}
+            report["statements"][name] = rec
+            log(f"# mesh {name}: rows={want.num_rows} wall_ms one card "
+                f"{one_ms:.2f} / mesh {mesh_ms:.2f} (second runs); syncs "
+                f"{one_syncs} / {mesh_syncs}; peak_mib {one_peak / 2**20:.1f} / "
+                f"{mesh_peak / 2**20:.1f}; stats {json.dumps(moved)}; "
+                f"launches {json.dumps(counts)} checked={nchk}")
+    finally:
+        dv._MESH, dv._MESH_INIT = old
+    idle = [k for k, v in moved_all.items() if not v]
+    if idle:
+        fail(f"mesh: strategies that never engaged: {idle}")
+    for k in ("K2", "K3"):
+        if not p12.get(k):
+            fail(f"mesh: {k} never launched on the sharded path")
+    launches["p12"] = {"gather_chunked": p12.get("K1", 0),
+                       "gather_sorted": p12.get("K2", 0),
+                       "compact_positions": p12.get("K3", 0)}
+    report["launches"] = p12
+    report["stats"] = moved_all
+    report["seconds"] = time.perf_counter() - t_phase
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "mesh_phase.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"# p12 launches (K1, K2, K3 over phase 12, each call checked): "
+        f"{json.dumps(p12)}; stats {json.dumps(moved_all)}")
+    log(f"# mesh: phase 12 took {report['seconds']:.1f}s ({smi_line}; "
+        f"{MESH_POSITIONS} positions on one card, shuffle_min_rows "
+        f"{SHUFFLE_MIN_ROWS.get()})")
+
+
+def freeze_heap() -> None:
+    """Collect, then move every object the process holds into the cyclic
+    garbage collector's permanent generation (gc.freeze), so that a
+    generation-2 collection during the timed runs after it scans only
+    what they made. The process holds some 400,000 tracked objects by
+    phase 10 (the tables, the sessions, the rows kept to compare), and a
+    collection over all of them took 213-238 ms on the card's host: one
+    landing inside a timed run was C5's spike."""
+    gc.collect()
+    gc.freeze()
+
+
+class GcPauses:
+    """Within the block: the ms the cyclic garbage collector ran and its
+    collections by generation (gc.callbacks)."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self.by_gen = [0, 0, 0]
+        self._t0 = 0.0
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.by_gen[info["generation"]] += 1
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+
 def front_and_execution(torch, session, sql) -> tuple:
-    """(ms to parse, bind and optimize, ms to execute and format the rows)
-    of one run: Session.prepare, then Session.execute_prepared."""
+    """(ms to parse, bind and optimize, ms to execute and format the rows,
+    ms of garbage collection in the execution, its generation-2
+    collections, the execution's compilestats delta and the process's CPU
+    ms in it) of one run: Session.prepare, then Session.execute_prepared."""
+    from lingodb_tpu_torch.utils import compilestats
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prepared = session.prepare(sql)
     t1 = time.perf_counter()
-    session.execute_prepared(prepared).format_rows()
-    torch.cuda.synchronize()
+    cs0 = compilestats.snapshot()
+    cpu0 = time.process_time()
+    with GcPauses() as pauses:
+        session.execute_prepared(prepared).format_rows()
+        torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    d = compilestats.delta(cs0)
+    counts = {k: d[k] for k in ("captures", "replays", "calibrations",
+                                "uploads", "evictions")}
+    counts["cpu_ms"] = round((time.process_time() - cpu0) * 1e3, 2)
+    return ((t1 - t0) * 1e3, (t2 - t1) * 1e3, pauses.ms, pauses.by_gen[2],
+            counts)
 
 
 def main() -> int:
@@ -2343,6 +2614,11 @@ def main() -> int:
     # ---- phase 11: UDFs, the CLI, the sqlite3 oracle, the runner, TPC-DS
     tools_phase(torch, pg, ldb, ex, gpu_profile, gpu, cpu, tables, args,
                 launches)
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 12")
+    # ---- phase 12: the sharded operators over a mesh of 8 positions
+    mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line,
+               {q: open(f"queries/tpch/{q}.sql").read() for q in MESH_QUERIES})
 
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",

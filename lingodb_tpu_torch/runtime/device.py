@@ -24,12 +24,54 @@ from .vtable import SCol, VTable, is_obj
 
 SMALL_ROWS = 8192
 
+_MESH = None
+_MESH_INIT = False
+
 
 def get_mesh():
-    """Multi-device mesh for the sharded operators. The scale-out slice is
-    not ported yet (ROADMAP queue A): always None, so every operator takes
-    its single-device path."""
-    return None
+    """The data-parallel mesh of the sharded operators (parallel/mesh.py):
+    every CUDA device, host-major, when there are at least two; None on
+    one card, on the CPU, or when system.parallelism is OFF (the
+    reference's scheduler worker count from LINGODB_PARALLELISM). With
+    LINGODB_COORDINATOR and LINGODB_NUM_PROCESSES set it first joins the
+    process group (parallel/multihost.py) and the mesh spans every
+    process's cards. Decided once a process; tests and chip_smoke.py set
+    `_MESH` (and `_MESH_INIT`) themselves, as the reference's tests do, to
+    run the sharded operators over a mesh whose positions repeat one
+    device."""
+    global _MESH, _MESH_INIT
+    if _MESH_INIT:
+        return _MESH
+    _MESH_INIT = True
+    from ..utils.settings import get_setting
+
+    if str(get_setting("system.parallelism")).upper() == "OFF":
+        return None
+    if not torch.cuda.is_available():
+        return None
+    from ..parallel import multihost as mh
+    from ..parallel.mesh import Mesh
+
+    spans = mh.initialize(device_type="cuda")
+    local = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    descs = mh.global_descriptors(local)
+    if len(descs) < 2:
+        return None
+    group = None
+    if spans:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+    _MESH = Mesh(descs, "dp", group=group)
+    return _MESH
+
+
+def shard_column(arr, mesh):
+    """Row-shard a column over the mesh, padding to a multiple of the axis
+    size. Returns (Sharded, original_rows)."""
+    from ..parallel.mesh import shard_rows
+
+    return shard_rows(mesh, arr), int(arr.shape[0])
 
 
 def resolve_device(device=None) -> torch.device:

@@ -23,9 +23,12 @@ system.capstore_dir set, across processes (utils/capstore.py). Where a
 program declines, the EAGER operators below run: one operator at a time,
 each materializing its result. An aggregate over a scan larger than
 system.device_byte_budget streams the table through the card in chunks
-(`_try_chunked_agg`, runtime/chunked.py). The JAX package also has sharded
-mesh operators; here those exist as methods that always decline (return
-None) until they are ported -- see ROADMAP.md, queue A9.
+(`_try_chunked_agg`, runtime/chunked.py). The sharded mesh operators
+(`_try_sharded_join`, `_try_sharded_agg`, `_try_distributed_sort`, over
+parallel/shuffle.py) take the large joins, groupings and sorts when
+runtime/device.get_mesh() gives a mesh; there the fused chain and the
+large-domain fused aggregate decline, and scans defer their compaction to
+a selection vector (VTable.row_valid).
 """
 
 from __future__ import annotations
@@ -542,18 +545,395 @@ class Executor:
         res = {"lanes": acc, "extras": (), "step_counts": (), "oob": None}
         return self._finish_fused_dense(op, res, meta)
 
-    # ------------------------------------------ paths that are not ported yet
-    # Each declines, as the reference's own versions may, and the eager
-    # operator then runs (ROADMAP.md queue A9).
-    def _try_sharded_agg(self, op, vt) -> Optional[VTable]:
-        return None
+    # ------------------------------------------------- distributed shuffle
+    # The sharded operators (parallel/shuffle.py) over the device mesh
+    # (runtime/device.get_mesh). Base tables stay whole on the session's
+    # device: an operator enters the mesh at its inputs (shard_put of what
+    # it is given) and leaves it as a VTable on the session's device, in
+    # the padded exchanged layout, with a selection vector where the
+    # reference keeps its result lazy (_lazy_ok).
+    def _lazy_ok(self, n: int) -> bool:
+        """Whether a selection-vector (deferred-compaction) result is
+        worthwhile: only on an active mesh at exchange-scale row counts."""
+        from . import device as dv
+        from ..utils.settings import get_setting
 
-    def _try_sharded_join(self, op, kind, lvt, rvt, lk, rk,
-                          null_safe) -> Optional[VTable]:
-        return None
+        if self._mode == "DEBUG":
+            return False
+        return (dv.get_mesh() is not None
+                and n >= int(get_setting("system.shuffle_min_rows")))
 
-    def _try_distributed_sort(self, op, vt) -> Optional[VTable]:
-        return None
+    def _leave_mesh(self, arrays: list) -> list:
+        """Sharded values as global tensors on the session's device."""
+        from ..parallel import mesh as msh
+
+        return [msh.gather(a, self.session.device) for a in arrays]
+
+    def _try_distributed_sort(self, op: L.Sort, vt: VTable) -> Optional[VTable]:
+        """Distributed sample sort over the mesh: range-partition by sampled
+        lexicographic splitters, sort locally per shard (parallel/shuffle.py
+        sample_sort; the reference engine's parallel merge sort), in place
+        of the whole-table sort for large inputs."""
+        from . import device as dv
+        from ..parallel import shuffle as sh
+        from ..utils.settings import get_setting
+
+        mesh = dv.get_mesh()
+        n = vt.num_rows
+        if mesh is None or n < int(get_setting("system.shuffle_min_rows")):
+            return None
+        if any(is_obj(vt.col(k.cid).data) for k in op.keys):
+            return None  # wide-decimal SORT KEYS have no device order image
+            # (object payload columns ship as int64 limbs)
+        dev = self.session.device
+        key_cols = [(vt.col(k.cid), k.ascending, k.nulls_first)
+                    for k in op.keys]
+        operands = [_on(o, dev, n) for o in keymod.sort_operands(key_cols)]
+        # the original row index: the stability tiebreak, and it makes
+        # splitter tuples unique, which keeps duplicate-heavy key ranges
+        # balanced
+        operands.append(torch.arange(n, dtype=torch.int64, device=dev))
+        try:
+            layout, arrays = _flatten_vt(vt)
+        except _WideShip:
+            return None
+        arrays = [_on(a, dev, n) for a in arrays]
+        valid, out, _cap = sh.sample_sort(mesh, operands, arrays)
+        valid = self._leave_mesh([valid])[0]
+        total = int(valid.sum())
+        if total != n:
+            raise ExecError(
+                f"distributed sort row mismatch: {total} of {n} rows routed")
+        glen = int(valid.shape[0])
+        sorted_vt = _rebuild_vt(vt, layout,
+                                self._leave_mesh(out[len(operands):]), glen)
+        return VTable(sorted_vt.cols, glen, row_valid=valid).dense()
+
+    def _try_sharded_join(self, op, kind, lvt, rvt, lk, rk, null_safe):
+        """Shuffle join over the device mesh: hash-partition BOTH sides by
+        the join key (all-to-all with exact capacities), then join locally
+        per shard; no side is replicated (LingoDB's parallel hash-join state
+        partitioning, ParallelizePass.cpp:34-97). Returns None when no mesh
+        is active or either side is below system.shuffle_min_rows."""
+        from . import device as dv
+        from ..ops import hashing
+        from ..parallel import shuffle as sh
+        from ..utils.settings import get_setting
+
+        mesh = dv.get_mesh()
+        if mesh is None:
+            return None
+        nl, nr = lvt.num_rows, rvt.num_rows
+        if min(nl, nr) < int(get_setting("system.shuffle_min_rows")):
+            return None
+        dev = self.session.device
+        if not null_safe:
+            null_safe = (False,) * len(lk)
+        # probe = left, build = right; NULL keys as in join.candidate_pairs
+        # (strict keys never match; null-safe keys share the NULL hash)
+        hp = _on(hashing.hash_columns(lk), dev, nl)
+        hb = _on(hashing.hash_columns(rk), dev, nr)
+        strict_p = [c for c, ns in zip(lk, null_safe) if not ns]
+        strict_b = [c for c, ns in zip(rk, null_safe) if not ns]
+        pko = joinops._all_valid(strict_p, nl)
+        bko = joinops._all_valid(strict_b, nr)
+        if bko is not None:
+            hb = torch.where(_on(bko, dev, nr), hb,
+                             torch.full_like(hb, sh._U64_MAX))
+        pko = (torch.ones((nl,), dtype=torch.bool, device=dev) if pko is None
+               else _on(pko, dev, nl))
+        try:
+            playout, parrs = _flatten_vt(lvt)
+            blayout, barrs = _flatten_vt(rvt)
+        except _WideShip:
+            return None
+        parrs = [_on(a, dev, nl) for a in parrs]
+        barrs = [_on(a, dev, nr) for a in barrs]
+        n_ax = mesh.size
+        dest_p = sh.hash_dest(mesh, hp)
+        dest_b = sh.hash_dest(mesh, hb)
+        # selection vectors ride straight into the exchange: dead rows are
+        # dropped while packing
+        valid_b = None if rvt.row_valid is None else _on(rvt.row_valid, dev, nr)
+        valid_p = None if lvt.row_valid is None else _on(lvt.row_valid, dev, nl)
+        # sampled heavy-hitter split: when one shard would receive far more
+        # probe rows than the mean, keys sampled as hot keep their probe
+        # rows local and have their build rows replicated to every shard
+        # (LingoDB's morsel work stealing rebalances such skew). Not for
+        # FULL joins: replicated build rows would emit their unmatched
+        # NULL-extended row once a shard. The sample reads live rows only
+        # (the reference's also reads dead rows' hashes).
+        skewf = float(get_setting("system.shuffle_skew_factor"))
+        probe_split = False
+        recv = sh.dest_counts(mesh, dest_p, valid_p).sum(axis=0)
+        if kind != "full" and recv.max() > skewf * max(float(recv.mean()), 1.0):
+            heavy = _heavy_hitters(hp, valid_p, n_ax)
+            if heavy.numel():
+                sh.STATS["skew_splits"] += 1
+                probe_split = True
+                heavy_p = torch.isin(hp, heavy)
+                l1 = (nl + ((-nl) % n_ax)) // n_ax
+                stay = (torch.arange(nl, device=dev) // l1).to(torch.int32)
+                dest_p = torch.where(heavy_p, stay, dest_p)
+                heavy_b = torch.isin(hb, heavy)
+                nh = int(heavy_b.sum())
+                if nh:
+                    rep = torch.nonzero(heavy_b).reshape(-1).repeat(n_ax)
+                    hb = torch.cat([hb, hb[rep]])
+                    barrs = [torch.cat([a, a[rep]]) for a in barrs]
+                    dest_b = torch.cat([dest_b, torch.repeat_interleave(
+                        torch.arange(n_ax, dtype=torch.int32, device=dev), nh)])
+                    vb0 = (torch.ones((nr,), dtype=torch.bool, device=dev)
+                           if valid_b is None else valid_b)
+                    valid_b = torch.cat([vb0 & ~heavy_b, vb0[rep]])
+        # build-side heavy hitters (inner only): one hot build key would land
+        # all its rows on one shard. The probe split with roles swapped: hot
+        # build rows stay spread by position and the probe rows of those
+        # keys replicate to every shard, so each (probe, build) pair still
+        # forms on exactly one shard. Kinds that emit one row per probe row
+        # cannot replicate probe rows, and the probe split above already
+        # covers keys hot on both sides.
+        if kind == "inner" and not probe_split:
+            recv_b = sh.dest_counts(mesh, dest_b, valid_b).sum(axis=0)
+            if recv_b.max() > skewf * max(float(recv_b.mean()), 1.0):
+                heavy = _heavy_hitters(hb, valid_b, n_ax)
+                heavy = heavy[heavy != sh._U64_MAX]
+                if heavy.numel():
+                    sh.STATS["skew_splits"] += 1
+                    heavy_b = torch.isin(hb, heavy)
+                    l1 = (nr + ((-nr) % n_ax)) // n_ax
+                    stay_b = (torch.arange(nr, device=dev) // l1).to(torch.int32)
+                    dest_b = torch.where(heavy_b, stay_b, dest_b)
+                    heavy_p = torch.isin(hp, heavy)
+                    nph = int(heavy_p.sum())
+                    if nph:
+                        rep = torch.nonzero(heavy_p).reshape(-1).repeat(n_ax)
+                        hp = torch.cat([hp, hp[rep]])
+                        pko = torch.cat([pko, pko[rep]])
+                        parrs = [torch.cat([a, a[rep]]) for a in parrs]
+                        dest_p = torch.cat([dest_p, torch.repeat_interleave(
+                            torch.arange(n_ax, dtype=torch.int32, device=dev),
+                            nph)])
+                        vp0 = (torch.ones((nl,), dtype=torch.bool, device=dev)
+                               if valid_p is None else valid_p)
+                        valid_p = torch.cat([vp0 & ~heavy_p, vp0[rep]])
+        pv_ex, pouts, lp = sh.exchange(mesh, dest_p, [hp, pko] + parrs, valid_p)
+        bv_ex, bouts, lb = sh.exchange(mesh, dest_b, [hb] + barrs, valid_b)
+        pair_valid, probe_idx, build_idx, bpair, ppair, cap_out, total = \
+            sh.join_pairs(mesh, bouts[0], bv_ex, pouts[0], pv_ex & pouts[1],
+                          bouts[1:], pouts[2:])
+        glen = n_ax * cap_out
+        build_pair = _rebuild_vt(rvt, blayout, self._leave_mesh(bpair), glen)
+        probe_pair = _rebuild_vt(lvt, playout, self._leave_mesh(ppair), glen)
+        pair_valid = self._leave_mesh([pair_valid])[0]
+        # the full predicate over the (padded) pairs is elementwise
+        if op.predicate is not None and total > 0:
+            env = {**build_pair.cols, **probe_pair.cols}
+            m = sc.truth_mask(sc.eval_expr(op.predicate, env))
+            pair_ok = pair_valid & be.like(jnp.broadcast_to(m, (glen,)),
+                                           pair_valid)
+        else:
+            pair_ok = pair_valid
+        if kind == "inner":
+            out = VTable({**probe_pair.cols, **build_pair.cols}, glen,
+                         row_valid=pair_ok)
+            return out if self._lazy_ok(glen) else out.dense()
+        plen = n_ax * lp
+        probe_ex = _rebuild_vt(lvt, playout, self._leave_mesh(pouts[2:]), plen)
+        pv_g = self._leave_mesh([pv_ex])[0]
+        flags = self._leave_mesh(
+            [sh.probe_flags(mesh, pair_ok, probe_idx, lp)])[0]
+        if kind in ("semi", "anti"):
+            keep = (flags if kind == "semi" else ~flags) & pv_g
+            out = VTable(probe_ex.cols, plen, row_valid=keep)
+            return out if self._lazy_ok(plen) else out.dense()
+        if kind == "mark":
+            cols = dict(probe_ex.cols)
+            cols[op.mark_col.cid] = SCol(op.mark_col.type, flags, None)
+            out = VTable(cols, plen, row_valid=pv_g)
+            return out if self._lazy_ok(plen) else out.dense()
+        if kind == "single":
+            # at most one build match per probe row (a scalar subquery):
+            # the first passing pair's build payload per exchanged probe
+            # row, NULL where there is none (one output row per left row)
+            found, picked = sh.single_pick(mesh, pair_ok, probe_idx, lp, bpair)
+            found = self._leave_mesh([found])[0]
+            right_vt = _rebuild_vt(rvt, blayout, self._leave_mesh(picked), plen)
+            cols = dict(probe_ex.cols)
+            for c in op.right.output_cols():
+                scol = right_vt.col(c.cid)
+                f = be.to_host(found) if is_obj(scol.data) else found
+                v = f if scol.valid is None else (scol.valid & f)
+                cols[c.cid] = SCol(scol.type.as_nullable(), scol.data, v,
+                                   scol.dictionary)
+            return VTable(cols, plen).select_mask(pv_g)
+        # left/full join: matched pairs + unmatched probe rows with NULL right
+        # cols (+ for full: unmatched build rows with NULL left cols)
+        inner = VTable({**probe_pair.cols, **build_pair.cols},
+                       glen).select_mask(pair_ok)
+        unmatched = probe_ex.select_mask(~flags & pv_g)
+        parts = [inner]
+        if unmatched.num_rows:
+            cols = dict(unmatched.cols)
+            for c in op.right.output_cols():
+                cols[c.cid] = _null_scol(rvt.col(c.cid), unmatched.num_rows)
+            parts.append(VTable(cols, unmatched.num_rows))
+        if kind == "full":
+            blen = n_ax * lb
+            bflags = self._leave_mesh(
+                [sh.probe_flags(mesh, pair_ok, build_idx, lb)])[0]
+            build_ex = _rebuild_vt(rvt, blayout, self._leave_mesh(bouts[1:]),
+                                   blen)
+            bv_g = self._leave_mesh([bv_ex])[0]
+            un_b = build_ex.select_mask(~bflags & bv_g)
+            if un_b.num_rows:
+                cols = {cid: _null_scol(lvt.col(cid), un_b.num_rows)
+                        for cid in lvt.cols}
+                for c in op.right.output_cols():
+                    cols[c.cid] = un_b.col(c.cid)
+                parts.append(VTable(cols, un_b.num_rows))
+        out = parts[0]
+        for p in parts[1:]:
+            out = _vconcat(out, p, op.output_cols())
+        return out
+
+    _SHARDED_AGG_FNS = {"sum", "count", "count_star", "min", "max"}
+
+    def _try_sharded_agg(self, op: L.Aggregate, vt: VTable) -> Optional[VTable]:
+        """Large-domain distributed aggregation: repartition rows by group-
+        key hash and group locally per shard. Every group lands on exactly
+        one shard, so the local result is final (LingoDB's partitioned
+        PreAggregationHashtable merge). Dense small domains decline (the
+        single-device grouping serves them)."""
+        from . import device as dv
+        from ..ops import hashing
+        from ..parallel import shuffle as sh
+        from ..utils.settings import get_setting
+
+        mesh = dv.get_mesh()
+        if mesh is None or not op.group_by:
+            return None
+        n = vt.num_rows
+        if n < int(get_setting("system.shuffle_min_rows")):
+            return None
+        has_distinct = False
+        for spec in op.aggs:
+            if spec.fn not in self._SHARDED_AGG_FNS:
+                return None
+            arg = None if spec.arg is None else vt.col(spec.arg)
+            if arg is not None and is_obj(arg.data):
+                return None  # wide-decimal arguments stay on the local path
+            if spec.distinct:
+                if spec.fn == "count_star":
+                    return None
+                has_distinct = True
+        key_cols = [vt.col(c) for c in op.group_by]
+        if gb.dense_gid(key_cols)[0] is not None:
+            return None  # a small dense domain: the local grouping is cheaper
+        try:
+            rep_layout, rep_arrays = _flatten_vt(
+                VTable({c.cid: vt.col(c.cid) for c in op.group_cols}, n))
+        except _WideShip:
+            return None
+        dev = self.session.device
+        imgs = [_on(x, dev, n) for x in keymod.grouping_images(key_cols)]
+        h = _on(hashing.hash_columns(key_cols), dev, n)
+        rep_arrays = [_on(a, dev, n) for a in rep_arrays]
+        ones = torch.ones((n,), dtype=torch.bool, device=dev)
+        aggs_in = []  # (kind, [arrays], valid)
+        for spec in op.aggs:
+            arg = None if spec.arg is None else vt.col(spec.arg)
+            av = ones if arg is None or arg.valid is None else _on(arg.valid, dev, n)
+            out_dt = np_dtype(spec.out.type)
+            if spec.distinct and spec.fn in ("count", "sum"):
+                aimgs = [_on(x, dev, n) for x in keymod.grouping_images([arg])]
+                if spec.fn == "count":
+                    aggs_in.append(("cdist", aimgs, av))
+                else:
+                    vals = be.astype(_on(arg.data, dev, n), out_dt)
+                    aggs_in.append(("sdist", aimgs + [vals], av))
+            elif spec.fn in ("count", "count_star"):
+                aggs_in.append(("count", [torch.ones((n,), dtype=torch.int64,
+                                                     device=dev)], av))
+            elif spec.fn == "sum":
+                vals = be.astype(_on(arg.data, dev, n), out_dt)
+                aggs_in.append(("sum", [vals], av))
+            else:  # min / max (DISTINCT is a no-op for them)
+                aggs_in.append((spec.fn, [_on(arg.data, dev, n)], av))
+        row_valid = None if vt.row_valid is None else _on(vt.row_valid, dev, n)
+        ni, nr_ = len(imgs), len(rep_arrays)
+        if has_distinct:
+            # distinct aggregates cannot pre-combine: ship the raw rows keyed
+            # by group hash; after the exchange every group lives wholly on
+            # one shard and the local distinct grouping is exact
+            flat_in = []
+            for _k, arrs, m in aggs_in:
+                flat_in.extend(arrs)
+                flat_in.append(m)
+            ex_valid, outs, _lp = sh.exchange(
+                mesh, sh.hash_dest(mesh, h), imgs + rep_arrays + flat_in,
+                row_valid)
+            pos = ni + nr_
+            flat_ex = []
+            for k, arrs, _m in aggs_in:
+                na = len(arrs)
+                flat_ex.append((k, list(outs[pos:pos + na]), outs[pos + na]))
+                pos += na + 1
+            gvalid, reps_out, agg_out = sh.grouped_reduce(
+                mesh, ex_valid, outs[:ni], outs[ni:ni + nr_], flat_ex)
+            final = [(agg_out[i][0],
+                      None if aggs_in[i][0] in ("count", "cdist")
+                      else agg_out[i][1])
+                     for i in range(len(op.aggs))]
+        else:
+            # round 1: local pre-aggregation on the rows' own sharding (the
+            # thread-local combiner): the exchange then moves local groups,
+            # not rows, which also makes it skew-proof
+            v1 = ones if row_valid is None else row_valid
+            gv1, reps_o1, agg_o1 = sh.grouped_reduce(
+                mesh, v1, imgs, [h] + imgs + rep_arrays, aggs_in)
+            h1 = reps_o1[0]
+            imgs_p = reps_o1[1:1 + ni]
+            reps_p = reps_o1[1 + ni:]
+            # round 2: exchange the partial groups by key hash, group again
+            aggs2 = []  # parallel to op.aggs: (main_idx, cnt_idx or None)
+            flat2 = []
+            for (k, _arrs, _m), res in zip(aggs_in, agg_o1):
+                if k == "count":
+                    aggs2.append((len(flat2), None))
+                    flat2.append(("sum", [res[0]], gv1))
+                else:
+                    val, cnt = res
+                    aggs2.append((len(flat2), len(flat2) + 1))
+                    flat2.append((k, [val], gv1 & (cnt > 0)))
+                    flat2.append(("sum", [cnt], gv1))
+            arrays2 = list(imgs_p) + list(reps_p) + [
+                a for _k, arrs, m in flat2 for a in (arrs[0], m)]
+            ex_valid, outs, _lp = sh.exchange(mesh, sh.hash_dest(mesh, h1),
+                                              arrays2, gv1)
+            flat2_ex = [(k, [outs[ni + nr_ + 2 * i]], outs[ni + nr_ + 2 * i + 1])
+                        for i, (k, _arrs, _m) in enumerate(flat2)]
+            gvalid, reps_out, agg_out = sh.grouped_reduce(
+                mesh, ex_valid, outs[:ni], outs[ni:ni + nr_], flat2_ex)
+            final = [(agg_out[mi][0], None if ci is None else agg_out[ci][0])
+                     for mi, ci in aggs2]
+        gvalid = self._leave_mesh([gvalid])[0]
+        glen = int(gvalid.shape[0])
+        cols = dict(_rebuild_vt(vt, rep_layout, self._leave_mesh(reps_out),
+                                glen).cols)
+        for spec, (val, cnt) in zip(op.aggs, final):
+            val = self._leave_mesh([val])[0]
+            if cnt is None:  # count / count distinct: 0 on empty, never NULL
+                cols[spec.out.cid] = SCol(spec.out.type, val, None)
+                continue
+            cnt = self._leave_mesh([cnt])[0]
+            if np_dtype(spec.out.type) == np.bool_:
+                val = val > 0
+            arg = None if spec.arg is None else vt.col(spec.arg)
+            dic = arg.dictionary if spec.fn in ("min", "max") else None
+            cols[spec.out.cid] = SCol(spec.out.type, val, cnt > 0, dic)
+        out = VTable(cols, glen, row_valid=gvalid)
+        return out if self._lazy_ok(glen) else out.dense()
 
     # ------------------------------------------------------------- leaves
     def _run_scan(self, op: L.Scan) -> VTable:
@@ -573,6 +953,10 @@ class Executor:
                 sc.truth_mask(sc.eval_expr(r, vt.cols)), (n,))
             mask = m if mask is None else mask & m
         if mask is not None:
+            # on a mesh, compaction is deferred to a selection vector: the
+            # next keyed exchange drops dead rows for free (VTable.row_valid)
+            if self._lazy_ok(n):
+                return VTable(cols, n, row_valid=mask)
             vt = vt.select_mask(mask)
         return vt
 
@@ -1141,6 +1525,21 @@ class Executor:
         if any(a.fn not in ("sum", "count", "count_star", "min", "max",
                             "any_value") for a in op.aggs):
             return None
+        # mesh scale-out: a large-domain group-by repartitions by key over
+        # the mesh (the sharded path) instead of the fused program's one
+        # sorted grouping. Dense-domain keys (dictionary strings, bools)
+        # keep the fused program.
+        if dv.get_mesh() is not None and op.group_by:
+            from ..utils.settings import get_setting
+
+            types = {c.cid: c.type for c in op.child.output_cols()}
+            dense = all(
+                types[cid].is_string or types[cid].kind == K.BOOL
+                for cid in op.group_by if cid in types
+            )
+            if (not dense and self._subtree_max_rows(op.child)
+                    >= int(get_setting("system.shuffle_min_rows"))):
+                return None
         steps, cur = self._walk_spine(op.child)
         if _udf_in_exprs(_program_exprs(
                 steps, {}, cur.restrictions if isinstance(cur, L.Scan)
@@ -2007,8 +2406,8 @@ class Executor:
         def _ret(vt, applied):
             return (vt, applied) if want_pair else vt
 
-        # (the reference declines under a device mesh; the port runs on one
-        # card: ROADMAP A9)
+        if dv.get_mesh() is not None:
+            return None  # mesh execution routes through the sharded paths
         if self._in_fused_chain or _has_iterref(op):
             return None
         steps, cur = self._walk_spine(op)
@@ -2368,9 +2767,9 @@ class Executor:
         if not lkeys:
             lvt, rvt = lvt.dense(), rvt.dense()
             nl, nr = lvt.num_rows, rvt.num_rows
-            # no equi keys: nested loop via cross-product pairs; the pair
-            # buffers are bounded by 2^26 (larger inputs need the blockwise
-            # nested loop, which is not ported yet)
+            # no equi keys: nested loop via cross-product pairs; larger
+            # inputs go through the blockwise nested loop, so that the
+            # pair buffers never exceed 2^26
             if nl * nr > (1 << 26):
                 return self._chunked_nonequi_join(op, kind, lvt, rvt)
             pidx, bidx, total = _all_pairs(nl, nr, _first_tensor(lvt, rvt))
@@ -2392,6 +2791,8 @@ class Executor:
                 sharded = self._try_sharded_join(op, kind, lvt, rvt, lk, rk,
                                                  null_safe)
                 if sharded is not None:
+                    self._perf_note(f"join strategy=sharded kind={kind} "
+                                    f"nl={nl} nr={nr}")
                     return sharded
             if lvt.row_valid is not None or rvt.row_valid is not None:
                 # non-sharded strategies index dense layouts
@@ -2967,6 +3368,101 @@ def _empty_like(c: SCol) -> SCol:
 def _empty_scol(t: Type, ref=None) -> SCol:
     return SCol(t, be.full(0, 0, np_dtype(t), ref), None,
                 np.zeros(0, dtype=object) if t.is_string else None)
+
+
+def _on(x, device, n: int) -> torch.Tensor:
+    """A global column (a tensor, or a host array: uint64 hashes travel as
+    their int64 bit patterns) as an n-row tensor on `device`, the form the
+    mesh's shard_put splits into shards."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        if not (a.flags.writeable and a.flags.c_contiguous):
+            a = np.array(a)
+        x = torch.from_numpy(a)
+    x = x.to(device)
+    if tuple(x.shape) != (n,):
+        x = x.broadcast_to((n,)).contiguous()
+    return x
+
+
+def _heavy_hitters(h: torch.Tensor, valid, n_ax: int) -> torch.Tensor:
+    """The hashes that take more than 1 / (2 n_ax) of a sample of h's live
+    rows (every max(1, rows / 2^16)-th row): the keys a skewed join splits.
+    The sample skips dead rows, which the reference's sample reads."""
+    step = max(1, int(h.shape[0]) // (1 << 16))
+    samp = h[::step]
+    if valid is not None:
+        samp = samp[valid[::step]]
+    samp = be.to_host(samp)
+    if samp.size == 0:
+        return h[:0]
+    vals_u, cnts_u = np.unique(samp, return_counts=True)
+    heavy = vals_u[cnts_u / samp.size > 1.0 / (2 * n_ax)]
+    return torch.from_numpy(np.ascontiguousarray(heavy)).to(h.device)
+
+
+class _WideShip(Exception):
+    """A wide-decimal value beyond 127 bits cannot limb-split for the mesh
+    exchange; callers fall back to the single-device path."""
+
+
+def _obj_to_limbs(a: np.ndarray):
+    """Host object array of Python ints -> (hi, lo) int64 limb arrays that
+    CAN ship over the mesh (the reference's full i128 range; SQL
+    decimal(38) needs 127 bits)."""
+    try:
+        hi = np.array([int(x) >> 64 for x in a], dtype=np.int64)
+    except OverflowError as e:
+        raise _WideShip() from e
+    lo = np.array([int(x) & 0xFFFFFFFFFFFFFFFF for x in a],
+                  dtype=np.uint64).view(np.int64)
+    return hi, lo
+
+
+def _limbs_to_obj(hi, lo) -> np.ndarray:
+    hi = be.to_host(hi).astype(np.int64)
+    lo = be.to_host(lo).astype(np.int64).view(np.uint64)
+    return np.array([(int(h) << 64) | int(lw) for h, lw in zip(hi, lo)],
+                    dtype=np.object_)
+
+
+def _flatten_vt(vt: VTable):
+    """VTable -> (layout, flat array list) for the shuffle exchange; rebuild
+    with _rebuild_vt from the same layout. Wide-decimal object columns
+    (host Python ints) limb-split into two int64 arrays so that they can
+    ship; raises _WideShip when a value exceeds 127 bits."""
+    layout, arrays = [], []
+    for cid, c in vt.cols.items():
+        wide = is_obj(c.data)
+        layout.append((cid, c.valid is not None, wide))
+        if wide:
+            arrays.extend(_obj_to_limbs(c.data))
+        else:
+            arrays.append(c.data)
+        if c.valid is not None:
+            arrays.append(c.valid)
+    return layout, arrays
+
+
+def _rebuild_vt(src: VTable, layout, arrays, n: int) -> VTable:
+    cols = {}
+    i = 0
+    for cid, hasv, wide in layout:
+        t = src.cols[cid]
+        if wide:
+            data = _limbs_to_obj(arrays[i], arrays[i + 1])
+            i += 2
+        else:
+            data = arrays[i]
+            i += 1
+        valid = None
+        if hasv:
+            valid = be.to_host(arrays[i]) if wide else arrays[i]
+            i += 1
+        cols[cid] = SCol(t.type, data, valid, t.dictionary)
+    return VTable(cols, n)
 
 
 def _vconcat(a: VTable, b: VTable, out_cols) -> VTable:

@@ -162,10 +162,11 @@ class SCol:
 class VTable:
     """Intermediate relational result: cid -> SCol, all of equal length.
 
-    row_valid is an optional selection vector (True = live row). The
-    reference's mesh path defers compaction with it; this port has no mesh
-    yet (runtime/device.get_mesh), so nothing sets it, but every operator
-    that needs a dense table still calls .dense()."""
+    row_valid is an optional selection vector (True = live row): on a
+    device mesh (runtime/device.get_mesh) scans, Select, Map and the
+    sharded join and aggregate defer their compaction with it
+    (Executor._lazy_ok), and the next keyed exchange drops the dead rows
+    for free. Every operator that needs a dense table calls .dense()."""
 
     cols: dict[int, SCol] = field(default_factory=dict)
     num_rows: int = 0
@@ -231,12 +232,33 @@ class VTable:
         return self.take(idx, n, monotone=True)
 
     def merge(self, other: "VTable") -> "VTable":
+        """Columns of both, under self's selection vector. other's must be
+        the same selection: the same object, or equal values (the sharded
+        join hands its sides selection vectors of equal values that are
+        not one object). The reference asserts identity alone."""
         if not (self.num_rows == other.num_rows or not self.cols
                 or not other.cols):
             raise ValueError("merge of VTables with different row counts")
-        if other.row_valid is not None and self.row_valid is not other.row_valid:
+        if not _same_selection(self.row_valid, other.row_valid):
             raise ValueError("merge of VTables with different selection vectors")
         cols = dict(self.cols)
         cols.update(other.cols)
         return VTable(cols, max(self.num_rows, other.num_rows),
                       row_valid=self.row_valid)
+
+
+def _same_selection(mine, theirs) -> bool:
+    """Whether `theirs` selects the rows `mine` does: no selection vector
+    of its own, the same object, or equal values (one comparison, a device
+    sync when they are tensors)."""
+    if theirs is None or mine is theirs:
+        return True
+    if mine is None or tuple(mine.shape) != tuple(theirs.shape):
+        return False
+    if isinstance(mine, torch.Tensor) or isinstance(theirs, torch.Tensor):
+        from ..ops.backend import like
+
+        ref = mine if isinstance(mine, torch.Tensor) else theirs
+        a, b = like(mine, ref).to(ref.device), like(theirs, ref).to(ref.device)
+        return bool(torch.equal(a, b))
+    return bool(np.array_equal(mine, theirs))

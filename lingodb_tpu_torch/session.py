@@ -30,7 +30,7 @@ from .sql import ast as A
 from .sql.binder import Binder, BindError
 from .sql.parser import parse_sql
 from .storage.column import Column
-from .utils import tracer
+from .utils import compilestats, tracer
 from .utils.settings import get_setting
 
 
@@ -409,6 +409,7 @@ class Session:
         with their memory pool, and one-shot materializations. Everything is
         rebuildable; the next query re-uploads what it actually touches and
         captures its program again."""
+        compilestats.add("evictions")
         self.exestore.clear()
         for _version, dev in self._device_cache.values():
             dev.evict()
@@ -514,6 +515,7 @@ class _LazyDeviceTable:
                     c = SCol(col.type, np.ascontiguousarray(col.data),
                              col.valid, col.dictionary)
                 else:
+                    compilestats.add("uploads")
                     try:
                         c = self._upload(col)
                     except torch.cuda.OutOfMemoryError:

@@ -198,7 +198,7 @@ def profile(argv: list[str]) -> int:
     print("== operator profile (self time) ==")
     for name, ms, rows, incl, nbytes, sol in prof:
         print(f"  {name:<14} {ms:9.3f}ms (incl {incl:9.3f})  rows={rows}"
-              f"  bytes={nbytes / 1e6:.1f}MB  sol={sol}x")
+              f"  bytes={nbytes / 1e6:.1f}MB  sol={_sol_text(sol)}")
     print(f"  {'TOTAL':<14} {total:9.3f}ms")
     if pe.supported:
         print("== host counters ==")
@@ -209,6 +209,13 @@ def profile(argv: list[str]) -> int:
     if result is not None:
         print(result.pretty(max_rows=20))
     return 0
+
+
+def _sol_text(sol) -> str:
+    """An operator's speed of light as a multiple ("12.5x"), or "unknown"
+    where PERF mode had no bandwidth to read it against (system.hbm_gbps
+    unset)."""
+    return sol if isinstance(sol, str) else f"{sol}x"
 
 
 TOOLS = {

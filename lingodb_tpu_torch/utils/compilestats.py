@@ -20,6 +20,10 @@ captures and calibrates nothing.
                        the store's stand-in) and the seconds it took
   replays              captured programs replayed
   calibrations         count-only calibration runs of the fused programs
+  uploads              table columns copied to the session's device
+  evictions            times a session dropped its cached device buffers
+                       (an out-of-memory retry, or memory pressure after a
+                       statement: Session._evict_device_memory)
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import threading
 _lock = threading.Lock()
 _stats = {"parses": 0, "optimizations": 0, "builds": 0, "build_secs": 0.0,
           "loads": 0, "captures": 0, "capture_secs": 0.0, "replays": 0,
-          "calibrations": 0}
+          "calibrations": 0, "uploads": 0, "evictions": 0}
 
 
 def add(name: str, value=1) -> None:

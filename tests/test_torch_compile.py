@@ -124,6 +124,33 @@ def test_second_run_builds_nothing(env, q, monkeypatch):
         assert d["replays"] >= 1, d
 
 
+@pytest.mark.parametrize("q", ["11", "16", "21"])
+def test_prepared_path_runs_what_sql_runs(env, q):
+    """C5 (q11, q16 and q21 through prepare + execute_prepared read 5-30x
+    their Session.sql wall on the card, once a run): once a query's
+    programs are captured, execute_prepared replays exactly what
+    Session.sql replays and captures, calibrates, builds, uploads and
+    evicts nothing, and the store keeps the same entries; rows equal."""
+    _rs, carried, _want = env
+    s = _session(carried)
+    for _ in range(3):
+        rows = s.sql(_sql(q)).format_rows()
+    entries = set(s.exestore.entries)
+    before = compilestats.snapshot()
+    assert s.sql(_sql(q)).format_rows() == rows
+    by_sql = compilestats.delta(before)
+    prepared = s.prepare(_sql(q))
+    before = compilestats.snapshot()
+    assert s.execute_prepared(prepared).format_rows() == rows
+    by_prepared = compilestats.delta(before)
+    kept = ("captures", "calibrations", "builds", "uploads", "evictions",
+            "replays")
+    assert {k: by_prepared[k] for k in kept} == {k: by_sql[k] for k in kept}
+    assert by_sql["replays"] >= 1 and not any(
+        by_sql[k] for k in kept if k != "replays"), by_sql
+    assert set(s.exestore.entries) == entries
+
+
 @pytest.mark.parametrize("q", ["3", "18"])
 def test_capstore_carries_capacities_across_sessions(env, store_dir, q):
     """With system.capstore_dir set, a fresh session (a new stage cache, the

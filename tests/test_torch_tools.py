@@ -107,6 +107,33 @@ def test_profile_prints_the_operator_profile(db, tmp_path):
     assert "== host counters" in out
 
 
+def test_profile_prints_sol_unknown_without_a_bandwidth(db, tmp_path):
+    """With system.hbm_gbps unset (its default) each operator's line reads
+    `sol=unknown`, with no multiplier sign; with it set, `sol=<n>x`."""
+    from lingodb_tpu_torch.utils import settings
+
+    def op_lines(out):
+        head = out.index("== operator profile (self time) ==")
+        return [ln for ln in out[head:].splitlines()[1:]
+                if "rows=" in ln and "TOTAL" not in ln]
+
+    settings.SNAPSHOT_DIR.set(str(tmp_path))
+    try:
+        out = _run(cli.main, ["profile", _q("6"), db, "--device", "cpu"])
+        lines = op_lines(out)
+        assert lines and all(ln.endswith("sol=unknown") for ln in lines), lines
+        settings.HBM_GBPS.set(3350)
+        out = _run(cli.main, ["profile", _q("6"), db, "--device", "cpu"])
+        lines = op_lines(out)
+        assert lines and all(ln.endswith("x") and "sol=unknown" not in ln
+                             for ln in lines), lines
+    finally:
+        settings.HBM_GBPS.reset()
+        settings.EXECUTION_MODE.set("DEFAULT")
+        settings.SNAPSHOT_PASSES.set(False)
+        settings.SNAPSHOT_DIR.set(".")
+
+
 def test_artifact_runs_cold_without_parse_optimizer_or_calibration(db, tmp_path):
     """sql-to-artifact packages q3's plan with the capacities its fused
     programs learned; run-artifact in a fresh process gives the same rows
