@@ -179,7 +179,31 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               K2, K3 call of the first meshed run checked bit for bit
               against its plain version (K2 and K3 must launch: VTable.dense
               of the lazy sharded results); wall ms, host syncs and peak
-              device memory of a second run, meshed against one card
+              device memory of a second run, meshed against one card. The
+              base tables are held sharded from their upload (padded, with
+              a pad mask); an operator without a sharded form gathers its
+              input once ("gathers", which must move too: a window function
+              over a filtered lineitem is the fourteenth statement)
+  13. upload  q1 and q6 over tools/tpchbig.py's SF10 lineitem (60M rows,
+              from phase 9's cache) held sharded at upload over the 8
+              positions: the fused aggregate runs position by position (one
+              CUDA graph a position, captured on the first run and replayed
+              on the second) with its lanes reduced across positions, rows
+              equal to the one-card session's resident run; then a TopK over
+              a filtered lineitem, whose input leaves the mesh in one
+              gather. Printed: the bytes of base columns held a position
+              against the whole table, gathers, host syncs, wall ms of a
+              second run and the graph pool's MiB meshed against one card,
+              K1-K3 launches of an uncaptured run (each call checked bit
+              for bit against its plain version)
+  14. processes with two or more cards, two processes of one card each
+              (CUDA_VISIBLE_DEVICES) under NCCL run
+              lingodb_tpu_torch/tools/mesh_procs.py: every mesh and shuffle
+              function over the mesh that spans them against the one-process
+              mesh, shard for shard, and q3, q1, q6 and four statements over
+              sf 0.05 tables, rows equal to the one-process mesh's and the
+              one-card session's on both processes. NCCL takes one card a
+              rank, so on one card this phase says that it did not run
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -2163,6 +2187,14 @@ MESH_STATEMENTS = {
         "where (case when l_linenumber > 1 then 1 else l_orderkey end) = "
         "o_orderkey group by o_custkey order by o_custkey",
         ("joins", "skew_splits")),
+    # not among the JAX package's: a window function over a filtered
+    # lineitem has no sharded form, so the scan's survivors leave the mesh
+    # in one gather (the only statement without an exchange)
+    "window_gather": (
+        "select l_orderkey, l_linenumber, rank() over (order by "
+        "l_extendedprice desc, l_orderkey, l_linenumber) from lineitem where "
+        "l_quantity < 2 and l_discount = 0.1 order by l_orderkey, "
+        "l_linenumber", ("gathers",)),
 }
 
 
@@ -2247,9 +2279,11 @@ def mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line, sqls):
                      f"session's\nmesh={got.format_rows()[:3]}\n"
                      f"one card={want.format_rows()[:3]}")
             missed = [k for k in must if not moved[k]]
-            if missed or not moved["exchanges"]:
-                fail(f"mesh {name}: strategies {missed or ['exchanges']} did "
-                     f"not engage ({moved})")
+            if "gathers" not in must and not moved["exchanges"]:
+                missed.append("exchanges")
+            if missed:
+                fail(f"mesh {name}: strategies {missed} did not engage "
+                     f"({moved})")
             rec = {"rows": want.num_rows, "one_card_ms": one_ms,
                    "one_card_syncs": one_syncs,
                    "one_card_peak_mib": one_peak / 2**20, "mesh_ms": mesh_ms,
@@ -2283,6 +2317,186 @@ def mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line, sqls):
     log(f"# mesh: phase 12 took {report['seconds']:.1f}s ({smi_line}; "
         f"{MESH_POSITIONS} positions on one card, shuffle_min_rows "
         f"{SHUFFLE_MIN_ROWS.get()})")
+
+
+# ---- phase 13: base tables held sharded at upload, the fused aggregate
+# position by position over SF10 lineitem
+UPLOAD_TOPK = ("select l_extendedprice, l_shipdate, l_quantity from lineitem "
+               "where l_quantity < 3 order by l_extendedprice desc, "
+               "l_shipdate, l_quantity limit 20")
+
+
+def held_bytes(dev_t) -> tuple:
+    """(bytes of base columns a position holds, at most; bytes of the same
+    columns whole, as the table stores them) of a _LazyDeviceTable held on
+    the mesh."""
+    import numpy as np
+
+    from lingodb_tpu_torch.parallel.mesh import Sharded
+
+    per_pos, whole = {}, 0
+    for key, c in dev_t._cols.items():
+        parts = [c] if isinstance(c, Sharded) else [c.data, c.valid]
+        for x in parts:
+            if isinstance(x, Sharded):
+                for i, t in enumerate(x.shards):
+                    per_pos[i] = per_pos.get(i, 0) + t.nbytes
+        if key != "__pad_mask__":
+            col = dev_t._storage.column(key)
+            whole += sum(np.asarray(x).nbytes for x in (col.data, col.valid)
+                         if x is not None)
+    return max(per_pos.values(), default=0), whole
+
+
+def upload_phase(torch, pg, ldb, gpu_profile, device, sf, seed, launches,
+                 smi_line):
+    """Phase 13 (see the module docstring)."""
+    from lingodb_tpu_torch.parallel import shuffle as sh
+    from lingodb_tpu_torch.parallel.mesh import Mesh
+    from lingodb_tpu_torch.runtime import device as dv
+    from lingodb_tpu_torch.tools import tpchbig
+    from lingodb_tpu_torch.utils import compilestats
+
+    t_phase = time.perf_counter()
+    table = tpchbig.generate(10 * sf, seed)
+    rows = table.num_rows
+    s = ldb.create_in_memory(device=device)
+    tpchbig.install(s, table)
+    mesh = Mesh([device] * MESH_POSITIONS)
+    freeze_heap()
+    p13: dict = {}
+    report = {"device": smi_line, "rows": rows, "positions": MESH_POSITIONS,
+              "statements": {}}
+    old = dv._MESH, dv._MESH_INIT
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    try:
+        for name, sql in (("q1", open("queries/tpch/1.sql").read()),
+                          ("q6", open("queries/tpch/6.sql").read()),
+                          ("topk_gather", UPLOAD_TOPK)):
+            fused = name != "topk_gather"
+            dv._MESH, dv._MESH_INIT = None, True
+            want = s.sql(sql).format_rows()  # uploads, captures
+            _, one_ms = timed(lambda: s.sql(sql).format_rows())
+            one_syncs, one_peak, _ = gpu_profile.syncs_and_peak(
+                torch, lambda: s.sql(sql).format_rows())
+            pool_one = s.exestore.pool_memory()[0]
+            dv._MESH = mesh
+            # the uncaptured run: every kernel call checked
+            before = dict(sh.STATS)
+            with gpu_profile.uncaptured_path():
+                got, counts, nchk = run_checked(
+                    torch, pg, lambda: s.sql(sql).format_rows())
+            moved = {k: sh.STATS[k] - before[k] for k in sh.STATS}
+            # captured on the first run, replayed on the second
+            caps = []
+            for _run in range(2):
+                c0 = compilestats.snapshot()
+                again = s.sql(sql).format_rows()
+                d = compilestats.delta(c0)
+                caps.append((d["captures"], d["replays"]))
+                if again != want:
+                    fail(f"upload {name}: a captured run's rows differ")
+            again, mesh_ms = timed(lambda: s.sql(sql).format_rows())
+            mesh_syncs, mesh_peak, _ = gpu_profile.syncs_and_peak(
+                torch, lambda: s.sql(sql).format_rows())
+            pool_mesh = s.exestore.pool_memory()[0]
+            dv._MESH = None
+            for k, v in counts.items():
+                p13[k] = p13.get(k, 0) + v
+            if not want or got != want or again != want:
+                fail(f"upload {name}: rows on the mesh differ from the "
+                     f"one-card session's resident run\nmesh={got[:2]}\n"
+                     f"one card={want[:2]}")
+            # (a capture on the card is replayed at once: the first run
+            # also counts its replays)
+            if fused and (caps[0][0] != MESH_POSITIONS
+                          or caps[1] != (0, MESH_POSITIONS)):
+                fail(f"upload {name}: captures / replays {caps}, not one "
+                     f"graph a position captured then replayed")
+            if fused and any(moved.values()):
+                fail(f"upload {name}: the fused aggregate moved {moved}")
+            if not fused and (moved["gathers"] != 1 or not p13.get("K3")):
+                fail(f"upload {name}: gathers {moved['gathers']}, K3 "
+                     f"{p13.get('K3')}: the input did not leave the mesh once "
+                     f"through the positions' compactions")
+            per_pos, whole = held_bytes(s.device_table("lineitem"))
+            rec = {"rows": len(want), "one_card_ms": one_ms,
+                   "mesh_ms": mesh_ms, "one_card_syncs": one_syncs,
+                   "mesh_syncs": mesh_syncs,
+                   "one_card_peak_mib": one_peak / 2**20,
+                   "mesh_peak_mib": mesh_peak / 2**20,
+                   "pool_mib_one_card": pool_one / 2**20,
+                   "pool_mib_after_mesh": pool_mesh / 2**20,
+                   "captures_replays": caps, "stats": moved,
+                   "launches": counts, "checked": nchk,
+                   "held_bytes_a_position": per_pos,
+                   "held_bytes_whole": whole}
+            report["statements"][name] = rec
+            log(f"# upload {name}: rows={len(want)} wall_ms one card "
+                f"{one_ms:.2f} / mesh {mesh_ms:.2f} (second replayed runs); "
+                f"syncs {one_syncs} / {mesh_syncs}; peak_mib "
+                f"{one_peak / 2**20:.1f} / {mesh_peak / 2**20:.1f}; graph "
+                f"pool MiB {pool_one / 2**20:.1f} one card, "
+                f"{pool_mesh / 2**20:.1f} after the mesh's graphs; captures/"
+                f"replays {caps}; gathers {moved['gathers']}; lineitem's "
+                f"base columns held {per_pos} bytes a position against "
+                f"{whole} whole; launches {json.dumps(counts)} "
+                f"checked={nchk}")
+    finally:
+        dv._MESH, dv._MESH_INIT = old
+        s._evict_device_memory()
+        del s, table
+        torch.cuda.empty_cache()
+    launches["p13"] = {"gather_chunked": p13.get("K1", 0),
+                       "gather_sorted": p13.get("K2", 0),
+                       "compact_positions": p13.get("K3", 0)}
+    report["launches"] = p13
+    report["seconds"] = time.perf_counter() - t_phase
+    with open(os.path.join("chiprun_out", "upload_phase.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"# p13 launches (K1, K2, K3 over phase 13, each call checked): "
+        f"{json.dumps(p13)}")
+    log(f"# upload: phase 13 took {report['seconds']:.1f}s ({smi_line}; "
+        f"lineitem {rows} rows over {MESH_POSITIONS} positions on one card)")
+
+
+def processes_phase(torch, smi_line):
+    """Phase 14 (see the module docstring)."""
+    from lingodb_tpu_torch.tools import mesh_procs
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"# processes: NOT RUN: {cards} card; the mesh across processes "
+            f"runs one process a card under NCCL, which takes one card a "
+            f"rank (its CPU form runs in tests/test_torch_multiprocess.py)")
+        return
+    t0 = time.perf_counter()
+    reps = mesh_procs.launch(world=2, positions=1, device="cuda", sf=0.05,
+                             timeout_s=60.0, limit_s=480.0,
+                             out_dir="chiprun_out")
+    for rep in reps:
+        bad = [k for k, v in rep["functions"].items() if not v]
+        if rep["backend"] != "nccl" or bad:
+            fail(f"processes: rank {rep['rank']} backend {rep['backend']}, "
+                 f"functions unequal to the one-process mesh: {bad}")
+        for name, g in rep["sql"].items():
+            if not g["equal"] or not g["rows"]:
+                fail(f"processes: rank {rep['rank']} {name}: rows differ "
+                     f"from the one-process mesh's")
+    for name in reps[0]["sql"]:
+        if len({rep["sql"][name]["digest"] for rep in reps}) != 1:
+            fail(f"processes: {name}: the processes returned other rows")
+    log(f"# processes: 2 processes x 1 card under NCCL: "
+        f"{len(reps[0]['functions'])} functions and "
+        f"{len(reps[0]['sql'])} statements equal to the one-process mesh on "
+        f"both ({time.perf_counter() - t0:.1f}s; {smi_line})")
 
 
 def freeze_heap() -> None:
@@ -2619,6 +2833,15 @@ def main() -> int:
     # ---- phase 12: the sharded operators over a mesh of 8 positions
     mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line,
                {q: open(f"queries/tpch/{q}.sql").read() for q in MESH_QUERIES})
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 13")
+    # ---- phase 13: base tables held sharded at upload, SF10 q1 and q6
+    upload_phase(torch, pg, ldb, gpu_profile, gpu.device, args.sf, args.seed,
+                 launches, smi_line)
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 14")
+    # ---- phase 14: the mesh across processes (two or more cards)
+    processes_phase(torch, smi_line)
 
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",

@@ -18,8 +18,13 @@ the global array. The engine is single-controller, as the reference is: one
 Python thread drives every shard of its process, so the collectives inside
 a process are copies (`.to(device, non_blocking=True)` between devices,
 indexing within one) and need no torch.distributed. A mesh that spans
-processes carries a process group (parallel/multihost.py); its `psum`
-reduces through it, and its all-to-all is not ported (ROADMAP A9-rest).
+processes carries a process group (parallel/multihost.py) and every process
+runs the same statement over the same catalog (SPMD): `psum` and `preduce`
+reduce through the group, `gather` all-gathers every process's shards, and
+`all_to_all` moves the shards' rows in one `all_to_all_single` (the two
+phases of multihost.ExchangePlan: the rows bound for another process leave
+from this process's lead device in one stripe). Each process holds only its
+own positions' shards (`Mesh.local_positions`).
 """
 
 from __future__ import annotations
@@ -120,7 +125,9 @@ def shard_rows(mesh: Mesh, arr, axis: str = "dp") -> Sharded:
     """Shard a row-partitioned column across the mesh, padding with zeros
     to a multiple of the axis size (callers carry the true row count).
     A shard on the array's own device is a view of it; only a shard that
-    holds padding is a copy, and no shard is the whole array."""
+    holds padding is a copy, and no shard is the whole array. On a mesh
+    that spans processes `arr` is the global array, as every process holds
+    it, and only this process's positions are cut from it."""
     if isinstance(arr, Sharded):
         return arr
     t = _as_tensor(arr)
@@ -138,30 +145,125 @@ def shard_rows(mesh: Mesh, arr, axis: str = "dp") -> Sharded:
     return Sharded(mesh, shards, local)
 
 
+def _lead(mesh: Mesh) -> torch.device:
+    """This process's first position's device: where rows bound for other
+    processes are staged. NCCL takes one card per rank, so a process with
+    several cards sends and receives through this one (its group's
+    communicator is bound to it) and copies to the others inside the
+    process; gloo takes CPU tensors, which need no staging."""
+    return mesh.devices[mesh.span[0]]
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A tensor as the collectives carry it: bool as uint8 (neither NCCL
+    nor gloo reduces or moves bool on every version)."""
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _unwire(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t.view(torch.bool) if dtype == torch.bool else t
+
+
+def _all_gather(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
+    """Every process's `local` (equal shapes), concatenated along dim 0 in
+    process order, which is position order on a host-major mesh."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size(mesh.group)
+    t = _wire(local.contiguous())
+    parts = [torch.empty_like(t) for _ in range(world)]
+    dist.all_gather(parts, t, group=mesh.group)
+    return _unwire(torch.cat(parts), local.dtype)
+
+
 def gather(sharded: Sharded, device) -> torch.Tensor:
     """Leave the mesh: the global array (every shard in position order) as
-    one tensor on `device`. Within one process only."""
-    if sharded.mesh.spans_processes():
-        raise NotImplementedError(
-            "gather of a mesh that spans processes (ROADMAP A9-rest)")
+    one tensor on `device`. On a mesh that spans processes every process
+    gets the whole array: its shards are staged on its lead device and
+    all-gathered through the group."""
+    mesh = sharded.mesh
     device = torch.device(device)
+    if mesh.spans_processes():
+        lead = _lead(mesh)
+        local = torch.cat([s.to(lead, non_blocking=True)
+                           for s in sharded.shards])
+        return _all_gather(mesh, local).to(device, non_blocking=True)
     parts = [s.to(device, non_blocking=True) for s in sharded.shards]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def gather_ragged(mesh: Mesh, parts: list, counts, device) -> torch.Tensor:
+    """The first counts[s] rows of each position's part, concatenated in
+    position order on `device` (every process gets them all). `counts` is
+    the global per-position count, the same array on every process; a
+    part holds at least its count of rows."""
+    counts = np.asarray(counts, dtype=np.int64)
+    device = torch.device(device)
+    if not mesh.spans_processes():
+        pieces = [p[:int(counts[s])].to(device, non_blocking=True)
+                  for s, p in zip(mesh.local_positions, parts)]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+    width = max(int(counts.max()), 1)
+    lead = _lead(mesh)
+    padded = []
+    for s, p in zip(mesh.local_positions, parts):
+        p = p[:int(counts[s])].to(lead, non_blocking=True)
+        if p.shape[0] < width:
+            p = torch.cat([p, p.new_zeros((width - p.shape[0],)
+                                          + tuple(p.shape[1:]))])
+        padded.append(p)
+    whole = _all_gather(mesh, torch.cat(padded))
+    keep = (np.arange(width)[None, :] < counts[:, None]).reshape(-1)
+    idx = torch.from_numpy(np.flatnonzero(keep)).to(whole.device)
+    return whole[idx].to(device, non_blocking=True)
+
+
+def to_host(mesh: Mesh, parts: list) -> np.ndarray:
+    """Small per-position tensors (equal shapes) as one host array of
+    every position's, stacked in position order: the same array on every
+    process, so that every process takes the same branch on it."""
+    lead = _lead(mesh)
+    stacked = torch.stack([p.to(lead, non_blocking=True) for p in parts])
+    if mesh.spans_processes():
+        stacked = _all_gather(mesh, stacked)
+    return stacked.cpu().numpy()
 
 
 def all_to_all(mesh: Mesh, bufs: list) -> list:
     """Shard s's (n, cap) buffer sends its row d to shard d; shard d gets
     the rows from every source in source order, flattened to n * cap (the
-    counterpart of lax.all_to_all(x, axis, 0, 0) then reshape(-1))."""
-    if mesh.spans_processes():
-        raise NotImplementedError(
-            "an all-to-all over a mesh that spans processes (ROADMAP A9-rest)")
+    counterpart of lax.all_to_all(x, axis, 0, 0) then reshape(-1)). Across
+    processes: each process stacks its positions' buffers on its lead
+    device, one all_to_all_single over the group with equal splits (every
+    buffer holds the same cap) moves the block of each destination
+    process, and the rows are copied out to the local positions."""
     n = mesh.size
+    if not mesh.spans_processes():
+        out = []
+        for d in range(n):
+            dev = mesh.devices[d]
+            rows = [bufs[s][d].to(dev, non_blocking=True) for s in range(n)]
+            out.append(torch.stack(rows).reshape(-1))
+        return out
+    import torch.distributed as dist
+
+    world = dist.get_world_size(mesh.group)
+    per = len(bufs)  # positions a process (exchange_plan: equal counts)
+    lead = _lead(mesh)
+    dtype = bufs[0].dtype
+    # (source, destination process, destination position, cap) ->
+    # destination process major: the all_to_all_single's split blocks
+    send = torch.stack([_wire(b).to(lead, non_blocking=True) for b in bufs])
+    cap = int(send.shape[2])
+    send = send.reshape(per, world, per, cap).permute(1, 0, 2, 3).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.group)
+    # recv[p, s, d]: from process p's source position s, for local d
+    recv = _unwire(recv, dtype)
     out = []
-    for d in range(n):
-        dev = mesh.devices[d]
-        rows = [bufs[s][d].to(dev, non_blocking=True) for s in range(n)]
-        out.append(torch.stack(rows).reshape(-1))
+    for i, d in enumerate(mesh.local_positions):
+        rows = recv[:, :, i, :].reshape(-1)
+        out.append(rows.to(mesh.devices[d], non_blocking=True))
     return out
 
 
@@ -169,15 +271,33 @@ def psum(mesh: Mesh, parts: list) -> list:
     """The sum of the per-position parts, replicated: one copy on each
     local position's device. Across processes through the mesh's group
     (all_reduce)."""
-    local = parts[0].to(mesh.devices[mesh.span[0]], copy=True)
-    for p in parts[1:]:
-        local = local + p.to(local.device, non_blocking=True)
-    if mesh.group is not None:
-        import torch.distributed as dist
-
-        dist.all_reduce(local, group=mesh.group)
+    local = preduce(mesh, parts, "sum")
     return [local.to(mesh.devices[s], non_blocking=True)
             for s in mesh.local_positions]
+
+
+_REDUCE = {"sum": (torch.add, "SUM"), "min": (torch.minimum, "MIN"),
+           "max": (torch.maximum, "MAX")}
+
+
+def preduce(mesh: Mesh, parts: list, op: str = "sum") -> torch.Tensor:
+    """The elementwise sum, min or max of the per-position parts (equal
+    shapes), on this process's lead device: the same values on every
+    process (all_reduce through the group when the mesh spans
+    processes)."""
+    fn, name = _REDUCE[op]
+    lead = _lead(mesh)
+    local = parts[0].to(lead, copy=True)
+    for p in parts[1:]:
+        local = fn(local, p.to(lead, non_blocking=True))
+    if mesh.spans_processes():
+        import torch.distributed as dist
+
+        dtype = local.dtype
+        w = local.to(torch.int32) if dtype == torch.bool else local
+        dist.all_reduce(w, op=getattr(dist.ReduceOp, name), group=mesh.group)
+        local = w.to(dtype) if dtype == torch.bool else w
+    return local
 
 
 def partial_agg_then_psum(mesh: Mesh, num_groups: int, axis: str = "dp"):

@@ -6,9 +6,9 @@ process per host; a mesh that spans processes orders its devices
 host-major (each process's devices occupy a contiguous rank block), so a
 keyed repartition decomposes into dense blocks inside a host plus one
 stripe between hosts. Within one process the mesh's collectives are plain
-copies driven from the one Python thread (parallel/mesh.py); only a mesh
-that spans processes needs a process group, and only for its reductions
-(`mesh.psum`). Initialization is env-driven and idempotent:
+copies driven from the one Python thread (parallel/mesh.py); a mesh that
+spans processes runs them through its process group (all_to_all_single,
+all_gather, all_reduce). Initialization is env-driven and idempotent:
 LINGODB_COORDINATOR (host:port, or a tcp:// address), LINGODB_NUM_PROCESSES
 and LINGODB_PROCESS_ID; with one process everything degrades to the plain
 device order and no process group exists.
@@ -38,12 +38,15 @@ class MeshDevice:
 def initialize(coordinator: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None,
-               device_type: str | None = None) -> bool:
+               device_type: str | None = None,
+               timeout_s: float | None = None) -> bool:
     """Join (or start) a multi-process group. Parameters default from
     LINGODB_COORDINATOR / LINGODB_NUM_PROCESSES / LINGODB_PROCESS_ID. The
     backend is nccl for CUDA devices and gloo otherwise (`device_type`,
-    default: cuda when a card is present). Returns True when distributed
-    mode is active. Idempotent; a no-op in single-process runs
+    default: cuda when a card is present). `timeout_s` bounds every
+    collective's wait (None: torch's default), so that processes whose
+    host decisions diverged fail instead of waiting. Returns True when
+    distributed mode is active. Idempotent; a no-op in single-process runs
     (num_processes absent or <= 1)."""
     import torch.distributed as dist
 
@@ -60,9 +63,15 @@ def initialize(coordinator: str | None = None,
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
     if "://" not in coordinator:
         coordinator = f"tcp://{coordinator}"
+    kw = {}
+    if timeout_s is not None:
+        import datetime
+
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
         backend="nccl" if device_type == "cuda" else "gloo",
-        init_method=coordinator, world_size=num_processes, rank=process_id)
+        init_method=coordinator, world_size=num_processes, rank=process_id,
+        **kw)
     return True
 
 

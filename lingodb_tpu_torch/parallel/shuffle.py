@@ -23,7 +23,11 @@ per (mesh size, capacity, dtypes) and kept in `_PROGRAMS` (the reference
 keeps its jitted programs there); the one Python thread runs it shard after
 shard. Inputs may be `Sharded` values or global arrays (a torch tensor or a
 numpy array of the global layout), which `shard_put` splits into views.
-Host syncs: one per capacity decision (counts, pair totals).
+Host syncs: one per capacity decision (counts, pair totals). Every number
+read to the host is the global one (mesh.to_host): on a mesh that spans
+processes each process contributes its positions', and every process
+reads the same array and takes the same branch (one that took another
+would leave the others waiting in a collective).
 
 Hashes are uint64 in the reference and held as int64 bit patterns here
 (ops/hashing.py): `hash_dest` takes the unsigned remainder, and the local
@@ -37,14 +41,17 @@ import numpy as np
 import torch
 
 from ..ops import backend as be
-from .mesh import Mesh, Sharded, _as_tensor, all_to_all, shard_rows
+from .mesh import (Mesh, Sharded, _as_tensor, _lead, all_to_all, gather_ragged,
+                   shard_rows, to_host)
 
 _U64_MAX = -1  # 0xFFFF_FFFF_FFFF_FFFF as an int64 bit pattern
 _TOP_BIT = -(1 << 63)
 
-# observability: how often each shuffle strategy ran (tests assert on these)
+# observability: how often each shuffle strategy ran (tests assert on these);
+# "gathers" counts the tables that left the mesh whole for an operator
+# without a sharded form (Executor._gather_input)
 STATS = {"exchanges": 0, "joins": 0, "groupbys": 0, "skew_splits": 0,
-         "sorts": 0}
+         "sorts": 0, "gathers": 0}
 
 _PROGRAMS: dict = {}
 
@@ -76,13 +83,6 @@ def _per_shard(mesh: Mesh, fn, args: list) -> list:
             for i in range(len(mesh.local_positions))]
     return [Sharded(mesh, [o[j] for o in outs], int(outs[0][j].shape[0]))
             for j in range(len(outs[0]))]
-
-
-def _to_host(mesh: Mesh, parts: list) -> np.ndarray:
-    """Small per-shard tensors to one host array with one copy a device."""
-    dev0 = parts[0].device
-    stacked = torch.stack([p.to(dev0, non_blocking=True) for p in parts])
-    return stacked.cpu().numpy()
 
 
 def _all_rows(dest):
@@ -163,7 +163,7 @@ def _counts(mesh: Mesh, d_s: Sharded, v_s: Sharded) -> np.ndarray:
     n = mesh.shape[_axis(mesh)]
     fn = _cached(("cnt", n), lambda: _local_counts(n))
     (counts,) = _per_shard(mesh, fn, [d_s, v_s])
-    return _to_host(mesh, counts.shards).reshape(-1)
+    return to_host(mesh, counts.shards).reshape(-1)
 
 
 def exchange(mesh: Mesh, dest, arrays: list, valid=None):
@@ -260,7 +260,7 @@ def join_pairs(mesh: Mesh, bh, bv, ph, pv, build_payload: list,
     args = [shard_put(mesh, a)[0] for a in (bh, bv, ph, pv)]
     fn = _cached(("jc", n), _local_join_count)
     (totals,) = _per_shard(mesh, fn, args)
-    totals = _to_host(mesh, totals.shards).reshape(-1)
+    totals = to_host(mesh, totals.shards).reshape(-1)
     cap_out = max(int(totals.max()), 1)
     nb = len(build_payload)
     dtypes = tuple(_dtype_name(a) for a in build_payload + probe_payload)
@@ -523,34 +523,65 @@ def _local_sort(n_keys: int):
     return local
 
 
-def sample_sort(mesh: Mesh, operands: list, payload: list):
+def take_rows(x: Sharded, idx: np.ndarray, idx_dev=None) -> torch.Tensor:
+    """The rows of Sharded `x` at the ascending global indices `idx` (a
+    host array, the same on every process), on every process. `idx_dev`
+    is idx already on the lead device (one upload serves several
+    columns)."""
+    L = x.local_len
+    bounds = np.searchsorted(idx, np.arange(x.mesh.size + 1) * L)
+    if idx_dev is None:
+        idx_dev = torch.from_numpy(idx).to(_lead(x.mesh))
+    parts = []
+    for i, s in enumerate(x.mesh.local_positions):
+        local = idx_dev[int(bounds[s]):int(bounds[s + 1])] - s * L
+        parts.append(x.shards[i][local.to(x.shards[i].device)])
+    return gather_ragged(x.mesh, parts, np.diff(bounds), parts[0].device)
+
+
+def sample_sort(mesh: Mesh, operands: list, payload: list, valid=None):
     """Distributed sample sort (the C++ engine's parallel merge sort): sample
     lexicographic splitter tuples, range-partition rows over the mesh with
     the exact-capacity all-to-all, then sort each shard locally; equal keys
     colocate, so the shards in order are the global sort.
 
     operands: int images in lexicographic sort order (ops/keys.sort_operands),
-    global arrays; payload: more row-aligned arrays permuted along.
+    global arrays or Sharded values (then all of them, and `valid` marks
+    the live rows: dead and padding rows are dropped by the exchange);
+    payload: more row-aligned arrays permuted along.
     Returns (valid, arrays, cap): Sharded values whose shards hold
     n_shards * cap rows each (the exchange's layout, cap its per-source
     capacity), shard s's real rows first and in sorted order; arrays are
     the operands, then the payload. Duplicate-heavy splitters cost
     balance, never correctness (ties route to one shard)."""
     n = mesh.shape[_axis(mesh)]
-    ops = [_as_tensor(o) for o in operands]
-    rows = int(ops[0].shape[0])
-    # deterministic splitter sample (one small host fetch per operand)
+    sharded = isinstance(operands[0], Sharded)
+    ops = list(operands) if sharded else [_as_tensor(o) for o in operands]
+    rows = n * ops[0].local_len if sharded else int(ops[0].shape[0])
+    # deterministic splitter sample (one small host fetch per operand; of
+    # Sharded operands the global rows at the same indices, read on every
+    # process)
     k = int(min(rows, max(n * 32, 256)))
     idx = np.linspace(0, rows - 1, k).astype(np.int64)
-    samples = [be.to_host(o[torch.from_numpy(idx).to(o.device)]) for o in ops]
+    if sharded:
+        idx_dev = torch.from_numpy(idx).to(_lead(mesh))
+        samples = [be.to_host(take_rows(o, idx, idx_dev)) for o in ops]
+    else:
+        samples = [be.to_host(o[torch.from_numpy(idx).to(o.device)])
+                   for o in ops]
     order = np.lexsort(tuple(reversed(samples)))
     qpos = [min((i + 1) * k // n, k - 1) for i in range(n - 1)]
     sps = [torch.from_numpy(np.ascontiguousarray(s[order][qpos])) for s in samples]
     dts = tuple(_dtype_name(o) for o in ops)
     dfn = _cached(("rdest", n, len(ops), n - 1, dts),
                   lambda: _range_dest(len(ops), n - 1))
-    dest = dfn(sps, ops)
-    valid, arrs, glen = exchange(mesh, dest, list(ops) + list(payload))
+    if sharded:
+        dest = Sharded(mesh, [dfn(sps, [o.shards[i] for o in ops])
+                              for i in range(len(ops[0].shards))],
+                       ops[0].local_len)
+    else:
+        dest = dfn(sps, ops)
+    valid, arrs, glen = exchange(mesh, dest, list(ops) + list(payload), valid)
     cap = glen // n
     all_d = tuple(_dtype_name(a) for a in arrs)
     sfn = _cached(("lsort", n, len(ops), all_d, cap),

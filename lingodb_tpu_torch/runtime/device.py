@@ -67,11 +67,23 @@ def get_mesh():
 
 
 def shard_column(arr, mesh):
-    """Row-shard a column over the mesh, padding to a multiple of the axis
-    size. Returns (Sharded, original_rows)."""
+    """Row-shard a column over the mesh, padded with zeros to a multiple of
+    the axis size (mesh.shard_rows pads the last shards only, no copy of
+    the whole column). Returns (Sharded, original_rows): the caller keeps
+    the true row count. On a mesh that spans processes only this
+    process's positions are uploaded."""
     from ..parallel.mesh import shard_rows
 
     return shard_rows(mesh, arr), int(arr.shape[0])
+
+
+def is_sharded(vt: VTable) -> bool:
+    """Whether a VTable holds Sharded columns (a scan of a table held on
+    the mesh, or a Select / Map over one)."""
+    from ..parallel.mesh import Sharded
+
+    return isinstance(vt.row_valid, Sharded) or any(
+        isinstance(c.data, Sharded) for c in vt.cols.values())
 
 
 def resolve_device(device=None) -> torch.device:

@@ -26,9 +26,13 @@ system.device_byte_budget streams the table through the card in chunks
 (`_try_chunked_agg`, runtime/chunked.py). The sharded mesh operators
 (`_try_sharded_join`, `_try_sharded_agg`, `_try_distributed_sort`, over
 parallel/shuffle.py) take the large joins, groupings and sorts when
-runtime/device.get_mesh() gives a mesh; there the fused chain and the
-large-domain fused aggregate decline, and scans defer their compaction to
-a selection vector (VTable.row_valid).
+runtime/device.get_mesh() gives a mesh. There base tables are held sharded
+from their upload (session.py), scans, Select and Map keep them on the
+mesh under a selection vector (VTable.row_valid), the fused aggregate of
+dense keys runs position by position and reduces its lanes across the
+mesh, the fused chain and the large-domain fused aggregate decline, and
+every other operator takes its input whole from one gather (run,
+_gather_input).
 """
 
 from __future__ import annotations
@@ -75,9 +79,12 @@ def _base_keys_dense(group_by, base_cols):
 def _vtable_bytes(vt: VTable) -> int:
     """Bytes of a table's columns: rows x itemsize each (+1 a row for a
     validity mask; wide-decimal object columns count 16 bytes a row)."""
+    from ..parallel.mesh import Sharded
+
     total = 0
     for c in vt.cols.values():
-        itemsize = 16 if is_obj(c.data) else be.dt(c.data).itemsize
+        data = c.data.shards[0] if isinstance(c.data, Sharded) else c.data
+        itemsize = 16 if is_obj(data) else be.dt(data).itemsize
         total += vt.num_rows * itemsize
         if c.valid is not None:
             total += vt.num_rows
@@ -180,7 +187,24 @@ class Executor:
             dicts.append(c.dictionary)
         return ResultTable(names, types, cols, valids, dicts, vt.num_rows)
 
+    # the operators whose result may hold Sharded columns (a table held on
+    # the mesh, parallel/mesh.py): the scan and the row-wise Select and Map
+    # over it. Every other operator takes its input from run(), which
+    # gathers such a table first (_gather_input); the sharded join,
+    # aggregate and sort and the fused aggregate take it from run_sharded()
+    _SHARDED_OUT = ("Scan", "Select", "Map")
+
     def run(self, op: L.LogicalOp) -> VTable:
+        """`op`'s result as whole columns (a table held on the mesh leaves
+        it here, counted as a gather)."""
+        return self._gather_input(self.run_sharded(op))
+
+    def run_sharded(self, op: L.LogicalOp) -> VTable:
+        """`op`'s result, Sharded where a scan of a table held on the mesh
+        (or a Select / Map over one) gives it: for the operators that have
+        a sharded form."""
+        from . import device as dv
+
         stashed = self._materialized_bases.pop(id(op), None)
         if stashed is not None:
             return stashed
@@ -191,6 +215,11 @@ class Executor:
             vt = self._profiled(op, method)
         else:
             vt = method(op)
+        if dv.is_sharded(vt) and type(op).__name__ not in self._SHARDED_OUT:
+            # only the scan, Select and Map keep a table on the mesh; any
+            # other operator computing on its per-position lists would be
+            # wrong, so a missed gather stops here
+            raise ExecError(f"{type(op).__name__} returned Sharded columns")
         if self._mode == "DEBUG":
             self._debug_verify(op, vt)
         if self.track_tuples is not None:
@@ -198,14 +227,102 @@ class Executor:
             # / subop.set_tracked_count, RelAlgOps.td:530, ExecutionContext.h:63)
             self.track_tuples[id(op)] = (
                 vt.num_rows if vt.row_valid is None
-                else int(jnp.sum(vt.row_valid)))
+                else _live_rows(vt.row_valid))
         # small results migrate to the host numpy tier (runtime/device.py)
         if type(op).__name__ in ("Aggregate", "Select", "Join", "TopK", "Limit",
                                  "Distinct", "SetOp"):
-            from . import device as dv
-
             vt = dv.demote_small(vt)
         return vt
+
+    def _gather_input(self, vt: VTable) -> VTable:
+        """A table held on the mesh as whole columns on the session's device,
+        for an operator without a sharded form: ONE gather for the operator
+        (shuffle.STATS["gathers"]). Under a selection vector each position
+        first compacts its own rows (K3, then the gathers of its
+        survivors) and only the survivors move. Every process gets the
+        whole table."""
+        from . import device as dv
+        from ..parallel import mesh as msh
+        from ..parallel import shuffle as sh
+
+        if not dv.is_sharded(vt):
+            return vt
+        sh.STATS["gathers"] += 1
+        mesh = _mesh_of(vt)
+        dev = self.session.device
+        views = _views(vt)
+        if vt.row_valid is not None:
+            # every position's live count in one read, then each compacts
+            # its rows without reading its count again
+            counts = msh.to_host(mesh, [
+                v.row_valid.sum(dtype=torch.int64).reshape(1)
+                for v in views]).reshape(-1)
+            views = [VTable(v.cols, v.num_rows).select_mask(
+                v.row_valid, count=int(counts[s]))
+                for s, v in zip(mesh.local_positions, views)]
+        else:
+            counts = np.full(mesh.size, views[0].num_rows, np.int64)
+        total = int(counts.sum())
+        host_live = None
+        cols = {}
+        for cid, c in vt.cols.items():
+            if is_obj(c.data):
+                # host columns: the whole (padded) array is on every process
+                # (the views hold only this process's positions' rows)
+                if vt.row_valid is None:
+                    data, valid = c.data, c.valid
+                elif mesh.spans_processes():
+                    if host_live is None:
+                        host_live = be.to_host(msh.gather(vt.row_valid, dev))
+                    data = c.data[host_live]
+                    valid = None if c.valid is None else \
+                        np.asarray(c.valid)[host_live]
+                else:
+                    data = np.concatenate([v.col(cid).data for v in views])
+                    valid = None if c.valid is None else np.concatenate(
+                        [np.asarray(v.col(cid).valid) for v in views])
+                cols[cid] = SCol(c.type, data, valid, c.dictionary)
+                continue
+            data = msh.gather_ragged(mesh, [v.col(cid).data for v in views],
+                                     counts, dev)
+            valid = None
+            if c.valid is not None:
+                valid = msh.gather_ragged(
+                    mesh, [v.col(cid).valid for v in views], counts, dev)
+            cols[cid] = SCol(c.type, data, valid, c.dictionary)
+        return VTable(cols, total)
+
+    def _on_mesh(self, mesh, vt: VTable) -> VTable:
+        """A whole table as a table held on the mesh (the rows of position s
+        are rows [s * L, (s + 1) * L)): a sharded operator's input in one
+        layout whether it came from a table held on the mesh or not. Pad
+        rows are dead under the selection vector; wide-decimal columns stay
+        host arrays, padded."""
+        from . import device as dv
+        from ..parallel.mesh import shard_rows
+
+        if dv.is_sharded(vt):
+            return vt
+        n = vt.num_rows
+        total = n + (-n) % mesh.size
+        dev = self.session.device
+        cols = {}
+        for cid, c in vt.cols.items():
+            if is_obj(c.data):
+                data = np.concatenate([c.data, np.zeros(total - n, object)])
+                valid = None if c.valid is None else np.concatenate(
+                    [be.to_host(c.valid), np.zeros(total - n, np.bool_)])
+            else:
+                data = shard_rows(mesh, _on(c.data, dev, n))
+                valid = (None if c.valid is None
+                         else shard_rows(mesh, _on(c.valid, dev, n)))
+            cols[cid] = SCol(c.type, data, valid, c.dictionary)
+        rv = vt.row_valid
+        if rv is None and total != n:
+            rv = torch.ones((n,), dtype=torch.bool, device=dev)
+        if rv is not None:
+            rv = shard_rows(mesh, _on(rv, dev, n))  # padding: False
+        return VTable(cols, total, row_valid=rv)
 
     def _profiled(self, op, method) -> VTable:
         """PERF mode: run one operator, timing it to the card's completion
@@ -547,11 +664,11 @@ class Executor:
 
     # ------------------------------------------------- distributed shuffle
     # The sharded operators (parallel/shuffle.py) over the device mesh
-    # (runtime/device.get_mesh). Base tables stay whole on the session's
-    # device: an operator enters the mesh at its inputs (shard_put of what
-    # it is given) and leaves it as a VTable on the session's device, in
-    # the padded exchanged layout, with a selection vector where the
-    # reference keeps its result lazy (_lazy_ok).
+    # (runtime/device.get_mesh). An operator takes a side held on the mesh
+    # as it is and a whole one cut into the same layout (_on_mesh), and
+    # leaves the mesh as a VTable on the session's device (on every
+    # process), in the padded exchanged layout, with a selection vector
+    # where the reference keeps its result lazy (_lazy_ok).
     def _lazy_ok(self, n: int) -> bool:
         """Whether a selection-vector (deferred-compaction) result is
         worthwhile: only on an active mesh at exchange-scale row counts."""
@@ -564,7 +681,8 @@ class Executor:
                 and n >= int(get_setting("system.shuffle_min_rows")))
 
     def _leave_mesh(self, arrays: list) -> list:
-        """Sharded values as global tensors on the session's device."""
+        """Sharded values as global tensors on the session's device; on a
+        mesh that spans processes every process gets them whole."""
         from ..parallel import mesh as msh
 
         return [msh.gather(a, self.session.device) for a in arrays]
@@ -573,50 +691,72 @@ class Executor:
         """Distributed sample sort over the mesh: range-partition by sampled
         lexicographic splitters, sort locally per shard (parallel/shuffle.py
         sample_sort; the reference engine's parallel merge sort), in place
-        of the whole-table sort for large inputs."""
+        of the whole-table sort for large inputs. `vt` is dense, or held on
+        the mesh (its selection vector's dead rows are dropped by the
+        exchange; the decision counts its live rows, as the reference
+        counts them after its global compaction)."""
         from . import device as dv
         from ..parallel import shuffle as sh
+        from ..parallel.mesh import Sharded
         from ..utils.settings import get_setting
 
         mesh = dv.get_mesh()
-        n = vt.num_rows
-        if mesh is None or n < int(get_setting("system.shuffle_min_rows")):
+        if mesh is None:
+            return None
+        n = (vt.num_rows if vt.row_valid is None
+             else _live_rows(vt.row_valid))
+        if n < int(get_setting("system.shuffle_min_rows")):
             return None
         if any(is_obj(vt.col(k.cid).data) for k in op.keys):
             return None  # wide-decimal SORT KEYS have no device order image
             # (object payload columns ship as int64 limbs)
-        dev = self.session.device
-        key_cols = [(vt.col(k.cid), k.ascending, k.nulls_first)
-                    for k in op.keys]
-        operands = [_on(o, dev, n) for o in keymod.sort_operands(key_cols)]
-        # the original row index: the stability tiebreak, and it makes
-        # splitter tuples unique, which keeps duplicate-heavy key ranges
-        # balanced
-        operands.append(torch.arange(n, dtype=torch.int64, device=dev))
+        sv = self._on_mesh(mesh, vt)
+        L = _local_len(sv)
+        views = _views(sv)
         try:
-            layout, arrays = _flatten_vt(vt)
+            per = []
+            for i, v in enumerate(views):
+                ref = _view_ref(v, mesh, i)
+                s0 = mesh.local_positions[i] * L
+                operands = [_shard_of(o, ref, L) for o in keymod.sort_operands(
+                    [(v.col(k.cid), k.ascending, k.nulls_first)
+                     for k in op.keys])]
+                # the original row index: the stability tiebreak, and it
+                # makes splitter tuples unique, which keeps duplicate-heavy
+                # key ranges balanced
+                operands.append(torch.arange(s0, s0 + L, dtype=torch.int64,
+                                             device=ref.device))
+                nops = len(operands)
+                layout, arrays = _flatten_vt(v)
+                per.append(operands + [_shard_of(a, ref, L) for a in arrays])
         except _WideShip:
             return None
-        arrays = [_on(a, dev, n) for a in arrays]
-        valid, out, _cap = sh.sample_sort(mesh, operands, arrays)
+        cols = [Sharded(mesh, [p[j] for p in per], L)
+                for j in range(len(per[0]))]
+        valid, out, _cap = sh.sample_sort(mesh, cols[:nops], cols[nops:],
+                                          sv.row_valid)
         valid = self._leave_mesh([valid])[0]
         total = int(valid.sum())
         if total != n:
             raise ExecError(
                 f"distributed sort row mismatch: {total} of {n} rows routed")
         glen = int(valid.shape[0])
-        sorted_vt = _rebuild_vt(vt, layout,
-                                self._leave_mesh(out[len(operands):]), glen)
+        sorted_vt = _rebuild_vt(views[0], layout,
+                                self._leave_mesh(out[nops:]), glen)
         return VTable(sorted_vt.cols, glen, row_valid=valid).dense()
 
-    def _try_sharded_join(self, op, kind, lvt, rvt, lk, rk, null_safe):
+    def _try_sharded_join(self, op, kind, lvt, rvt, lkeys, rkeys, null_safe):
         """Shuffle join over the device mesh: hash-partition BOTH sides by
         the join key (all-to-all with exact capacities), then join locally
         per shard; no side is replicated (LingoDB's parallel hash-join state
         partitioning, ParallelizePass.cpp:34-97). Returns None when no mesh
-        is active or either side is below system.shuffle_min_rows."""
+        is active or either side is below system.shuffle_min_rows. A side
+        comes held on the mesh or whole (then cut into the same layout,
+        _on_mesh); the keys (`lkeys`, `rkeys`: expressions), hashes and
+        payloads are computed position by position (they are row-wise)."""
         from . import device as dv
         from ..ops import hashing
+        from ..parallel import mesh as msh
         from ..parallel import shuffle as sh
         from ..utils.settings import get_setting
 
@@ -626,36 +766,62 @@ class Executor:
         nl, nr = lvt.num_rows, rvt.num_rows
         if min(nl, nr) < int(get_setting("system.shuffle_min_rows")):
             return None
-        dev = self.session.device
         if not null_safe:
-            null_safe = (False,) * len(lk)
-        # probe = left, build = right; NULL keys as in join.candidate_pairs
-        # (strict keys never match; null-safe keys share the NULL hash)
-        hp = _on(hashing.hash_columns(lk), dev, nl)
-        hb = _on(hashing.hash_columns(rk), dev, nr)
-        strict_p = [c for c, ns in zip(lk, null_safe) if not ns]
-        strict_b = [c for c, ns in zip(rk, null_safe) if not ns]
-        pko = joinops._all_valid(strict_p, nl)
-        bko = joinops._all_valid(strict_b, nr)
-        if bko is not None:
-            hb = torch.where(_on(bko, dev, nr), hb,
-                             torch.full_like(hb, sh._U64_MAX))
-        pko = (torch.ones((nl,), dtype=torch.bool, device=dev) if pko is None
-               else _on(pko, dev, nl))
+            null_safe = (False,) * len(lkeys)
+        lsv, rsv = self._on_mesh(mesh, lvt), self._on_mesh(mesh, rvt)
+        lp_len, lb_len = _local_len(lsv), _local_len(rsv)
+        lviews, rviews = _views(lsv), _views(rsv)
+        # per position: probe = left, build = right; NULL keys as in
+        # join.candidate_pairs (strict keys never match; null-safe keys
+        # share the NULL hash)
+        side_p = {"h": [], "ko": [], "arrs": [], "valid": []}
+        side_b = {"h": [], "arrs": [], "valid": []}
         try:
-            playout, parrs = _flatten_vt(lvt)
-            blayout, barrs = _flatten_vt(rvt)
+            for i, (lv, rv) in enumerate(zip(lviews, rviews)):
+                pref = _view_ref(lv, mesh, i)
+                bref = _view_ref(rv, mesh, i)
+                lk, rk = [], []
+                for le, re_ in zip(lkeys, rkeys):
+                    a, b = _unify_string_keys(sc.eval_expr(le, lv.cols),
+                                              sc.eval_expr(re_, rv.cols))
+                    lk.append(sc._bcast(a, lp_len))
+                    rk.append(sc._bcast(b, lb_len))
+                hp = _shard_of(hashing.hash_columns(lk), pref, lp_len)
+                hb = _shard_of(hashing.hash_columns(rk), bref, lb_len)
+                pko = joinops._all_valid(
+                    [c for c, ns in zip(lk, null_safe) if not ns], lp_len)
+                bko = joinops._all_valid(
+                    [c for c, ns in zip(rk, null_safe) if not ns], lb_len)
+                if bko is not None:
+                    hb = torch.where(_shard_of(bko, bref, lb_len), hb,
+                                     torch.full_like(hb, sh._U64_MAX))
+                side_p["ko"].append(
+                    torch.ones((lp_len,), dtype=torch.bool, device=pref.device)
+                    if pko is None else _shard_of(pko, pref, lp_len))
+                playout, parrs = _flatten_vt(lv)
+                blayout, barrs = _flatten_vt(rv)
+                side_p["h"].append(hp)
+                side_b["h"].append(hb)
+                side_p["arrs"].append([_shard_of(a, pref, lp_len)
+                                       for a in parrs])
+                side_b["arrs"].append([_shard_of(a, bref, lb_len)
+                                       for a in barrs])
+                # selection vectors ride straight into the exchange: dead
+                # (and pad) rows are dropped while packing
+                side_p["valid"].append(lv.row_valid)
+                side_b["valid"].append(rv.row_valid)
         except _WideShip:
             return None
-        parrs = [_on(a, dev, nl) for a in parrs]
-        barrs = [_on(a, dev, nr) for a in barrs]
         n_ax = mesh.size
-        dest_p = sh.hash_dest(mesh, hp)
-        dest_b = sh.hash_dest(mesh, hb)
-        # selection vectors ride straight into the exchange: dead rows are
-        # dropped while packing
-        valid_b = None if rvt.row_valid is None else _on(rvt.row_valid, dev, nr)
-        valid_p = None if lvt.row_valid is None else _on(lvt.row_valid, dev, nl)
+        lt, rt = lviews[0], rviews[0]  # column templates of each side
+
+        def _sharded(side, key, ln):
+            return msh.Sharded(mesh, side[key], ln)
+
+        def _dest(side, ln):
+            return sh.hash_dest(mesh, _sharded(side, "h", ln)).shards
+
+        side_p["dest"], side_b["dest"] = _dest(side_p, lp_len), _dest(side_b, lb_len)
         # sampled heavy-hitter split: when one shard would receive far more
         # probe rows than the mean, keys sampled as hot keep their probe
         # rows local and have their build rows replicated to every shard
@@ -665,27 +831,28 @@ class Executor:
         # (the reference's also reads dead rows' hashes).
         skewf = float(get_setting("system.shuffle_skew_factor"))
         probe_split = False
-        recv = sh.dest_counts(mesh, dest_p, valid_p).sum(axis=0)
+
+        def _valid(side, ln):
+            if all(v is None for v in side["valid"]):
+                return None
+            return msh.Sharded(mesh, [
+                torch.ones_like(h, dtype=torch.bool) if v is None else v
+                for v, h in zip(side["valid"], side["h"])], ln)
+
+        def _recv(side, ln):
+            return sh.dest_counts(
+                mesh, msh.Sharded(mesh, side["dest"], ln),
+                _valid(side, ln)).sum(axis=0)
+
+        recv = _recv(side_p, lp_len)
         if kind != "full" and recv.max() > skewf * max(float(recv.mean()), 1.0):
-            heavy = _heavy_hitters(hp, valid_p, n_ax)
+            heavy = _heavy_hitters_sharded(
+                _sharded(side_p, "h", lp_len), _valid(side_p, lp_len), n_ax)
             if heavy.numel():
                 sh.STATS["skew_splits"] += 1
                 probe_split = True
-                heavy_p = torch.isin(hp, heavy)
-                l1 = (nl + ((-nl) % n_ax)) // n_ax
-                stay = (torch.arange(nl, device=dev) // l1).to(torch.int32)
-                dest_p = torch.where(heavy_p, stay, dest_p)
-                heavy_b = torch.isin(hb, heavy)
-                nh = int(heavy_b.sum())
-                if nh:
-                    rep = torch.nonzero(heavy_b).reshape(-1).repeat(n_ax)
-                    hb = torch.cat([hb, hb[rep]])
-                    barrs = [torch.cat([a, a[rep]]) for a in barrs]
-                    dest_b = torch.cat([dest_b, torch.repeat_interleave(
-                        torch.arange(n_ax, dtype=torch.int32, device=dev), nh)])
-                    vb0 = (torch.ones((nr,), dtype=torch.bool, device=dev)
-                           if valid_b is None else valid_b)
-                    valid_b = torch.cat([vb0 & ~heavy_b, vb0[rep]])
+                _stay_local(mesh, side_p, heavy)
+                lb_len = _replicate_hot(mesh, side_b, heavy, lb_len)
         # build-side heavy hitters (inner only): one hot build key would land
         # all its rows on one shard. The probe split with roles swapped: hot
         # build rows stay spread by position and the probe rows of those
@@ -694,29 +861,25 @@ class Executor:
         # cannot replicate probe rows, and the probe split above already
         # covers keys hot on both sides.
         if kind == "inner" and not probe_split:
-            recv_b = sh.dest_counts(mesh, dest_b, valid_b).sum(axis=0)
+            recv_b = _recv(side_b, lb_len)
             if recv_b.max() > skewf * max(float(recv_b.mean()), 1.0):
-                heavy = _heavy_hitters(hb, valid_b, n_ax)
+                heavy = _heavy_hitters_sharded(
+                    _sharded(side_b, "h", lb_len), _valid(side_b, lb_len), n_ax)
                 heavy = heavy[heavy != sh._U64_MAX]
                 if heavy.numel():
                     sh.STATS["skew_splits"] += 1
-                    heavy_b = torch.isin(hb, heavy)
-                    l1 = (nr + ((-nr) % n_ax)) // n_ax
-                    stay_b = (torch.arange(nr, device=dev) // l1).to(torch.int32)
-                    dest_b = torch.where(heavy_b, stay_b, dest_b)
-                    heavy_p = torch.isin(hp, heavy)
-                    nph = int(heavy_p.sum())
-                    if nph:
-                        rep = torch.nonzero(heavy_p).reshape(-1).repeat(n_ax)
-                        hp = torch.cat([hp, hp[rep]])
-                        pko = torch.cat([pko, pko[rep]])
-                        parrs = [torch.cat([a, a[rep]]) for a in parrs]
-                        dest_p = torch.cat([dest_p, torch.repeat_interleave(
-                            torch.arange(n_ax, dtype=torch.int32, device=dev),
-                            nph)])
-                        vp0 = (torch.ones((nl,), dtype=torch.bool, device=dev)
-                               if valid_p is None else valid_p)
-                        valid_p = torch.cat([vp0 & ~heavy_p, vp0[rep]])
+                    _stay_local(mesh, side_b, heavy)
+                    lp_len = _replicate_hot(mesh, side_p, heavy, lp_len)
+        hp, hb = _sharded(side_p, "h", lp_len), _sharded(side_b, "h", lb_len)
+        pko = _sharded(side_p, "ko", lp_len)
+        dest_p = msh.Sharded(mesh, side_p["dest"], lp_len)
+        dest_b = msh.Sharded(mesh, side_b["dest"], lb_len)
+        valid_p, valid_b = _valid(side_p, lp_len), _valid(side_b, lb_len)
+        parrs = [msh.Sharded(mesh, [a[j] for a in side_p["arrs"]], lp_len)
+                 for j in range(len(side_p["arrs"][0]))]
+        barrs = [msh.Sharded(mesh, [a[j] for a in side_b["arrs"]], lb_len)
+                 for j in range(len(side_b["arrs"][0]))]
+        lvt, rvt = lt, rt  # from here on: column templates of each side
         pv_ex, pouts, lp = sh.exchange(mesh, dest_p, [hp, pko] + parrs, valid_p)
         bv_ex, bouts, lb = sh.exchange(mesh, dest_b, [hb] + barrs, valid_b)
         pair_valid, probe_idx, build_idx, bpair, ppair, cap_out, total = \
@@ -804,10 +967,13 @@ class Executor:
         key hash and group locally per shard. Every group lands on exactly
         one shard, so the local result is final (LingoDB's partitioned
         PreAggregationHashtable merge). Dense small domains decline (the
-        single-device grouping serves them)."""
+        single-device grouping serves them). `vt` is held on the mesh or
+        whole (then cut into the same layout); the key images, hashes and
+        arguments are computed position by position."""
         from . import device as dv
         from ..ops import hashing
         from ..parallel import shuffle as sh
+        from ..parallel.mesh import Sharded
         from ..utils.settings import get_setting
 
         mesh = dv.get_mesh()
@@ -827,40 +993,65 @@ class Executor:
                 if spec.fn == "count_star":
                     return None
                 has_distinct = True
-        key_cols = [vt.col(c) for c in op.group_by]
-        if gb.dense_gid(key_cols)[0] is not None:
+        domains = [gb.small_domain(vt.col(c)) for c in op.group_by]
+        if (all(d is not None for d in domains)
+                and int(np.prod(domains)) <= gb.DENSE_DOMAIN_LIMIT):
             return None  # a small dense domain: the local grouping is cheaper
+        sv = self._on_mesh(mesh, vt)
+        L = _local_len(sv)
+        per = []  # per position: imgs, [h], rep arrays, agg arrays + masks
         try:
-            rep_layout, rep_arrays = _flatten_vt(
-                VTable({c.cid: vt.col(c.cid) for c in op.group_cols}, n))
+            for i, v in enumerate(_views(sv)):
+                ref = _view_ref(v, mesh, i)
+                key_cols = [v.col(c) for c in op.group_by]
+                imgs = [_shard_of(x, ref, L)
+                        for x in keymod.grouping_images(key_cols)]
+                h = _shard_of(hashing.hash_columns(key_cols), ref, L)
+                rep_layout, reps = _flatten_vt(
+                    VTable({c.cid: v.col(c.cid) for c in op.group_cols}, L))
+                reps = [_shard_of(a, ref, L) for a in reps]
+                ones = torch.ones((L,), dtype=torch.bool, device=ref.device)
+                aggs = []  # (kind, [arrays], valid)
+                for spec in op.aggs:
+                    arg = None if spec.arg is None else v.col(spec.arg)
+                    av = (ones if arg is None or arg.valid is None
+                          else _shard_of(arg.valid, ref, L))
+                    out_dt = np_dtype(spec.out.type)
+                    if spec.distinct and spec.fn in ("count", "sum"):
+                        aimgs = [_shard_of(x, ref, L)
+                                 for x in keymod.grouping_images([arg])]
+                        if spec.fn == "count":
+                            aggs.append(("cdist", aimgs, av))
+                        else:
+                            vals = be.astype(_shard_of(arg.data, ref, L), out_dt)
+                            aggs.append(("sdist", aimgs + [vals], av))
+                    elif spec.fn in ("count", "count_star"):
+                        aggs.append(("count", [torch.ones(
+                            (L,), dtype=torch.int64, device=ref.device)], av))
+                    elif spec.fn == "sum":
+                        vals = be.astype(_shard_of(arg.data, ref, L), out_dt)
+                        aggs.append(("sum", [vals], av))
+                    else:  # min / max (DISTINCT is a no-op for them)
+                        aggs.append((spec.fn, [_shard_of(arg.data, ref, L)],
+                                     av))
+                per.append((imgs, h, reps, aggs,
+                            ones if v.row_valid is None else v.row_valid))
         except _WideShip:
             return None
-        dev = self.session.device
-        imgs = [_on(x, dev, n) for x in keymod.grouping_images(key_cols)]
-        h = _on(hashing.hash_columns(key_cols), dev, n)
-        rep_arrays = [_on(a, dev, n) for a in rep_arrays]
-        ones = torch.ones((n,), dtype=torch.bool, device=dev)
-        aggs_in = []  # (kind, [arrays], valid)
-        for spec in op.aggs:
-            arg = None if spec.arg is None else vt.col(spec.arg)
-            av = ones if arg is None or arg.valid is None else _on(arg.valid, dev, n)
-            out_dt = np_dtype(spec.out.type)
-            if spec.distinct and spec.fn in ("count", "sum"):
-                aimgs = [_on(x, dev, n) for x in keymod.grouping_images([arg])]
-                if spec.fn == "count":
-                    aggs_in.append(("cdist", aimgs, av))
-                else:
-                    vals = be.astype(_on(arg.data, dev, n), out_dt)
-                    aggs_in.append(("sdist", aimgs + [vals], av))
-            elif spec.fn in ("count", "count_star"):
-                aggs_in.append(("count", [torch.ones((n,), dtype=torch.int64,
-                                                     device=dev)], av))
-            elif spec.fn == "sum":
-                vals = be.astype(_on(arg.data, dev, n), out_dt)
-                aggs_in.append(("sum", [vals], av))
-            else:  # min / max (DISTINCT is a no-op for them)
-                aggs_in.append((spec.fn, [_on(arg.data, dev, n)], av))
-        row_valid = None if vt.row_valid is None else _on(vt.row_valid, dev, n)
+
+        def sharded(get):
+            return Sharded(mesh, [get(p) for p in per], L)
+
+        imgs = [sharded(lambda p, j=j: p[0][j]) for j in range(len(per[0][0]))]
+        h = sharded(lambda p: p[1])
+        rep_arrays = [sharded(lambda p, j=j: p[2][j])
+                      for j in range(len(per[0][2]))]
+        aggs_in = [(k, [sharded(lambda p, a=a, j=j: p[3][a][1][j])
+                        for j in range(len(arrs))],
+                    sharded(lambda p, a=a: p[3][a][2]))
+                   for a, (k, arrs, _m) in enumerate(per[0][3])]
+        row_valid = None if sv.row_valid is None else sharded(lambda p: p[4])
+        ones = sharded(lambda p: torch.ones_like(p[1], dtype=torch.bool))
         ni, nr_ = len(imgs), len(rep_arrays)
         if has_distinct:
             # distinct aggregates cannot pre-combine: ship the raw rows keyed
@@ -942,7 +1133,12 @@ class Executor:
         n = dev["__num_rows__"]
         for c in op.cols:
             cols[c.cid] = dev[c.name]
-        vt = VTable(cols, n)
+        pad = dev["__pad_mask__"]
+        vt = VTable(cols, n, row_valid=pad)
+        from . import device as dv
+
+        if dv.is_sharded(vt):
+            return self._scan_on_mesh(op, vt)
         # ONE combined compaction for every pushed restriction: each
         # select_mask costs a count sync + a gather over all columns —
         # evaluating restrictions on the full columns first is safe
@@ -960,6 +1156,40 @@ class Executor:
             vt = vt.select_mask(mask)
         return vt
 
+    def _scan_on_mesh(self, op: L.Scan, vt: VTable) -> VTable:
+        """The scan of a table held on the mesh (the port of the reference's
+        scan over its sharded columns): each position evaluates the
+        restrictions over its own rows (they are row-wise), their truth
+        mask is anded with the pad mask, and the result stays on the mesh
+        under that selection vector where _lazy_ok; otherwise each
+        position compacts its rows and the survivors leave the mesh. Pad
+        rows hold zeros: what a restriction computes on them is masked by
+        the conjunction."""
+        if op.restrictions:
+            vt = self._mask_on_mesh(vt, op.restrictions)
+        if vt.row_valid is None or self._lazy_ok(vt.num_rows):
+            return vt
+        return self._gather_input(vt)
+
+    def _mask_on_mesh(self, vt: VTable, preds) -> VTable:
+        """`vt` (held on the mesh) under its selection vector anded with
+        the truth of every predicate, evaluated position by position."""
+        from ..parallel.mesh import Sharded
+
+        mesh = _mesh_of(vt)
+        L = _local_len(vt)
+        masks = []
+        for i, v in enumerate(_views(vt)):
+            ref = _view_ref(v, mesh, i)
+            m = None
+            for r in preds:
+                t = _shard_of(sc.truth_mask(sc.eval_expr(r, v.cols)), ref, L)
+                m = t if m is None else m & t
+            if v.row_valid is not None:
+                m = m & v.row_valid
+            masks.append(m)
+        return VTable(vt.cols, vt.num_rows, row_valid=Sharded(mesh, masks, L))
+
     def _run_constrel(self, op: L.ConstRel) -> VTable:
         n = len(op.rows)
         cols = {}
@@ -970,10 +1200,16 @@ class Executor:
 
     # ------------------------------------------------------------- unary ops
     def _run_select(self, op: L.Select) -> VTable:
+        from . import device as dv
+
         fused = self._try_fused_chain(op)
         if fused is not None:
             return fused
-        vt = self.run(op.child)
+        vt = self.run_sharded(op.child)
+        if dv.is_sharded(vt):
+            out = self._mask_on_mesh(vt, [op.predicate])
+            return out if self._lazy_ok(out.num_rows) else \
+                self._gather_input(out)
         if vt.num_rows == 0:
             return vt
         mask = sc.truth_mask(sc.eval_expr(op.predicate, vt.cols))
@@ -984,11 +1220,60 @@ class Executor:
         return vt.select_mask(mask)
 
     def _run_map(self, op: L.Map) -> VTable:
-        vt = self.run(op.child)
+        from . import device as dv
+
+        vt = self.run_sharded(op.child)
+        if dv.is_sharded(vt):
+            out = self._map_on_mesh(op, vt)
+            if out is not None:
+                return out
+            vt = self._gather_input(vt)
         cols = dict(vt.cols)
         for info, expr in op.computed:
             c = sc._bcast(sc.eval_expr(expr, cols), vt.num_rows)
             cols[info.cid] = c
+        return VTable(cols, vt.num_rows, row_valid=vt.row_valid)
+
+    def _map_on_mesh(self, op: L.Map, vt: VTable) -> Optional[VTable]:
+        """A Map over a table held on the mesh, position by position (its
+        expressions are row-wise); None where one yields a host (wide
+        decimal) column, which the caller computes over the gathered
+        table."""
+        from ..parallel.mesh import Sharded
+
+        mesh = _mesh_of(vt)
+        L = _local_len(vt)
+        outs = []
+        for i, v in enumerate(_views(vt)):
+            ref = _view_ref(v, mesh, i)
+            cols = dict(v.cols)
+            made = {}
+            for info, expr in op.computed:
+                c = sc._bcast(sc.eval_expr(expr, cols), L)
+                if is_obj(c.data):
+                    return None
+                c = SCol(c.type, _shard_of(c.data, ref, L),
+                         None if c.valid is None
+                         else _shard_of(c.valid, ref, L), c.dictionary)
+                cols[info.cid] = made[info.cid] = c
+            outs.append(made)
+        cols = dict(vt.cols)
+        for info, _expr in op.computed:
+            cs = [o[info.cid] for o in outs]
+            d0 = cs[0].dictionary
+            if any(c.dictionary is not d0 and not (
+                    c.dictionary is not None and d0 is not None
+                    and np.array_equal(c.dictionary, d0)) for c in cs):
+                return None  # a dictionary made from one position's rows
+            valid = None
+            if any(c.valid is not None for c in cs):
+                valid = Sharded(mesh, [
+                    c.valid if c.valid is not None
+                    else torch.ones_like(c.data, dtype=torch.bool)
+                    for c in cs], L)
+            cols[info.cid] = SCol(cs[0].type,
+                                  Sharded(mesh, [c.data for c in cs], L),
+                                  valid, cs[0].dictionary)
         return VTable(cols, vt.num_rows, row_valid=vt.row_valid)
 
     def _run_limit(self, op: L.Limit) -> VTable:
@@ -999,7 +1284,15 @@ class Executor:
         return vt.take(idx, hi - lo)
 
     def _run_sort(self, op: L.Sort) -> VTable:
-        vt = self.run(op.child).dense()
+        from . import device as dv
+
+        vt = self.run_sharded(op.child)
+        if dv.is_sharded(vt):
+            dist = self._try_distributed_sort(op, vt)
+            if dist is not None:
+                return dist
+            vt = self._gather_input(vt)
+        vt = vt.dense()
         if vt.num_rows == 0:
             return vt
         dist = self._try_distributed_sort(op, vt)
@@ -1514,6 +1807,7 @@ class Executor:
         from . import fused as F
 
         want_pair = epi is not None  # also when the epilogue declines below
+        epi_arg = epi  # what a rerun is asked for (it returns the pair too)
 
         def _ret(vt, applied):
             return (vt, applied) if want_pair else vt
@@ -1562,6 +1856,15 @@ class Executor:
                 return None  # host tier: the eager numpy operators run
             base_cols = [(c.cid, dev_t[c.name]) for c in cur.cols]
             base_restrictions = cur.restrictions
+            mesh_base = self._fused_mesh_base(op, dev_t, base_cols)
+            if mesh_base is False:
+                return None
+            if mesh_base is not None:
+                # a table held on the mesh: the program runs position by
+                # position over the shards (n rows each), the dense lanes
+                # are reduced across positions (_run_on_mesh)
+                n = mesh_base["L"]
+                epi = None  # the TopK epilogue declines on a mesh
         else:
             # materialized spine base (a shared Tmp, a finished aggregate):
             # it runs eagerly ONCE and feeds the program like a scan; it is
@@ -1582,12 +1885,20 @@ class Executor:
                     c.dictionary))
                 for cid, c in sorted(base_vt.cols.items())]
             base_restrictions = []
-        if any(not be.is_torch(t.data) or (t.valid is not None
-                                           and not be.is_torch(t.valid))
-               for _cid, t in base_cols):
+        if not isinstance(cur, L.Scan):
+            mesh_base = None
+        if mesh_base is None and any(
+                not be.is_torch(t.data) or (t.valid is not None
+                                            and not be.is_torch(t.valid))
+                for _cid, t in base_cols):
             return None  # host-only (wide-decimal) columns stay eager
         versions = tuple(sorted(self._subtree_versions(op)))
-        basekey = ("fused_agg", plan_key(op), versions)
+        pkey = plan_key(op)
+        if mesh_base is not None:
+            # its own capacities and graphs: a position's rows, not the
+            # table's (and the one-card session's graphs stay in the store)
+            pkey = (pkey, "mesh", mesh_base["mesh"].size)
+        basekey = ("fused_agg", pkey, versions)
         cache = self.session.stage_cache
         # the learned capacities and the decline marks belong to the
         # aggregate and are shared by its variants with and without the
@@ -1598,6 +1909,9 @@ class Executor:
                if epi is not None else basekey)
         if cache.get(key) == "eager":
             return None
+        if mesh_base is not None and cache.get(("fused_mesh_general",
+                                                basekey)):
+            return None  # its groups need the sorted grouping: no psum
         self._load_capacities(basekey, n, cache,
                               ("kg", "kbounds", "stepcaps", "dense"))
 
@@ -1668,14 +1982,16 @@ class Executor:
                   else [p for _cid, c in base_cols for p in (c.data, c.valid)
                         if p is not None])
 
-        def program(static):
-            cols = _rebind_cols(base_cols, static) if static else base_cols
+        def program(static, cols=None, pad=None, dev_p=dev, preps=join_preps):
+            if cols is None:
+                cols = (_rebind_cols(base_cols, static) if static
+                        else base_cols)
             m = {"base_rows": n}
             with be.no_host_reads():
                 r = self._fused_program(
-                    op, steps, join_preps, cols, base_restrictions, n, dev, m,
-                    spine=spine, kbounds=kbounds, presorted=presorted_group,
-                    kg=kg_learned, epi=epi)
+                    op, steps, preps, cols, base_restrictions, n, dev_p,
+                    m, spine=spine, kbounds=kbounds, presorted=presorted_group,
+                    kg=kg_learned, epi=epi, pad_mask=pad)
             return r, m
 
         from . import exestore
@@ -1710,9 +2026,20 @@ class Executor:
             cache[key] = "eager"
             return None
         try:
-            res, meta = self._run_program(
-                basekey, key[len(basekey):] or None, material, program, inputs,
-                calibrating=learning)
+            if mesh_base is not None:
+                got = self._run_on_mesh(
+                    op, mesh_base, basekey, material, learning,
+                    lambda cols, pad, dev_s, preps: lambda static: program(
+                        static, cols, pad, dev_s, preps), join_preps)
+                if got is None:
+                    self._learn(basekey, n, "dense", False)
+                    cache[("fused_mesh_general", basekey)] = True
+                    return None
+                res, meta = got
+            else:
+                res, meta = self._run_program(
+                    basekey, key[len(basekey):] or None, material, program,
+                    inputs, calibrating=learning)
         except (F.NotDense, be.HostRead, NotImplementedError):
             # a column or expression the program cannot carry on the device
             # (the reference's trace fails on the same ones): eager, for
@@ -1726,7 +2053,7 @@ class Executor:
                     [None] * len(op.group_by)) is not None)
             if meta.get("calibrating"):
                 self._learn_calibration(basekey, cache, meta, res)
-                return self._try_fused_agg(op, epi)
+                return self._try_fused_agg(op, epi_arg)
             applied = meta.get("epi") is not None
             if applied:
                 vt_out = self._finish_fused_epi(op, res, meta)
@@ -1743,7 +2070,7 @@ class Executor:
                 from ..utils import compilestats
 
                 compilestats.add("calibrations")
-                return self._try_fused_agg(op, epi)
+                return self._try_fused_agg(op, epi_arg)
             self._materialized_bases.pop(id(cur), None)
             return _ret(vt_out, applied)
         except F.CompactOverflow:
@@ -1751,7 +2078,7 @@ class Executor:
             # for this plan and these versions
             cache[("fused_nocompact", basekey)] = True
             self._rebuild(basekey, "lead compaction outgrown")
-            return self._try_fused_agg(op, epi)
+            return self._try_fused_agg(op, epi_arg)
         except F.MidCompactOverflow as mo:
             # a learned post-join cap was outgrown: record the observed count;
             # the rebuild re-derives the cap or drops the compaction
@@ -1760,31 +2087,129 @@ class Executor:
             stepcaps2[si_o] = int(v_o)
             self._learn(basekey, n, "stepcaps", stepcaps2)
             self._rebuild(basekey, f"step {si_o} cap outgrown ({v_o})")
-            return self._try_fused_agg(op, epi)
+            return self._try_fused_agg(op, epi_arg)
         except F.CapacityOverflow as ce:
             # the learned group capacity was outgrown: twice the true count
             g_real = ce.args[0]
             self._learn(basekey, n, "kg", 1 << (2 * g_real - 1).bit_length())
             self._rebuild(basekey, f"group capacity outgrown (g={g_real})")
-            return self._try_fused_agg(op, epi)
+            return self._try_fused_agg(op, epi_arg)
         except F.KBoundsOverflow:
             # key values outside the calibrated bounds: drop the bounded
             # dense path for this plan and rebuild general
             self._learn(basekey, n, "kbounds", False)
             self._rebuild(basekey, "key values outside the learned bounds")
-            return self._try_fused_agg(op, epi)
+            return self._try_fused_agg(op, epi_arg)
         except F.EpiOverflow:
             # the TopK candidates could not be proven exact: the plain
             # program and the eager epilogue, for this plan and these
             # versions
             cache[("fused_epi_decline", basekey)] = True
             self._rebuild(basekey, "TopK epilogue declined")
-            return self._try_fused_agg(op, epi)
+            return self._try_fused_agg(op, epi_arg)
         # No counterpart here of the reference's retry "without Pallas
         # kernels" (_GatherOverflow, ("fused_nopallas", basekey)): the
         # port's gathers have no overflow flag, since gather_sorted serves
         # every index, and a rerun without the kernels would be a fallback
         # that hides the kernel on the card.
+
+    def _fused_mesh_base(self, op, dev_t, base_cols):
+        """For the fused aggregate over a scan: None when the table is not
+        held on the mesh; False (decline) when it is but the program cannot
+        run position by position (a wide-decimal column); else the shards
+        of each position: {"mesh", "L", "cols": [per position: [(cid,
+        SCol)]], "pads": [per position: the pad mask's shard or None],
+        "devs": [per position: its device]}. Only the dense modes (a global
+        aggregate, or keys of small domains) run so: their lanes reduce
+        across positions with a psum (the reference's psum path)."""
+        from ..parallel.mesh import Sharded
+
+        if not any(isinstance(t.data, Sharded) for _cid, t in base_cols):
+            return None
+        if any(is_obj(t.data) for _cid, t in base_cols):
+            return False
+        mesh = next(t.data.mesh for _cid, t in base_cols
+                    if isinstance(t.data, Sharded))
+        pad = dev_t["__pad_mask__"]
+        cols = []
+        for i in range(len(mesh.local_positions)):
+            cols.append([(cid, SCol(t.type, t.data.shards[i],
+                                    None if t.valid is None
+                                    else t.valid.shards[i], t.dictionary))
+                         for cid, t in base_cols])
+        return {"mesh": mesh, "L": dev_t["__num_rows__"] // mesh.size,
+                "cols": cols,
+                "pads": [None if pad is None else pad.shards[i]
+                         for i in range(len(cols))],
+                "devs": [torch.device(mesh.devices[s])
+                         for s in mesh.local_positions]}
+
+    def _run_on_mesh(self, op, mb, basekey, material, learning, make,
+                     join_preps):
+        """(outputs, meta) of the fused aggregate over a table held on the
+        mesh: the program of each position over its shards, on the
+        position's own device with the dimension builds copied there once
+        (captured in that device's graph store, each position its own
+        graph: the key holds its shards' addresses), then its dense lanes
+        summed across positions (min and max lanes reduced by min and max)
+        with mesh.preduce, its survivor counts by max (each position's
+        compaction holds the same capacity), its out-of-bounds count summed.
+        The positions' programs are queued one after another and run on
+        their cards side by side. None when the program took the general
+        mode (sorted groups, which no psum combines)."""
+        import contextlib
+
+        from . import exestore
+        from ..parallel import mesh as msh
+
+        mesh = mb["mesh"]
+        runs = []
+        for cols, pad, dev_s in zip(mb["cols"], mb["pads"], mb["devs"]):
+            preps = self._preps_on(basekey, join_preps, dev_s)
+            mat = ((exestore.signature(cols), exestore.signature(pad),
+                    exestore.signature(preps)) + material[2:])
+            ctx = (torch.cuda.device(dev_s) if dev_s.type == "cuda"
+                   else contextlib.nullcontext())
+            with ctx:
+                res, meta = self._run_program(
+                    basekey, "mesh", mat, make(cols, pad, dev_s, preps), [],
+                    calibrating=learning, device=dev_s)
+            if meta.get("mode") != "dense":
+                return None
+            # a graph's outputs hold until the next replay: keep copies
+            runs.append(({k: _clone_out(v) for k, v in res.items()}, meta))
+        meta = dict(runs[0][1])
+        ops = ["sum"]  # present
+        for spec in op.aggs:
+            if spec.fn in ("count_star", "count"):
+                ops += ["sum", "sum"]
+            elif spec.fn == "sum":
+                ops += ["sum"] * (3 if spec.out.cid in meta["agg_limbs"]
+                                  else 2)
+            else:
+                ops += ["min" if spec.fn == "min" else "max", "sum"]
+        res = {"lanes": [msh.preduce(mesh, [r["lanes"][j] for r, _m in runs],
+                                     o) for j, o in enumerate(ops)]}
+        for k, o in (("extras", "max"), ("step_counts", "max")):
+            res[k] = [msh.preduce(mesh, [r[k][j] for r, _m in runs], o)
+                      for j in range(len(runs[0][0][k]))]
+        oob = [r["oob"] for r, _m in runs]
+        res["oob"] = None if oob[0] is None else msh.preduce(mesh, oob, "sum")
+        return res, meta
+
+    def _preps_on(self, basekey, join_preps, dev):
+        """The fused program's dimension builds on `dev`: the session's
+        own on its device, else their arrays copied there once (cached
+        beside them, per plan and table versions)."""
+        if dev == self.session.device or not join_preps:
+            return join_preps
+        key = ("fused_prep", basekey, str(dev))
+        got = self.session.stage_cache.get(key)
+        if got is None:
+            got = {si: {**p, "arrays": [a.to(dev) for a in p["arrays"]]}
+                   for si, p in join_preps.items()}
+            self.session.stage_cache[key] = got
+        return got
 
     def _plan_spine(self, steps, join_preps, cur, entry, base_restrictions,
                     n, basekey, cache, used_last) -> dict:
@@ -1865,16 +2290,17 @@ class Executor:
 
     def _fused_program(self, op, steps, join_preps, base_cols,
                        base_restrictions, n, dev, meta, *, spine, kbounds,
-                       presorted, kg, epi=None) -> dict:
+                       presorted, kg, epi=None, pad_mask=None) -> dict:
         """The fused program itself: every operation on the session's
         tensors, nothing read back to the host. Returns its outputs by name
         and fills `meta` with what the finish needs to read them. A TopK
-        epilogue applies in the general mode, outside calibration."""
+        epilogue applies in the general mode, outside calibration. Over one
+        mesh position's shard, `pad_mask` marks its true rows."""
         from . import fused as F
 
         env, mask, cur_n, out = F.run_spine(
             steps, join_preps, base_cols, base_restrictions, n, dev, meta,
-            **spine)
+            pad_mask=pad_mask, **spine)
         if mask is not None and mask.ndim == 0:
             mask = F.on_device(mask, cur_n, dev)
         oob_cnt = None
@@ -2139,21 +2565,23 @@ class Executor:
     def _rebuild(self, basekey, why: str) -> None:
         """A learned capacity was outgrown: the captured programs of
         `basekey` are dropped, the caller runs the program again."""
-        self.session.exestore.drop(basekey)
+        for store in self.session.graph_stores():
+            store.drop(basekey)
         self._perf_note(f"rebuild {basekey[0]}: {why}")
 
     def _run_program(self, basekey, variant, material, program, inputs,
-                     calibrating=False):
+                     calibrating=False, device=None):
         """(outputs, meta) of a fused program: replayed from its CUDA graph
         (runtime/exestore.py, captured on the first run at these learned
-        capacities), or run as it is called where it calibrates or the
+        capacities, in the graph store of `device`, by default the
+        session's), or run as it is called where it calibrates or the
         store's comparison switch is off."""
         from . import exestore
 
         if exestore.CAPTURE and not calibrating:
             t0 = self._perf_sync()
-            got = self.session.exestore.run(basekey, variant, material,
-                                            program, inputs)
+            got = self.session.graph_store(device).run(
+                basekey, variant, material, program, inputs)
             self._perf_note(f"{basekey[0]} from its graph: "
                             f"{(self._perf_sync() - t0) * 1e3:.3f} ms")
             return got
@@ -2664,11 +3092,11 @@ class Executor:
         fused = self._try_fused_agg(op)
         if fused is not None:
             return fused
-        vt = self.run(op.child)
+        vt = self.run_sharded(op.child)
         sharded = self._try_sharded_agg(op, vt)
         if sharded is not None:
             return sharded
-        vt = vt.dense()
+        vt = self._gather_input(vt).dense()
         n = vt.num_rows
         key_cols = [vt.col(c) for c in op.group_by]
         if op.group_by:
@@ -2705,10 +3133,27 @@ class Executor:
             return fused
         from . import device as dv
 
-        lvt = self.run(op.left)
-        rvt = self.run(op.right)
-        lvt, rvt = dv.align_devices(lvt, rvt)
         kind = op.kind
+        lvt = self.run_sharded(op.left)
+        rvt = self.run_sharded(op.right)
+        lcids = {c.cid for c in op.left.output_cols()}
+        rcids = {c.cid for c in op.right.output_cols()}
+        if dv.is_sharded(lvt) or dv.is_sharded(rvt):
+            # a side held on the mesh: the sharded join takes it as it is;
+            # where that declines, each such side leaves the mesh whole
+            lkeys, rkeys, null_safe = extract_equi_keys(op.predicate, lcids,
+                                                        rcids)
+            if (lkeys and op.null_aware is None and kind in (
+                    "inner", "semi", "anti", "left", "mark", "single",
+                    "full")):
+                sharded = self._try_sharded_join(op, kind, lvt, rvt, lkeys,
+                                                 rkeys, null_safe)
+                if sharded is not None:
+                    self._perf_note(f"join strategy=sharded kind={kind} "
+                                    f"nl={lvt.num_rows} nr={rvt.num_rows}")
+                    return sharded
+            lvt, rvt = self._gather_input(lvt), self._gather_input(rvt)
+        lvt, rvt = dv.align_devices(lvt, rvt)
         nl, nr = lvt.num_rows, rvt.num_rows
 
         if kind == "cross" and op.predicate is None:
@@ -2760,8 +3205,6 @@ class Executor:
                     cols[c.cid] = rvt.col(c.cid)
                 return VTable(cols, nr)
 
-        lcids = {c.cid for c in op.left.output_cols()}
-        rcids = {c.cid for c in op.right.output_cols()}
         lkeys, rkeys, null_safe = extract_equi_keys(op.predicate, lcids, rcids)
 
         if not lkeys:
@@ -2784,12 +3227,11 @@ class Executor:
                     rk.append(sc._bcast(b, nr))
                 return lk, rk
 
-            lk, rk = _eval_keys()
             if (kind in ("inner", "semi", "anti", "left", "mark", "single",
                          "full")
                     and op.null_aware is None):
-                sharded = self._try_sharded_join(op, kind, lvt, rvt, lk, rk,
-                                                 null_safe)
+                sharded = self._try_sharded_join(op, kind, lvt, rvt, lkeys,
+                                                 rkeys, null_safe)
                 if sharded is not None:
                     self._perf_note(f"join strategy=sharded kind={kind} "
                                     f"nl={nl} nr={nr}")
@@ -2798,7 +3240,7 @@ class Executor:
                 # non-sharded strategies index dense layouts
                 lvt, rvt = lvt.dense(), rvt.dense()
                 nl, nr = lvt.num_rows, rvt.num_rows
-                lk, rk = _eval_keys()
+            lk, rk = _eval_keys()
             fast = self._try_unique_key_join(op, kind, lvt, rvt, lk, rk,
                                              null_safe)
             if fast is None and kind == "inner":
@@ -3387,20 +3829,154 @@ def _on(x, device, n: int) -> torch.Tensor:
     return x
 
 
-def _heavy_hitters(h: torch.Tensor, valid, n_ax: int) -> torch.Tensor:
+def _clone_out(v):
+    """A copy of a program's output (a tensor, a list of them, or
+    another value)."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_clone_out(x) for x in v)
+    return v
+
+
+def _mesh_of(vt: VTable):
+    """The mesh of a table held on it (its first Sharded value's)."""
+    from ..parallel.mesh import Sharded
+
+    for x in [vt.row_valid] + [p for c in vt.cols.values()
+                               for p in (c.data, c.valid)]:
+        if isinstance(x, Sharded):
+            return x.mesh
+    raise ExecError("not a table held on the mesh")
+
+
+def _local_len(vt: VTable) -> int:
+    return vt.num_rows // _mesh_of(vt).size
+
+
+def _views(vt: VTable) -> list:
+    """A table held on the mesh as one VTable a local position: its
+    shards' tensors (host columns sliced to the position's rows), its
+    selection vector's shard."""
+    from ..parallel.mesh import Sharded
+
+    mesh = _mesh_of(vt)
+    L = vt.num_rows // mesh.size
+
+    def piece(x, i, s):
+        if x is None:
+            return None
+        if isinstance(x, Sharded):
+            return x.shards[i]
+        return x[s * L:(s + 1) * L]
+
+    out = []
+    for i, s in enumerate(mesh.local_positions):
+        cols = {cid: SCol(c.type, piece(c.data, i, s), piece(c.valid, i, s),
+                          c.dictionary) for cid, c in vt.cols.items()}
+        out.append(VTable(cols, L, row_valid=piece(vt.row_valid, i, s)))
+    return out
+
+
+def _shard_of(x, ref: torch.Tensor, n: int) -> torch.Tensor:
+    """A per-position value (a tensor, a host array or a scalar) as an
+    n-row tensor beside `ref`."""
+    if not isinstance(x, torch.Tensor):
+        x = be.like(np.asarray(x), ref)
+    x = x.to(ref.device)
+    if tuple(x.shape) != (n,):
+        x = x.broadcast_to((n,)).contiguous()
+    return x
+
+
+def _view_ref(v: VTable, mesh, i: int) -> torch.Tensor:
+    """A tensor on a view's position's device (for placing host values)."""
+    for c in v.cols.values():
+        if isinstance(c.data, torch.Tensor):
+            return c.data
+    if isinstance(v.row_valid, torch.Tensor):
+        return v.row_valid
+    return torch.empty(0, device=mesh.devices[mesh.local_positions[i]])
+
+
+def _live_rows(row_valid) -> int:
+    """The live rows under a selection vector (Sharded: over every
+    position)."""
+    from ..parallel import mesh as msh
+
+    if isinstance(row_valid, msh.Sharded):
+        return int(msh.to_host(row_valid.mesh, [
+            s.sum(dtype=torch.int64).reshape(1)
+            for s in row_valid.shards]).sum())
+    return int(jnp.sum(row_valid))
+
+
+def _heavy_hitters_sharded(h, valid, n_ax: int) -> torch.Tensor:
     """The hashes that take more than 1 / (2 n_ax) of a sample of h's live
-    rows (every max(1, rows / 2^16)-th row): the keys a skewed join splits.
-    The sample skips dead rows, which the reference's sample reads."""
-    step = max(1, int(h.shape[0]) // (1 << 16))
-    samp = h[::step]
+    rows (every max(1, rows / 2^16)-th global row of the Sharded h): the
+    keys a skewed join splits. Every process reads the same sample. The
+    sample skips dead rows, which the reference's sample reads."""
+    from ..parallel.shuffle import take_rows
+
+    rows = h.mesh.size * h.local_len
+    idx = np.arange(0, rows, max(1, rows // (1 << 16)), dtype=np.int64)
+    idx_dev = torch.from_numpy(idx).to(h.shards[0].device)
+    samp = take_rows(h, idx, idx_dev)
     if valid is not None:
-        samp = samp[valid[::step]]
+        samp = samp[take_rows(valid, idx, idx_dev).to(samp.device)]
     samp = be.to_host(samp)
+    dev = h.shards[0].device
     if samp.size == 0:
-        return h[:0]
+        return torch.zeros((0,), dtype=torch.int64, device=dev)
     vals_u, cnts_u = np.unique(samp, return_counts=True)
     heavy = vals_u[cnts_u / samp.size > 1.0 / (2 * n_ax)]
-    return torch.from_numpy(np.ascontiguousarray(heavy)).to(h.device)
+    return torch.from_numpy(np.ascontiguousarray(heavy)).to(dev)
+
+
+def _stay_local(mesh, side: dict, heavy: torch.Tensor) -> None:
+    """The rows of `side` (per-position lists of the sharded join) whose
+    hash is hot stay on their own position."""
+    for i, s in enumerate(mesh.local_positions):
+        hot = torch.isin(side["h"][i], heavy.to(side["h"][i].device))
+        d = side["dest"][i]
+        side["dest"][i] = torch.where(hot, torch.full_like(d, s), d)
+
+
+def _replicate_hot(mesh, side: dict, heavy: torch.Tensor, ln: int) -> int:
+    """Each position appends its rows of `side` whose hash is hot, once for
+    every destination position (the other side's hot rows stay local, so
+    each pair forms on one position); every position appends the same
+    count of rows, its own padded with dead ones. Returns the new local
+    length."""
+    from ..parallel import mesh as msh
+
+    from ..ops import pgather
+
+    n_ax = mesh.size
+    hots = [torch.isin(h, heavy.to(h.device)) for h in side["h"]]
+    counts = msh.to_host(mesh, [x.sum(dtype=torch.int64).reshape(1)
+                                for x in hots]).reshape(-1)  # one read
+    width = int(counts.max())
+    if width == 0:
+        return ln
+    for i, (s, hot) in enumerate(zip(mesh.local_positions, hots)):
+        dev = hot.device
+        # the hot rows' positions, padded to `width` (K3: no read back)
+        _cnt, idx = pgather.nonzero_positions(hot, width)
+        idx = torch.as_tensor(idx, device=dev).to(torch.int64).clamp(0, ln - 1)
+        live = (torch.arange(width, device=dev) < int(counts[s])).repeat(n_ax)
+        rep = idx.repeat(n_ax)
+        v0 = side["valid"][i]
+        if v0 is None:
+            v0 = torch.ones((ln,), dtype=torch.bool, device=dev)
+        side["h"][i] = torch.cat([side["h"][i], side["h"][i][rep]])
+        if "ko" in side:
+            side["ko"][i] = torch.cat([side["ko"][i], side["ko"][i][rep]])
+        side["arrs"][i] = [torch.cat([a, a[rep]]) for a in side["arrs"][i]]
+        side["dest"][i] = torch.cat([side["dest"][i], torch.repeat_interleave(
+            torch.arange(n_ax, dtype=torch.int32, device=dev), width)])
+        side["valid"][i] = torch.cat([v0 & ~hot, v0[rep] & live])
+    return ln + n_ax * width
 
 
 class _WideShip(Exception):

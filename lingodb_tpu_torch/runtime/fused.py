@@ -329,17 +329,19 @@ def join_step(prep, env, mask, n: int, dev):
 
 def run_spine(steps, join_preps, base_cols, base_restrictions, n: int, dev,
               meta, *, compact_k, lead, used_after, used_from, mid_caps,
-              join_sis):
+              join_sis, pad_mask=None):
     """The spine inside a fused program (aggregate or chain): the base
     restrictions, then each Select/Map/dimension-Join step in turn, with the
     lead compaction before step `lead` and a learned compaction after each
     join in `mid_caps`. Returns (env, mask, rows, out): `out` holds each
     compaction's exact survivor count ("extras", described in
     meta["extras"]) and the survivors after each narrowing join
-    ("step_counts", one per meta["join_sis"])."""
+    ("step_counts", one per meta["join_sis"]). `pad_mask` (one mesh
+    position's shard of a table held on the mesh) starts the mask: its pad
+    rows are no rows."""
     env = {cid: SCol(t.type, t.data, t.valid, t.dictionary)
            for cid, t in base_cols}
-    mask = None
+    mask = pad_mask
     for r in base_restrictions:
         m = sc.truth_mask(sc.eval_expr(r, env))
         mask = m if mask is None else mask & m

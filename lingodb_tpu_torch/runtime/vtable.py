@@ -166,7 +166,13 @@ class VTable:
     device mesh (runtime/device.get_mesh) scans, Select, Map and the
     sharded join and aggregate defer their compaction with it
     (Executor._lazy_ok), and the next keyed exchange drops the dead rows
-    for free. Every operator that needs a dense table calls .dense()."""
+    for free. Every operator that needs a dense table calls .dense().
+
+    A table held on the mesh has parallel.mesh.Sharded columns (and
+    selection vector): the scan, Select and Map make one, the sharded
+    join, aggregate and sort and the fused aggregate take one, and
+    Executor.run gathers it whole for every other operator; the methods
+    below take whole columns only."""
 
     cols: dict[int, SCol] = field(default_factory=dict)
     num_rows: int = 0
@@ -211,8 +217,9 @@ class VTable:
             cols[cid] = SCol(c.type, out[("d", cid)], out.get(("v", cid)), c.dictionary)
         return VTable(cols, n)
 
-    def select_mask(self, mask) -> "VTable":
-        """Compact rows where mask is True (one host sync for the count)."""
+    def select_mask(self, mask, count: Optional[int] = None) -> "VTable":
+        """Compact rows where mask is True (one host sync for the count,
+        none when the caller knows it: `count`)."""
         from ..ops.backend import xnp
 
         if mask.ndim == 0:
@@ -220,7 +227,7 @@ class VTable:
         if self.row_valid is not None:
             mask = mask & self.row_valid
             return VTable(self.cols, self.num_rows).select_mask(mask)
-        n = int(xnp.sum(mask))
+        n = int(xnp.sum(mask)) if count is None else count
         if n == self.num_rows:
             return self
         from ..ops import pgather as pg

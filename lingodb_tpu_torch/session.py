@@ -55,8 +55,10 @@ class Session:
         # versions: join preps (uploaded LUTs + payloads), learned
         # capacities, decline markers
         self.stage_cache: dict = {}
-        # the fused programs captured as CUDA graphs (runtime/exestore.py)
+        # the fused programs captured as CUDA graphs (runtime/exestore.py);
+        # a mesh over several cards keeps one store for each other card
         self.exestore = GraphStore(self.device)
+        self._other_stores: dict = {}
 
     # ----------------------------------------------------------- public API
     def sql(self, query: str):
@@ -403,6 +405,20 @@ class Session:
         entry.storage.append_rows(rows)
 
     # ----------------------------------------------------------- device data
+    def graph_store(self, device=None) -> GraphStore:
+        """The store of the programs captured on `device` (None: the
+        session's): a graph replays on the card it was captured on."""
+        if device is None or torch.device(device) == self.device:
+            return self.exestore
+        device = torch.device(device)
+        store = self._other_stores.get(device)
+        if store is None:
+            store = self._other_stores[device] = GraphStore(device)
+        return store
+
+    def graph_stores(self) -> list:
+        return [self.exestore, *self._other_stores.values()]
+
     def _evict_device_memory(self) -> None:
         """Drop every cached device buffer this session pins: uploaded table
         columns, fused join preps (LUTs + payloads), the captured programs
@@ -410,7 +426,8 @@ class Session:
         rebuildable; the next query re-uploads what it actually touches and
         captures its program again."""
         compilestats.add("evictions")
-        self.exestore.clear()
+        for store in self.graph_stores():
+            store.clear()
         for _version, dev in self._device_cache.values():
             dev.evict()
         for k in [k for k in self.stage_cache
@@ -465,12 +482,24 @@ class Session:
 
 
 class _LazyDeviceTable:
-    """dict-like device view of a table; columns upload on first access."""
+    """dict-like device view of a table; columns upload on first access.
+
+    On a mesh (runtime/device.get_mesh) a table of at least dv.SMALL_ROWS
+    rows is held row-sharded from its upload, as the reference holds it
+    (lingodb_tpu/session.py): `__num_rows__` is the count padded to a
+    multiple of the mesh axis, `__pad_mask__` a Sharded bool column of the
+    true rows (None when the axis divides the count), every fixed-width
+    column and its validity a Sharded value, and wide decimals (object
+    dtype) stay on the host padded to the sharded count, their validity
+    padded false. On a mesh that spans processes each process uploads its
+    own positions only. The columns are held in one layout at a time (the
+    mesh's, or whole): a change of the mesh drops them."""
 
     def __init__(self, storage, session):
         self._storage = storage
         self._session = session
         self._cols: dict[str, SCol] = {}
+        self._layout = None  # the mesh the columns are held on
 
     def evict(self) -> bool:
         had = bool(self._cols)
@@ -498,16 +527,65 @@ class _LazyDeviceTable:
             col.dictionary,
         )
 
+    def _shard(self, col, mesh) -> SCol:
+        from .runtime import device as dv
+
+        dnp = np.asarray(col.data)
+        if dnp.dtype == np.object_:
+            # wide decimals (host Python ints) never upload: kept on the
+            # host, padded to the sharded row count (the exchange
+            # limb-splits them when they cross the mesh)
+            total = self["__num_rows__"]
+            valid = col.valid
+            pad = total - dnp.shape[0]
+            if pad:
+                dnp = np.concatenate([dnp, np.zeros(pad, dtype=object)])
+                if valid is not None:
+                    valid = np.concatenate([np.asarray(valid),
+                                            np.zeros(pad, np.bool_)])
+            return SCol(col.type, dnp, valid, col.dictionary)
+        data, _ = dv.shard_column(dnp, mesh)
+        valid = None
+        if col.valid is not None:
+            valid, _ = dv.shard_column(np.asarray(col.valid), mesh)
+        return SCol(col.type, data, valid, col.dictionary)
+
+    def _mesh(self):
+        from .runtime import device as dv
+
+        if self._storage.num_rows < dv.SMALL_ROWS:
+            return None
+        return dv.get_mesh()
+
     def __getitem__(self, key):
         from .runtime import device as dv
 
+        mesh = self._mesh()
+        rows = self._storage.num_rows
         if key == "__num_rows__":
-            return self._storage.num_rows
+            return rows if mesh is None else rows + (-rows) % mesh.size
+        if mesh is not self._layout:
+            self._cols.clear()
+            self._layout = mesh
+        if key == "__pad_mask__":
+            # the rows past the true count are padding on a mesh
+            if mesh is None or rows % mesh.size == 0:
+                return None
+            m = self._cols.get(key)
+            if m is None:
+                mask = np.zeros(self["__num_rows__"], np.bool_)
+                mask[:rows] = True
+                m, _ = dv.shard_column(mask, mesh)
+                self._cols[key] = m
+            return m
         c = self._cols.get(key)
         if c is None:
             col = self._storage.column(key)
             with tracer.Trace("runtime", f"upload:{self._storage.name}.{key}"):
-                if (self._storage.num_rows < dv.SMALL_ROWS
+                if mesh is not None:
+                    compilestats.add("uploads")
+                    c = self._shard(col, mesh)
+                elif (rows < dv.SMALL_ROWS
                         or np.asarray(col.data).dtype == np.object_):
                     # small tables stay host numpy: operators run through
                     # the numpy twin backend with no device dispatch. Wide

@@ -523,7 +523,8 @@ def test_sql_on_the_mesh(env, name, q, ordered, stats, against_ref):
         ref_res, ref_moved = _ref_rows(env, q)
         ok, msg = so.rows_equal(ours, so.our_rows(ref_res), ordered=ordered)
         assert ok, f"{name} against the reference: {msg}"
-        assert moved == ref_moved, (moved, ref_moved)
+        # the reference's counters (the port also counts its gathers)
+        assert {k: moved[k] for k in ref_moved} == ref_moved, (moved, ref_moved)
 
 
 def test_wide_decimal_payload_ships_over_mesh(env):
