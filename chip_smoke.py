@@ -97,6 +97,17 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               fused aggregate); rows equal; bytes copied host -> device,
               their rate, and the share of the copies' time under kernels
               (tools/gpu_profile.py's trace);
+              (a') the same q1 and q6 streamed at 1 GiB and at 64 MiB (q1
+              in chunks of 2^18 rows), the chunk program replayed from one
+              CUDA graph a staging slot against run as it is called
+              (tools/outofcore_bench.py's stream_runs), each from a session
+              that captured nothing for it: two captures and then a replay
+              a chunk in the first run, a replay a chunk in the second,
+              none uncaptured; wall ms of both runs, the host's launches a
+              chunk (torch.profiler, at 1 GiB), the host's fill ms; rows
+              equal to the resident run's; then each at 1 GiB with a chunk
+              program that reads the host (host_read_part): its capture
+              raises HostRead and it streams uncaptured, rows equal;
               (b) window functions over SF1 orders and lineitem (ranking,
               running and bounded frames, the sparse table's min/max,
               lag/lead/nth_value), card against CPU session;
@@ -184,6 +195,18 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               a pad mask); an operator without a sharded form gathers its
               input once ("gathers", which must move too: a window function
               over a filtered lineitem is the fourteenth statement)
+  12 (b).     the fused aggregate's general (sorted) mode over tables held
+              on the 8 positions: customer's 150,000 names (joined to
+              nation) and supplier's s_acctbal (below
+              system.shuffle_min_rows) must mark their plans, gather their
+              base once a run and run the one-card program from its graph
+              (a run after the capture: 1 gather, 0 captures, 1 replay);
+              c_name's sum over orders and customer must not (the
+              optimizer groups orders below the join); each held against
+              the one-card session, every K1-K3 call of its first run
+              checked, wall ms and host syncs against the eager operators;
+              then the 22 TPC-H queries on the mesh against one card,
+              listing those that take the gathered program
   13. upload  q1 and q6 over tools/tpchbig.py's SF10 lineitem (60M rows,
               from phase 9's cache) held sharded at upload over the 8
               positions: the fused aggregate runs position by position (one
@@ -1018,6 +1041,7 @@ def q6_numpy(tables) -> str:
 # ---- phase 9: the executor slice (out-of-core aggregate, window functions,
 # WITH RECURSIVE, the chunked non-equi join, sql_many and device LIKE)
 BIG_BUDGET = 1 << 30  # the out-of-core runs' system.device_byte_budget
+SMALL_BUDGET = 64 << 20  # phase 9 (a'): chunks of 2^18 rows for q1
 BIG_WIDTH = {"1": 44, "6": 28}  # bytes a row of the columns q1 / q6 scan
 WINDOW_QUERIES = {
     "ranking": "select sum(rn), sum(rk), sum(drk), max(rn) from (select "
@@ -1229,11 +1253,108 @@ def out_of_core_part(torch, pg, ldb, gpu_profile, device, sf, seed,
             if got["chunked"] != got["resident"]:
                 fail(f"slice (a) q{q}: chunked rows differ from the resident "
                      f"run's\n{got['chunked'][:2]}\n{got['resident'][:2]}")
+            graphs_part(torch, big, q, sql, rows, got["resident"])
     finally:
         settings.DEVICE_BYTE_BUDGET.set(str(default_budget))
         big._evict_device_memory()
         del big, table
         torch.cuda.empty_cache()
+
+
+def graphs_part(torch, big, q, sql, rows, resident):
+    """Phase 9 (a'): the chunk program replayed from one graph a staging
+    slot against run as it is called, at the 1 GiB budget and at 64 MiB
+    (chunks of 2^18 rows for q1); each from a session that has captured
+    nothing for it. Rows equal the resident run's."""
+    from lingodb_tpu_torch.tools import outofcore_bench
+    from lingodb_tpu_torch.utils import settings
+
+    for budget in (BIG_BUDGET, SMALL_BUDGET):
+        settings.DEVICE_BYTE_BUDGET.set(str(budget))
+        m, chunks = chunk_layout(rows, BIG_WIDTH[q], budget)
+        for captured in (True, False):
+            big._evict_device_memory()
+            t0 = time.perf_counter()
+            # a chunk's launches do not depend on its size: traced at 1 GiB
+            # only (at 64 MiB the trace of q1's 229 chunks took 12 s
+            # replayed and about 40 s uncaptured; tools/outofcore_bench.py
+            # --paths traces both budgets)
+            r = outofcore_bench.stream_runs(torch, big, sql, captured,
+                                            trace=budget == BIG_BUDGET)
+            label = f"slice (a') q{q} [{r['path']}, budget {budget}]"
+            if r.pop("rows") != resident or not r["same"]:
+                fail(f"{label}: rows differ from the resident run's")
+            if (r["chunk_rows"], r["chunks"]) != (m, chunks):
+                fail(f"{label}: chunks {r['chunk_rows']} x {r['chunks']} != "
+                     f"{m} x {chunks}")
+            # a graph is replayed for its own chunk right after its
+            # capture on the card (the CPU store's stand-in ran it then)
+            slots = min(2, chunks)
+            first = chunks if big.device.type == "cuda" else chunks - slots
+            want = (slots, first, 0, chunks) if captured else (0, 0, 0, 0)
+            got = (r["captures_first"], r["replays_first"],
+                   r["captures_second"], r["replays_second"])
+            if got != want:
+                fail(f"{label}: captures / replays of two runs {got} != "
+                     f"{want}")
+            per_chunk = ("not traced" if r["launches"] is None
+                         else f"{r['launches_per_chunk']:.2f}")
+            log(f"# {label}: chunks={chunks} m={m} wall_ms first "
+                f"{r['wall_ms_first']:.2f} second {r['wall_ms_second']:.2f} "
+                f"launches={r['launches']} launches_per_chunk={per_chunk} "
+                f"captures/replays "
+                f"first {got[0]}/{got[1]} second {got[2]}/{got[3]} "
+                f"host_fill_ms={r['host_fill_ms']:.2f} "
+                f"({time.perf_counter() - t0:.1f}s)")
+    host_read_part(torch, big, q, sql, resident)
+    big._evict_device_memory()
+
+
+def host_read_part(torch, big, q, sql, resident):
+    """Phase 9 (a'): a chunk program that reads the host (here the valid
+    count, read by a wrapper) cannot be captured: its capture raises
+    HostRead, the plan is marked ("chunked_eager") and streams uncaptured,
+    host reads and all; a second run goes straight there. Rows equal the
+    resident run's, nothing is captured."""
+    from lingodb_tpu_torch.ops import backend as be
+    from lingodb_tpu_torch.runtime import executor as ex
+    from lingodb_tpu_torch.utils import compilestats, settings
+
+    settings.DEVICE_BYTE_BUDGET.set(str(BIG_BUDGET))
+    big._evict_device_memory()
+    orig = ex.Executor._chunk_program
+
+    def reads_host(self, *args):
+        be.to_host(args[-1])  # the valid count: HostRead under capture
+        return orig(self, *args)
+
+    label = f"slice (a') q{q} [host read, budget {BIG_BUDGET}]"
+    ex.Executor._chunk_program = reads_host
+    try:
+        for run in ("first", "second"):
+            big.executor.last_chunked = None
+            c0 = compilestats.snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = big.sql(sql).format_rows()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            d = compilestats.delta(c0)
+            plan = big.executor.last_chunked
+            marked = any(isinstance(k, tuple) and k and k[0] == "chunked_eager"
+                         for k in big.stage_cache)
+            if plan is None or not marked:
+                fail(f"{label}: streamed {plan is not None}, marked {marked}")
+            if (d["captures"], d["replays"]) != (0, 0):
+                fail(f"{label}: captures / replays {d['captures']} / "
+                     f"{d['replays']} in the {run} run")
+            if out != resident:
+                fail(f"{label}: rows differ from the resident run's")
+            log(f"# {label}: {run} run streamed uncaptured, "
+                f"chunks={plan['chunks']} wall_ms={wall:.2f}, rows equal "
+                f"the resident run's")
+    finally:
+        ex.Executor._chunk_program = orig
 
 
 FLOAT_REL = 1e-12  # floats of the card against the CPU session's
@@ -2319,6 +2440,143 @@ def mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line, sqls):
         f"{SHUFFLE_MIN_ROWS.get()})")
 
 
+# ---- phase 12 (b): the general-mode fused aggregate over tables held on
+# the mesh: gathered once, the one-card program (its graph) over them.
+# name -> (sql, whether its plan must be marked for the gathered program)
+GENERAL_STATEMENTS = {
+    # string keys, 150,000 names at SF1: past the dense limit (65,536)
+    "names": ("select c_name, count(*), sum(c_acctbal) from customer, nation "
+              "where c_nationkey = n_nationkey and n_name <> 'CHINA' group "
+              "by c_name order by c_name", True),
+    # a decimal key over supplier (10,000 rows at SF1: held sharded, below
+    # system.shuffle_min_rows)
+    "acctbal": ("select s_acctbal, count(*) from supplier group by "
+                "s_acctbal order by s_acctbal", True),
+    # the optimizer groups orders by o_custkey below the join (a sharded
+    # grouping), so the fused aggregate's base is that grouping's result,
+    # not a table held on the mesh: the one-card program, unmarked
+    "names_over_orders": ("select c_name, sum(o_totalprice) from orders, "
+                          "customer where o_custkey = c_custkey group by "
+                          "c_name order by c_name", False),
+}
+
+
+def general_mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line):
+    """Phase 12 (b) (see the module docstring)."""
+    from lingodb_tpu_torch.parallel import shuffle as sh
+    from lingodb_tpu_torch.parallel.mesh import Mesh
+    from lingodb_tpu_torch.runtime import device as dv
+    from lingodb_tpu_torch.utils import compilestats
+
+    t_phase = time.perf_counter()
+    mesh = Mesh([gpu.device] * MESH_POSITIONS)
+    freeze_heap()
+    p12b: dict = {}
+    report = {"device": smi_line, "positions": MESH_POSITIONS,
+              "statements": {}, "tpch_marked": []}
+
+    def marks():
+        return sum(1 for k in gpu.stage_cache if isinstance(k, tuple)
+                   and k and k[0] == "fused_mesh_general")
+
+    def run(sql):
+        """(rows, wall ms, captures, replays, gathers) of one run."""
+        c0, g0 = compilestats.snapshot(), sh.STATS["gathers"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gpu.sql(sql)
+        torch.cuda.synchronize()
+        d = compilestats.delta(c0)
+        return (out, (time.perf_counter() - t0) * 1e3, d["captures"],
+                d["replays"], sh.STATS["gathers"] - g0)
+
+    old = dv._MESH, dv._MESH_INIT
+    try:
+        for name, (sql, marked) in GENERAL_STATEMENTS.items():
+            dv._MESH, dv._MESH_INIT = None, True
+            want = gpu.sql(sql)
+            one_ms = run(sql)[1]
+            dv._MESH = mesh
+            m0 = marks()
+            # the first run with every kernel call checked (uncaptured:
+            # a replay calls no wrapper), then captured, then replayed
+            with gpu_profile.uncaptured_path():
+                got, counts, nchk = run_checked(torch, pg,
+                                                lambda: gpu.sql(sql))
+            second = run(sql)
+            third = run(sql)
+            syncs, peak, _ = gpu_profile.syncs_and_peak(
+                torch, lambda: gpu.sql(sql))
+            with gpu_profile.eager_path():
+                gpu.sql(sql)
+                eager = run(sql)
+                eager_syncs, _p, _ = gpu_profile.syncs_and_peak(
+                    torch, lambda: gpu.sql(sql))
+            set_mark = marks() > m0
+            dv._MESH = None
+            for k, v in counts.items():
+                p12b[k] = p12b.get(k, 0) + v
+            for out in (got, second[0], third[0], eager[0]):
+                if not same_table(out, want):
+                    fail(f"mesh (b) {name}: rows differ from the one-card "
+                         f"session's\nmesh={out.format_rows()[:3]}\n"
+                         f"one card={want.format_rows()[:3]}")
+            if set_mark != marked:
+                fail(f"mesh (b) {name}: plan marked for the gathered program "
+                     f"{set_mark}, expected {marked}")
+            if marked and (third[4], third[2], third[3]) != (1, 0, 1):
+                fail(f"mesh (b) {name}: a replayed run made gathers, "
+                     f"captures, replays {third[4]}, {third[2]}, {third[3]}; "
+                     f"expected 1, 0, 1")
+            rec = {"rows": want.num_rows, "marked": set_mark,
+                   "one_card_ms": one_ms, "mesh_ms": third[1],
+                   "eager_ms": eager[1], "syncs": syncs,
+                   "eager_syncs": eager_syncs, "peak_mib": peak / 2**20,
+                   "captures_replays_gathers": [list(second[2:]),
+                                                list(third[2:])],
+                   "eager_gathers": eager[4], "launches": counts,
+                   "checked": nchk}
+            report["statements"][name] = rec
+            log(f"# mesh (b) {name}: rows={want.num_rows} marked={set_mark} "
+                f"wall_ms one card {one_ms:.2f} / gathered {third[1]:.2f} / "
+                f"eager {eager[1]:.2f}; syncs {syncs} / eager {eager_syncs}; "
+                f"captures, replays, gathers: run 2 {list(second[2:])}, run 3 "
+                f"{list(third[2:])}, eager {eager[4]}; peak_mib "
+                f"{peak / 2**20:.1f}; launches {json.dumps(counts)} "
+                f"checked={nchk}")
+        # which of the 22 TPC-H queries take the gathered program on the mesh
+        for q in range(1, 23):
+            sql = open(f"queries/tpch/{q}.sql").read()
+            dv._MESH, dv._MESH_INIT = None, True
+            want = gpu.sql(sql)
+            dv._MESH = mesh
+            m0 = marks()
+            got = gpu.sql(sql)
+            dv._MESH = None
+            if not same_table(got, want):
+                fail(f"mesh (b) q{q}: rows differ from the one-card "
+                     f"session's")
+            if marks() > m0:
+                report["tpch_marked"].append(q)
+        log(f"# mesh (b) TPC-H queries marked for the gathered program at "
+            f"this scale: {report['tpch_marked'] or 'none'} (all 22 equal "
+            f"the one-card session's)")
+    finally:
+        dv._MESH, dv._MESH_INIT = old
+    launches["p12b"] = {"gather_chunked": p12b.get("K1", 0),
+                        "gather_sorted": p12b.get("K2", 0),
+                        "compact_positions": p12b.get("K3", 0)}
+    report["launches"] = p12b
+    report["seconds"] = time.perf_counter() - t_phase
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "general_mesh.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"# p12b launches (K1, K2, K3 over phase 12 (b), each call "
+        f"checked): {json.dumps(p12b)}")
+    log(f"# mesh (b): phase 12 (b) took {report['seconds']:.1f}s "
+        f"({smi_line}; {MESH_POSITIONS} positions on one card)")
+
+
 # ---- phase 13: base tables held sharded at upload, the fused aggregate
 # position by position over SF10 lineitem
 UPLOAD_TOPK = ("select l_extendedprice, l_shipdate, l_quantity from lineitem "
@@ -2833,6 +3091,10 @@ def main() -> int:
     # ---- phase 12: the sharded operators over a mesh of 8 positions
     mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line,
                {q: open(f"queries/tpch/{q}.sql").read() for q in MESH_QUERIES})
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 12 (b)")
+    # ---- phase 12 (b): the general-mode fused aggregate on the mesh
+    general_mesh_phase(torch, pg, gpu_profile, gpu, launches, smi_line)
 
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 13")
     # ---- phase 13: base tables held sharded at upload, SF10 q1 and q6

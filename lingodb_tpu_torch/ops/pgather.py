@@ -472,10 +472,15 @@ def _planes_gather(planes, outs, idx32, monotone: bool, s: int):
     elif monotone:
         gather_sorted_planes(planes, idx32, outs=outs)
     else:
-        # random big-table gather: plain indexing, exactly where the
-        # reference goes to its framework's own take. (The reference also
-        # has a sort + sorted-gather + unsort route for large random
-        # gathers; it is a workaround for its hardware and is not ported.)
+        # random big-table gather: plain indexing, one plane at a time. The
+        # reference sends such gathers of at least 4M indices through a
+        # sort, its sorted gather and an unsort
+        # (lingodb_tpu/ops/pgather.py:801-816). On the card that route
+        # (tools/threshold_bench.py --only route: one stable sort, K2 at
+        # the sorted indices, a scatter back) took 1.52-8.13x the card time
+        # of plain indexing at every shape timed: n 1M-60M indices, tables
+        # of 1.5M and 15M rows, 1, 2 and 8 planes (NVIDIA H100 80GB HBM3,
+        # 700.00 W), so it is not taken here.
         j = idx32.to(torch.int64).clamp(0, s - 1)
         for o, t in zip(outs, planes):
             o.copy_(t[j])

@@ -14,8 +14,13 @@ card computes chunk i on the compute stream:
   compute that last read it (the copy stream waits on it).
 
 The last chunk is padded with zeros to `m` rows (the per-chunk function is
-one function of static shapes, masked by the valid count). On a CPU device
-the chunks are plain slices of the host columns.
+one function of static shapes, masked by the valid count). Each slot's
+device buffers stay at their addresses for the stream's life, so the
+chunk program is captured once per slot as a CUDA graph over them and
+replayed for every chunk the slot holds (Executor._try_chunked_agg keeps
+one stream a session and reuses it for any plan of the same layout, so a
+later run replays too). On a CPU device the
+slots are plain host tensors, filled by copies.
 """
 
 from __future__ import annotations
@@ -42,14 +47,17 @@ class ChunkStream:
         # device bytes allocated after each chunk's compute was enqueued
         # (no sync): flat across chunks when nothing accumulates
         self.allocated_after_chunk: list[int] = []
-        self._views: list = [None, None]
+        self._valid: list = [0, 0]
+        self.layout = self.layout_of(parts, m)
+        # the plans whose graphs were captured over this stream's slots
+        self.plans: set = set()
+        self.dev = [[torch.empty(m, dtype=tdtype(p.dtype), device=self.device)
+                     for p in parts] for _slot in range(2)]
         if not self.cuda:
             return
         self.copy_stream = torch.cuda.Stream(self.device)
         self.pinned = [[torch.empty(m, dtype=tdtype(p.dtype), pin_memory=True)
                         for p in parts] for _slot in range(2)]
-        self.dev = [[torch.empty(m, dtype=tdtype(p.dtype), device=self.device)
-                     for p in parts] for _slot in range(2)]
         # the device buffers are written on the copy stream: the allocator
         # must not hand their blocks out again before that stream is done
         for slot in self.dev:
@@ -57,6 +65,21 @@ class ChunkStream:
                 t.record_stream(self.copy_stream)
         self.copied: list = [None, None]
         self.consumed: list = [None, None]
+
+    @staticmethod
+    def layout_of(parts: list[np.ndarray], m: int) -> tuple:
+        """What a stream's slots are made for: the chunk's rows and the
+        parts' dtypes."""
+        return m, tuple(np.dtype(p.dtype).str for p in parts)
+
+    def restart(self, parts: list[np.ndarray], rows: int) -> None:
+        """Stream parts of the same layout (a later run, or another plan):
+        the same slots and buffers, the counters from zero."""
+        self.parts = parts
+        self.rows = rows
+        self.bytes_copied = 0
+        self.fill_s = 0.0
+        self.allocated_after_chunk = []
 
     def bounds(self, ci: int) -> tuple[int, int]:
         lo = ci * self.m
@@ -68,14 +91,11 @@ class ChunkStream:
         lo, hi = self.bounds(ci)
         k = hi - lo
         s = ci % 2
+        self._valid[s] = k
         if not self.cuda:
-            views = []
-            for p in self.parts:
-                a = np.array(p[lo:hi])
-                if k < self.m:
-                    a = np.concatenate([a, np.zeros(self.m - k, a.dtype)])
-                views.append(torch.from_numpy(a))
-            self._views[s] = (k, views)
+            for p, buf in zip(self.parts, self.dev[s]):
+                buf[:k].copy_(torch.from_numpy(np.array(p[lo:hi])))
+                buf[k:].zero_()
             return
         t0 = time.perf_counter()
         if self.copied[s] is not None:
@@ -102,15 +122,14 @@ class ChunkStream:
             ev = torch.cuda.Event()
             ev.record(self.copy_stream)
         self.copied[s] = ev
-        self._views[s] = (k, self.dev[s])
 
     def take(self, ci: int):
-        """(valid rows, tensors) of chunk ci, ready for the compute stream."""
+        """(valid rows, the slot's tensors) of chunk ci, ready for the
+        compute stream."""
         s = ci % 2
-        k, views = self._views[s]
         if self.cuda:
             torch.cuda.current_stream(self.device).wait_event(self.copied[s])
-        return k, views
+        return self._valid[s], self.dev[s]
 
     def release(self, ci: int) -> None:
         """Mark chunk ci's device buffers as read by the work enqueued so

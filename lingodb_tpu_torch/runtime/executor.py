@@ -457,6 +457,89 @@ class Executor:
         return {"table": table, "rows": rows, "width": width, "budget": budget,
                 "chunk_rows": m, "chunks": -(-rows // m)}
 
+    def _chunk_program(self, op, steps, scan, templates, m, domain, arrs,
+                       nvalid) -> tuple[dict, dict]:
+        """The out-of-core aggregate's program for one chunk: the scan's
+        restrictions, the Select/Map steps and the dense lanes of the
+        aggregate over `arrs` (one staging slot's buffers, `m` rows each),
+        masked to the first `nvalid` rows (a (1,) int64 tensor, so that a
+        captured graph reads it from its static input). Returns the lanes
+        by position and the meta the finish reads (held with the graph and
+        handed back at every replay): nothing is read to the host."""
+        meta = {"agg_dicts": {}, "agg_limbs": set()}
+        env = {}
+        i = 0
+        for cid, t, d, hv in templates:
+            data = arrs[i]
+            i += 1
+            valid = None
+            if hv:
+                valid = arrs[i]
+                i += 1
+            env[cid] = SCol(t, data, valid, d)
+        ref = arrs[0]
+        mask = be.iota(m, jnp.int64, ref) < nvalid
+        for r in scan.restrictions:
+            mask = mask & sc.truth_mask(sc.eval_expr(r, env))
+        for st in steps:
+            node = st[1]
+            if isinstance(node, L.Select):
+                mask = mask & sc.truth_mask(
+                    sc.eval_expr(node.predicate, env))
+            else:
+                for info, e in node.computed:
+                    env[info.cid] = sc.eval_expr(e, env)
+        if op.group_by:
+            key_cols = [sc._bcast(env[c], m) for c in op.group_by]
+            gid, _dom2 = gb.dense_gid(key_cols)
+        else:
+            gid = be.full(m, 0, jnp.int32, ref)
+
+        def msum(w):
+            wm = jnp.where(mask, w, jnp.zeros_like(w))
+            return be.segment_sum(wm, gid, num_segments=domain)
+
+        ones = be.full(m, 1, jnp.int64, ref)
+        outs = [msum(ones)]
+        for spec in op.aggs:
+            if spec.fn == "count_star":
+                outs.append(outs[0])
+                outs.append(outs[0])
+                continue
+            arg = sc._bcast(env[spec.arg], m)
+            avalid = arg.valid
+            vm = ones if avalid is None else be.astype(avalid, jnp.int64)
+            cnt = msum(vm)
+            if spec.fn == "count":
+                outs.append(cnt)
+                outs.append(cnt)
+                continue
+            if spec.fn == "sum":
+                data = be.astype(arg.data, np_dtype(spec.out.type))
+                if avalid is not None:
+                    data = jnp.where(avalid, data, jnp.zeros_like(data))
+                if (spec.out.type.kind == K.DECIMAL
+                        and dec_is_wide(spec.out.type)
+                        and be.dt(data) == np.int64):
+                    meta["agg_limbs"].add(spec.out.cid)
+                    outs.append(msum(data >> 32))
+                    outs.append(msum(data & 0xFFFFFFFF))
+                    outs.append(cnt)
+                    continue
+                outs.append(msum(data))
+                outs.append(cnt)
+                continue
+            sentinel = gb._extreme(be.dt(arg.data),
+                                   maximum=(spec.fn == "min"))
+            keep = mask if avalid is None else (mask & avalid)
+            data = jnp.where(keep, arg.data, sentinel)
+            red = (be.segment_min if spec.fn == "min"
+                   else be.segment_max)(data, gid, num_segments=domain)
+            meta["agg_dicts"][spec.out.cid] = arg.dictionary
+            outs.append(red)
+            outs.append(cnt)
+        return {i: o for i, o in enumerate(outs)}, meta
+
     def _try_chunked_agg(self, op, steps, scan) -> Optional[VTable]:
         """Out-of-core streaming scan+aggregate: when the scan columns
         exceed the device byte budget, stream the base table in fixed-size
@@ -473,7 +556,10 @@ class Executor:
         a device-sized chunk and the merge is the host-side combine (the
         ThreadLocal::merge role). The engage decision is kept in
         `self.last_chunked`."""
+        from ..plan.serial import plan_key
         from . import device as dv
+        from . import exestore
+        from . import fused as F
         from .chunked import ChunkStream
 
         if dv.get_mesh() is not None:
@@ -509,14 +595,10 @@ class Executor:
             return None
 
         rows, m, n_chunks = plan["rows"], plan["chunk_rows"], plan["chunks"]
-        self.last_chunked = plan
 
         templates = [(info.cid, col.type, col.dictionary,
                       col.valid is not None)
                      for info, col in zip(scan.cols, cols)]
-        meta = {"mode": "dense", "domain": domain, "radices": radices,
-                "key_templates": key_templates, "agg_dicts": {},
-                "agg_limbs": set(), "key_offsets": None, "join_sis": ()}
         kinds = ["sum"]  # the `present` lane
         for spec in op.aggs:
             if spec.fn in ("count_star", "count"):
@@ -532,86 +614,33 @@ class Executor:
             else:  # max / any_value
                 kinds += ["max", "sum"]
 
-        def fn(nvalid, arrs):
-            env = {}
-            i = 0
-            for cid, t, d, hv in templates:
-                data = arrs[i]
-                i += 1
-                valid = None
-                if hv:
-                    valid = arrs[i]
-                    i += 1
-                env[cid] = SCol(t, data, valid, d)
-            ref = arrs[0]
-            mask = be.iota(m, jnp.int64, ref) < nvalid
-            for r in scan.restrictions:
-                mask = mask & sc.truth_mask(sc.eval_expr(r, env))
-            for st in steps:
-                node = st[1]
-                if isinstance(node, L.Select):
-                    mask = mask & sc.truth_mask(
-                        sc.eval_expr(node.predicate, env))
-                else:
-                    for info, e in node.computed:
-                        env[info.cid] = sc.eval_expr(e, env)
-            if op.group_by:
-                key_cols = [sc._bcast(env[c], m) for c in op.group_by]
-                gid, _dom2 = gb.dense_gid(key_cols)
-            else:
-                gid = be.full(m, 0, jnp.int32, ref)
-
-            def msum(w):
-                wm = jnp.where(mask, w, jnp.zeros_like(w))
-                return be.segment_sum(wm, gid, num_segments=domain)
-
-            ones = be.full(m, 1, jnp.int64, ref)
-            outs = [msum(ones)]
-            for spec in op.aggs:
-                if spec.fn == "count_star":
-                    outs.append(outs[0])
-                    outs.append(outs[0])
-                    continue
-                arg = sc._bcast(env[spec.arg], m)
-                avalid = arg.valid
-                vm = ones if avalid is None else be.astype(avalid, jnp.int64)
-                cnt = msum(vm)
-                if spec.fn == "count":
-                    outs.append(cnt)
-                    outs.append(cnt)
-                    continue
-                if spec.fn == "sum":
-                    data = be.astype(arg.data, np_dtype(spec.out.type))
-                    if avalid is not None:
-                        data = jnp.where(avalid, data, jnp.zeros_like(data))
-                    if (spec.out.type.kind == K.DECIMAL
-                            and dec_is_wide(spec.out.type)
-                            and be.dt(data) == np.int64):
-                        meta["agg_limbs"].add(spec.out.cid)
-                        outs.append(msum(data >> 32))
-                        outs.append(msum(data & 0xFFFFFFFF))
-                        outs.append(cnt)
-                        continue
-                    outs.append(msum(data))
-                    outs.append(cnt)
-                    continue
-                sentinel = gb._extreme(be.dt(arg.data),
-                                       maximum=(spec.fn == "min"))
-                keep = mask if avalid is None else (mask & avalid)
-                data = jnp.where(keep, arg.data, sentinel)
-                red = (be.segment_min if spec.fn == "min"
-                       else be.segment_max)(data, gid, num_segments=domain)
-                meta["agg_dicts"][spec.out.cid] = arg.dictionary
-                outs.append(red)
-                outs.append(cnt)
-            return outs
-
         parts = []
         for (_cid, _t, _d, hv), col in zip(templates, cols):
             parts.append(col.data)
             if hv:
                 parts.append(col.valid)
-        stream = ChunkStream(parts, rows, m, self.session.device)
+        basekey = ("chunked_agg", plan_key(op),
+                   tuple(sorted(self._subtree_versions(op))))
+        cache = self.session.stage_cache
+        # ONE stream a session (its two staging slots: about two thirds of
+        # the budget on the device, as much pinned on the host), kept for
+        # the next run of any plan of the same layout, whose graphs replay
+        # over its slots; a plan of another layout replaces it, and the
+        # graphs captured over the old slots go with it
+        stream = cache.get(("chunk_stream",))
+        if stream is not None and stream.layout == ChunkStream.layout_of(
+                parts, m):
+            stream.restart(parts, rows)
+        else:
+            if stream is not None:
+                for store in self.session.graph_stores():
+                    for key in stream.plans:
+                        store.drop(key)
+            stream = ChunkStream(parts, rows, m, self.session.device)
+            cache[("chunk_stream",)] = stream
+        stream.plans.add(basekey)
+        # a chunk program that cannot be captured streams uncaptured
+        eager = bool(cache.get(("chunked_eager", basekey)))
 
         def _norm(host):
             """Chunk lanes -> accumulable form (limb pairs become ONE exact
@@ -624,30 +653,63 @@ class Executor:
                     out[i + 1] = np.zeros_like(host[i + 1])
             return out
 
+        def program_of(arrs):
+            def program(static):
+                with be.no_host_reads():
+                    return self._chunk_program(op, steps, scan, templates, m,
+                                               domain, arrs, static[0])
+            return program
+
         acc = None
         with tracer.Trace("execution", f"chunked_agg:{scan.table}"):
             stream.stage(0)
-            for ci in range(n_chunks):
-                nv, arrs = stream.take(ci)
-                outs = fn(nv, arrs)
-                stream.release(ci)
-                if ci + 1 < n_chunks:
-                    stream.stage(ci + 1)  # its copy rides this chunk's compute
-                got = dv.fetch_arrays_np({i: o for i, o in enumerate(outs)})
-                host = _norm([got[i] for i in range(len(outs))])
-                del arrs, outs
-                if acc is None:
-                    acc = host
-                    continue
-                for i, k in enumerate(kinds):
-                    if k in ("sum", "limb"):
-                        acc[i] = acc[i] + host[i]
-                    elif k == "min":
-                        acc[i] = np.minimum(acc[i], host[i])
-                    elif k == "max":
-                        acc[i] = np.maximum(acc[i], host[i])
-                    # "lo": placeholder, stays zero
-            stream.finish()
+            try:
+                for ci in range(n_chunks):
+                    nv, arrs = stream.take(ci)
+                    # the valid count, written on the compute stream after
+                    # the wait on the slot's copy: the graph's one input
+                    nvt = be.full(1, nv, jnp.int64, arrs[0])
+                    if not eager:
+                        try:
+                            res, meta = self._run_program(
+                                basekey, "chunk",
+                                (m, exestore.signature(arrs)),
+                                program_of(arrs), [nvt])
+                        except (F.NotDense, be.HostRead, NotImplementedError):
+                            # an expression only the host computes (wide
+                            # decimals, a cast to a string): this plan
+                            # streams uncaptured from here on, as it is
+                            # called, host reads and all
+                            cache[("chunked_eager", basekey)] = eager = True
+                    if eager:
+                        res, meta = self._chunk_program(
+                            op, steps, scan, templates, m, domain, arrs, nvt)
+                    stream.release(ci)
+                    if ci + 1 < n_chunks:
+                        stream.stage(ci + 1)  # its copy rides this compute
+                    # read before the next replay: a graph's outputs hold
+                    # until then
+                    got = dv.fetch_arrays_np(res)
+                    host = _norm([got[i] for i in range(len(res))])
+                    del arrs, res
+                    if acc is None:
+                        acc = host
+                        continue
+                    for i, k in enumerate(kinds):
+                        if k in ("sum", "limb"):
+                            acc[i] = acc[i] + host[i]
+                        elif k == "min":
+                            acc[i] = np.minimum(acc[i], host[i])
+                        elif k == "max":
+                            acc[i] = np.maximum(acc[i], host[i])
+                        # "lo": placeholder, stays zero
+            finally:
+                stream.finish()
+        self.last_chunked = plan
+        meta = {"mode": "dense", "domain": domain, "radices": radices,
+                "key_templates": key_templates, "key_offsets": None,
+                "join_sis": (), "agg_dicts": meta["agg_dicts"],
+                "agg_limbs": meta["agg_limbs"]}
         plan["bytes_copied"] = stream.bytes_copied
         plan["host_fill_ms"] = stream.fill_s * 1e3
         plan["allocated_after_chunk"] = stream.allocated_after_chunk
@@ -1866,24 +1928,10 @@ class Executor:
                 n = mesh_base["L"]
                 epi = None  # the TopK epilogue declines on a mesh
         else:
-            # materialized spine base (a shared Tmp, a finished aggregate):
-            # it runs eagerly ONCE and feeds the program like a scan; it is
-            # stashed at once, so that a later decline does not run it again
-            base_vt = self.run(cur).dense()
-            self._materialized_bases[id(cur)] = base_vt
-            n = base_vt.num_rows
+            # materialized spine base (a shared Tmp, a finished aggregate)
+            base_cols, n = self._materialized_base(cur)
             if n < dv.SMALL_ROWS:
                 return None
-            # a result of the dense grouping lives on the host tier: it is
-            # uploaded, as the reference's program takes host arrays in
-            # (wide-decimal object columns stay on the host and decline)
-            base_cols = [
-                (cid, c if is_obj(c.data) else SCol(
-                    c.type, F.on_device(c.data, n, self.session.device),
-                    None if c.valid is None
-                    else F.on_device(c.valid, n, self.session.device),
-                    c.dictionary))
-                for cid, c in sorted(base_vt.cols.items())]
             base_restrictions = []
         if not isinstance(cur, L.Scan):
             mesh_base = None
@@ -1911,7 +1959,15 @@ class Executor:
             return None
         if mesh_base is not None and cache.get(("fused_mesh_general",
                                                 basekey)):
-            return None  # its groups need the sorted grouping: no psum
+            # its groups need the sorted grouping, which no psum combines:
+            # the scan's rows are gathered once onto the session's device
+            # (_gather_input, under the scan's restrictions) and the
+            # one-card program runs over them as over a materialized base
+            # (what GSPMD does for the reference's global sorted grouping)
+            base_cols, n = self._materialized_base(cur)
+            if n < dv.SMALL_ROWS:
+                return None
+            base_restrictions, mesh_base = [], None
         self._load_capacities(basekey, n, cache,
                               ("kg", "kbounds", "stepcaps", "dense"))
 
@@ -1976,9 +2032,10 @@ class Executor:
 
         dev = self.session.device
         kg_learned = None if force_cal else cache.get(("fused_kg", basekey))
-        # a materialized base is the program's input: a captured program
-        # reads it from static inputs, into which it is copied every run
-        inputs = ([] if isinstance(cur, L.Scan)
+        # a materialized (or gathered) base is the program's input: a
+        # captured program reads it from static inputs, into which it is
+        # copied every run
+        inputs = ([] if id(cur) not in self._materialized_bases
                   else [p for _cid, c in base_cols for p in (c.data, c.valid)
                         if p is not None])
 
@@ -2032,9 +2089,10 @@ class Executor:
                     lambda cols, pad, dev_s, preps: lambda static: program(
                         static, cols, pad, dev_s, preps), join_preps)
                 if got is None:
+                    # the general mode: from now on the gathered program
                     self._learn(basekey, n, "dense", False)
                     cache[("fused_mesh_general", basekey)] = True
-                    return None
+                    return self._try_fused_agg(op, epi_arg)
                 res, meta = got
             else:
                 res, meta = self._run_program(
@@ -2144,6 +2202,30 @@ class Executor:
                 "devs": [torch.device(mesh.devices[s])
                          for s in mesh.local_positions]}
 
+    def _materialized_base(self, cur) -> tuple[list, int]:
+        """The fused aggregate's base computed by the eager operators (a
+        shared Tmp, a finished aggregate, or the scan of a table held on the
+        mesh, gathered: ONE counted gather) as columns on the session's
+        device, and its row count. It runs ONCE a statement: it is stashed
+        at once, so that a rerun (a calibration's, a rebuild's) or a later
+        decline to the eager operators takes it instead of running it
+        again."""
+        from . import fused as F
+
+        base_vt = self.run(cur).dense()
+        self._materialized_bases[id(cur)] = base_vt
+        n = base_vt.num_rows
+        # a result of the dense grouping lives on the host tier: it is
+        # uploaded, as the reference's program takes host arrays in
+        # (wide-decimal object columns stay on the host and decline)
+        dev = self.session.device
+        return [
+            (cid, c if is_obj(c.data) else SCol(
+                c.type, F.on_device(c.data, n, dev),
+                None if c.valid is None else F.on_device(c.valid, n, dev),
+                c.dictionary))
+            for cid, c in sorted(base_vt.cols.items())], n
+
     def _run_on_mesh(self, op, mb, basekey, material, learning, make,
                      join_preps):
         """(outputs, meta) of the fused aggregate over a table held on the
@@ -2156,7 +2238,9 @@ class Executor:
         compaction holds the same capacity), its out-of-bounds count summed.
         The positions' programs are queued one after another and run on
         their cards side by side. None when the program took the general
-        mode (sorted groups, which no psum combines)."""
+        mode (sorted groups, which no psum combines): the caller then
+        gathers the scan and runs the one-card program over it
+        (_materialized_base)."""
         import contextlib
 
         from . import exestore

@@ -200,8 +200,15 @@ class VTable:
         arrays = {}
         obj_arrays = {}
         for cid, c in self.cols.items():
-            # wide-decimal object columns are host-only: gather with numpy
-            (obj_arrays if is_obj(c.data) else arrays)[("d", cid)] = c.data
+            # wide-decimal object columns are host-only: gather with numpy,
+            # their validity too (a device validity beside host data would
+            # mix numpy and tensors in the next expression)
+            if is_obj(c.data):
+                obj_arrays[("d", cid)] = c.data
+                if c.valid is not None:
+                    obj_arrays[("v", cid)] = _host_idx(c.valid)
+                continue
+            arrays[("d", cid)] = c.data
             if c.valid is not None:
                 arrays[("v", cid)] = c.valid
         if arrays and any_torch(idx, arrays):

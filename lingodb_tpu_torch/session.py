@@ -421,7 +421,8 @@ class Session:
 
     def _evict_device_memory(self) -> None:
         """Drop every cached device buffer this session pins: uploaded table
-        columns, fused join preps (LUTs + payloads), the captured programs
+        columns, fused join preps (LUTs + payloads), the out-of-core
+        aggregate's staging slots, the captured programs
         with their memory pool, and one-shot materializations. Everything is
         rebuildable; the next query re-uploads what it actually touches and
         captures its program again."""
@@ -431,7 +432,8 @@ class Session:
         for _version, dev in self._device_cache.values():
             dev.evict()
         for k in [k for k in self.stage_cache
-                  if isinstance(k, tuple) and k and k[0] == "fused_prep"]:
+                  if isinstance(k, tuple) and k
+                  and k[0] in ("fused_prep", "chunk_stream")]:
             del self.stage_cache[k]
         self.executor._tmp_results.clear()
         self.executor._materialized_bases.clear()

@@ -101,6 +101,24 @@ def syncs_and_peak(torch, fn):
     return syncs, torch.cuda.max_memory_allocated(), before
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cudaGraphLaunch")
+
+
+def host_launches(torch, fn) -> int:
+    """The launches the host made in one call of fn: kernel launches and
+    graph launches (a replay counts one), from torch.profiler's runtime
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+
+
 def copy_overlap(torch, fn) -> dict:
     """Host -> device copies against kernels in one traced call of fn: the
     copies' summed time on the card and the share of it that lies under

@@ -83,9 +83,8 @@ def main() -> int:
         ev = prof.key_averages()
         dev_us = sum(e.self_device_time_total for e in ev
                      if e.self_device_time_total > 0)
-        launches = sum(e.count for e in ev if e.key in (
-            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-            "cudaGraphLaunch"))
+        launches = sum(e.count for e in ev
+                       if e.key in gpu_profile.LAUNCH_CALLS)
         dv._MESH = None
         out = {"median_ms": statistics.median(walls),
                "min_ms": min(walls), "syncs": syncs,

@@ -16,16 +16,65 @@ device memory. The rows of every run of a query must be equal. A run that
 runs out of device memory is reported as such. Needs a CUDA device; fails
 without one. Prints the card's name and power limit and the host's memory
 (free -g) first.
+
+`--paths graphs,uncaptured` runs each streamed budget twice more, with the
+chunk program replayed from its two graphs (one a staging slot) and run as
+it is called (stream_runs): wall ms of a first and a second run, the
+captures and replays of each, the host's launches of a third run and per
+chunk, and the host's fill ms of the pinned buffers.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+
+
+def stream_runs(torch, session, sql, captured: bool,
+                trace: bool = True) -> dict:
+    """Two or three runs of `sql` streamed at the current budget, from a
+    session that has captured nothing for it: the chunk program replayed
+    from its graphs (`captured`) or run as it is called. The first run
+    captures one graph a staging slot; the second is timed; with `trace`
+    the host's launches are counted over a third (a replay counts one;
+    torch.profiler's trace costs about 0.7 ms a launch)."""
+    from lingodb_tpu_torch.tools import gpu_profile
+    from lingodb_tpu_torch.utils import compilestats
+
+    ctx = (contextlib.nullcontext() if captured
+           else gpu_profile.uncaptured_path())
+    out = {"path": "graphs" if captured else "uncaptured"}
+    rows = []
+    with ctx:
+        for run in ("first", "second"):
+            session.executor.last_chunked = None
+            c0 = compilestats.snapshot()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows.append(session.sql(sql).format_rows())
+            torch.cuda.synchronize()
+            d = compilestats.delta(c0)
+            out[f"wall_ms_{run}"] = (time.perf_counter() - t0) * 1e3
+            out[f"captures_{run}"] = d["captures"]
+            out[f"replays_{run}"] = d["replays"]
+        plan = session.executor.last_chunked
+        if plan is None:
+            raise RuntimeError("the chunked aggregate did not engage")
+        out["host_fill_ms"] = plan["host_fill_ms"]
+        out["launches"] = None
+        if trace:
+            out["launches"] = gpu_profile.host_launches(
+                torch, lambda: session.sql(sql).format_rows())
+    out.update(chunks=plan["chunks"], chunk_rows=plan["chunk_rows"],
+               launches_per_chunk=None if out["launches"] is None
+               else out["launches"] / plan["chunks"],
+               rows=rows[0], same=rows[0] == rows[1])
+    return out
 
 
 def main() -> int:
@@ -38,6 +87,9 @@ def main() -> int:
     ap.add_argument("--no-cache", action="store_true",
                     help="generate in memory instead of through .cache/")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--paths", default="",
+                    help="graphs,uncaptured: also time each streamed budget "
+                         "with the chunk program captured and uncaptured")
     args = ap.parse_args()
 
     import torch
@@ -97,6 +149,15 @@ def main() -> int:
                             torch, lambda: s.sql(sql).format_rows())
                         rec["copy_ms_on_card"] = ov["copy_ms"]
                         rec["copy_hidden_share"] = ov["hidden_share"]
+                        for path in filter(None, args.paths.split(",")):
+                            s._evict_device_memory()
+                            got = stream_runs(torch, s, sql,
+                                              path == "graphs")
+                            if got.pop("rows") != rows or not got["same"]:
+                                print(f"outofcore_bench: q{q} rows differ on "
+                                      f"the {path} path", file=sys.stderr)
+                                return 1
+                            rec[path] = got
                     if rows_seen is not None and rows != rows_seen:
                         print(f"outofcore_bench: q{q} rows differ between "
                               "budgets", file=sys.stderr)

@@ -14,10 +14,17 @@ against the plain route for the same inputs:
   gap     rows / n from 2 to 65536, sorted indices   (take_fast_multi)
   random  n unsorted indices through the direct-read gather kernel against
           plain indexing                             (gather_sorted_planes)
+  route   the reference's sort route (lingodb_tpu/ops/pgather.py:801-816)
+          against plain indexing one plane at a time, at the engine's
+          shapes: n unsorted indices from 1M to 60M into a table of
+          s = 1.5M or 15M rows (orders at SF1 and SF10), 1, 2 and 8 int32
+          planes sharing the indices                 (sort_route)
 
 A time is the host's clock around 50 calls ended by a synchronize, divided by
 50 ("call": what a query pays, host launch cost included), and the device's
-own time per call from torch.profiler ("card"). Then, with --sf > 0, the five
+own time per call from torch.profiler ("card"); the route's sweep runs only
+with `--only route` (about a minute), alone, and takes fewer calls at its
+larger shapes (`reps`). Otherwise, with --sf > 0, the five
 smoke queries run once over generated TPC-H tables and every kernel wrapper
 call is listed with its shape. Needs a CUDA device; fails without one."""
 
@@ -30,6 +37,11 @@ import sys
 import time
 
 QUERIES = ["6", "1", "14", "3", "4"]
+
+
+ROUTE_N = (1 << 20, 1 << 22, 1 << 24, 60_000_000)
+ROUTE_S = (1_500_000, 15_000_000)
+ROUTE_PLANES = (1, 2, 8)
 
 
 def call_ms(torch, fn, reps: int = 50) -> float:
@@ -115,6 +127,67 @@ def sweeps(torch, pg, rows: int) -> dict:
     return out
 
 
+def sort_route(torch, pg, tables, idx):
+    """[t[clip(idx)] for t in tables] for any 1-D int32 idx through the
+    sorted gather: one stable sort of the indices with their positions,
+    gather_sorted_planes (K2) of every group of up to 8 planes at the sorted
+    indices, and one unsort (each gathered plane scattered back by the
+    positions): the reference's sort route, timed here against plain
+    indexing. The engine does not take it (ops/pgather.py::_planes_gather
+    says why)."""
+    n = int(idx.shape[0])
+    sidx, perm = torch.sort(idx, stable=True)
+    outs = [torch.empty((n,), dtype=torch.int32, device=idx.device)
+            for _ in tables]
+    for g0 in range(0, len(tables), 8):
+        got = pg.gather_sorted_planes(tables[g0:g0 + 8], sidx)
+        for o, v in zip(outs[g0:g0 + 8], got):
+            o.index_copy_(0, perm, v)
+    return outs
+
+
+def route_sweep(torch, pg) -> list:
+    """The sort route (one sort, K2 at the sorted indices, one unsort)
+    against plain indexing of each plane, at every (n, s, planes) of
+    ROUTE_N x ROUTE_S x ROUTE_PLANES; each pair first checked bit-equal
+    on indices with duplicates and out-of-bounds entries."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = []
+    for s in ROUTE_S:
+        table = torch.randint(-(1 << 31), (1 << 31) - 1, (max(ROUTE_PLANES), s),
+                              device="cuda", generator=gen, dtype=torch.int32)
+        for n in ROUTE_N:
+            idx = torch.randint(-8, s + 8, (n,), device="cuda",
+                                generator=gen).to(torch.int32)
+            for c in ROUTE_PLANES:
+                planes = [table[i] for i in range(c)]
+                got = sort_route(torch, pg, planes, idx)
+                want = plain_take(torch, planes, idx)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise SystemExit(f"sort route differs from plain at "
+                                     f"n={n} s={s} planes={c}")
+                del got, want
+                reps = max(3, min(50, (1 << 28) // (n * c)))
+                r = {"n": n, "s": s, "planes": c, "reps": reps,
+                     "route_call_ms": call_ms(
+                         torch, lambda: sort_route(torch, pg, planes, idx),
+                         reps),
+                     "plain_call_ms": call_ms(
+                         torch, lambda: plain_take(torch, planes, idx), reps),
+                     "route_card_ms": card_ms(
+                         torch, lambda: sort_route(torch, pg, planes, idx), 3),
+                     "plain_card_ms": card_ms(
+                         torch, lambda: plain_take(torch, planes, idx), 3)}
+                out.append(r)
+                print(f"route n={n} s={s} planes={c}: call route "
+                      f"{r['route_call_ms']:.4f} plain {r['plain_call_ms']:.4f}"
+                      f" ms; card route {r['route_card_ms']:.4f} plain "
+                      f"{r['plain_card_ms']:.4f} ms", flush=True)
+            del idx
+        del table
+    return out
+
+
 def query_shapes(torch, pg, sf: float, seed: int) -> dict:
     """Every kernel wrapper call of the five smoke queries, with its shape."""
     import lingodb_tpu_torch as ldb
@@ -159,6 +232,8 @@ def main() -> int:
                     help="TPC-H scale factor for the shape listing; 0 skips it")
     ap.add_argument("--seed", type=int, default=19920601)
     ap.add_argument("--out", default="")
+    ap.add_argument("--only", choices=["route"], default=None,
+                    help="run one sweep alone")
     args = ap.parse_args()
     import torch
 
@@ -170,8 +245,14 @@ def main() -> int:
 
     cuda_build.build_all()
     report = {"device": torch.cuda.get_device_name(0)}
-    report.update(sweeps(torch, pg, args.rows))
+    if args.only == "route":
+        report["route"] = route_sweep(torch, pg)
+        args.sf = 0
+    else:
+        report.update(sweeps(torch, pg, args.rows))
     for key in ("size_gather", "size_compact", "gap", "random"):
+        if key not in report:
+            continue
         for r in report[key]:
             head = " ".join(f"{k}={v}" for k, v in r.items() if not k.endswith("_ms"))
             print(f"{key} {head}: call kernel {r['kernel_call_ms']:.4f} plain "

@@ -10,10 +10,18 @@ mesh turned off, so that it streams too) and the port's own at the default
 budget, where the table is resident and the fused aggregate runs. The
 streamed table is never uploaded whole, not by the query and not by
 Session.prepare.
+
+The chunk program is written for capture: it reads one staging slot's
+fixed buffers and the valid count from a (1,) tensor, reads nothing to the
+host, and runs through the session's graph store, captured once a slot
+(on the CPU the store's stand-in) and replayed for every other chunk and
+every later run.
 """
 
 import numpy as np
 import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import lingodb_tpu as ref_ldb
 from lingodb_tpu.catalog.catalog import TableEntry as RefTableEntry
@@ -23,8 +31,9 @@ from lingodb_tpu.utils import settings as ref_settings
 
 import lingodb_tpu_torch as ldb
 from lingodb_tpu_torch.runtime import executor as ex
+from lingodb_tpu_torch.runtime import exestore
 from lingodb_tpu_torch.tools import tpchbig
-from lingodb_tpu_torch.utils import settings
+from lingodb_tpu_torch.utils import compilestats, settings
 
 pytestmark = pytest.mark.filterwarnings("error:__array_wrap__")
 
@@ -143,3 +152,153 @@ def test_prepare_does_not_upload_a_streamed_table(sessions, budget):
     assert "lineitem" not in ps._device_cache
     assert ps.execute_prepared(pq).format_rows()
     assert "lineitem" not in ps._device_cache
+
+
+def _forget_plans(ps):
+    """Drop what the session learned and captured (its staging slots too),
+    as Session._evict_device_memory does."""
+    ps.stage_cache.clear()
+    for store in ps.graph_stores():
+        store.clear()
+
+
+class _HostReads(TorchDispatchMode):
+    """Records the operators that read a tensor to the host or size their
+    output by the data: a capture on the card refuses each of them."""
+
+    def __init__(self, seen):
+        super().__init__()
+        self.seen = seen
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__.split(".")[0]
+        if name.startswith(("_local_scalar_dense", "nonzero", "unique",
+                            "masked_select")):
+            self.seen.append(name)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("q", ["6", "1"])
+def test_chunk_program_is_written_for_capture(sessions, budget, q,
+                                              monkeypatch):
+    """Static outputs over the slot's own buffers, the valid count as a
+    (1,) tensor, no host read inside; two captures (one a slot) and one
+    replay in the first run of the plan, three replays in the next; rows
+    equal the reference's chunked aggregate, the uncaptured stream and the
+    resident run."""
+    rs, ps = sessions
+    sql = open(f"queries/tpch/{q}.sql").read()
+    calls, reads = [], []
+    orig = ex.Executor._chunk_program
+
+    def spy(self, op, steps, scan, templates, m, domain, arrs, nvalid):
+        with _HostReads(reads):
+            out, meta = orig(self, op, steps, scan, templates, m, domain,
+                             arrs, nvalid)
+        calls.append((tuple(a.data_ptr() for a in arrs), nvalid))
+        assert all(isinstance(v, torch.Tensor) and v.shape == (domain,)
+                   for v in out.values())
+        return out, meta
+
+    monkeypatch.setattr(ex.Executor, "_chunk_program", spy)
+    _forget_plans(ps)
+    cs0 = compilestats.snapshot()
+    first = ps.sql(sql).format_rows()
+    d1, cs1 = compilestats.delta(cs0), compilestats.snapshot()
+    again = ps.sql(sql).format_rows()
+    d2 = compilestats.delta(cs1)
+    assert (d1["captures"], d1["replays"]) == (2, 1)
+    assert (d2["captures"], d2["replays"]) == (0, 3)
+    assert reads == []
+    assert all(isinstance(nv, torch.Tensor) and nv.shape == (1,)
+               and nv.dtype == torch.int64 for _p, nv in calls)
+    # two slots, each read at the same addresses in both runs
+    assert len({p for p, _nv in calls}) == 2
+    monkeypatch.setattr(exestore, "CAPTURE", False)
+    uncaptured = ps.sql(sql).format_rows()
+    assert first == again == uncaptured == rs.sql(sql).format_rows()
+    settings.DEVICE_BYTE_BUDGET.set(str(10 << 30))
+    ps.executor.last_chunked = None
+    assert ps.sql(sql).format_rows() == first
+    assert ps.executor.last_chunked is None
+
+
+HOST_READ_SQL = [
+    # a cast to a string: the LIKE reads the formatted values on the host
+    "SELECT l_returnflag, count(*) FROM lineitem "
+    "WHERE CAST(l_quantity AS VARCHAR) LIKE '1%' "
+    "GROUP BY l_returnflag ORDER BY l_returnflag",
+    # a string concatenation: computed on the host
+    "SELECT l_returnflag, count(*) FROM lineitem "
+    "WHERE l_returnflag || l_linestatus = 'NO' "
+    "GROUP BY l_returnflag ORDER BY l_returnflag",
+]
+
+
+@pytest.mark.parametrize("sql", HOST_READ_SQL, ids=["cast", "concat"])
+def test_chunk_program_that_reads_the_host_streams_uncaptured(
+        sessions, budget, sql, monkeypatch):
+    """A chunk program that reads the host (HostRead under capture) marks
+    its plan and streams uncaptured, as it is called: the table is still
+    never uploaded whole, the rows equal the reference's, and a later run
+    goes straight to the uncaptured stream (no capture tried again)."""
+    rs, ps = sessions
+    _forget_plans(ps)
+
+    def no_upload(name):
+        raise AssertionError(f"{name} uploaded whole")
+
+    monkeypatch.setattr(ps, "device_table", no_upload)
+    # the reference's compiled chunk program cannot read the host: its
+    # rows come from its resident run
+    ref_settings.DEVICE_BYTE_BUDGET.set(str(10 << 30))
+    try:
+        want = rs.sql(sql).format_rows()
+    finally:
+        ref_settings.DEVICE_BYTE_BUDGET.set(str(BUDGET))
+    for _run in range(2):
+        ps.executor.last_chunked = None
+        cs0 = compilestats.snapshot()
+        assert ps.sql(sql).format_rows() == want
+        d = compilestats.delta(cs0)
+        assert ps.executor.last_chunked["chunks"] == 3
+        assert any(k[0] == "chunked_eager" for k in ps.stage_cache
+                   if isinstance(k, tuple))
+        assert (d["captures"], d["replays"]) == (0, 0)
+    _forget_plans(ps)
+
+
+def _streams(ps):
+    return [v for v in ps.stage_cache.values()
+            if type(v).__name__ == "ChunkStream"]
+
+
+def _chunk_graphs(ps):
+    return {k[0] for store in ps.graph_stores() for k in store.entries
+            if k[0][0] == "chunked_agg"}
+
+
+def test_one_chunk_stream_a_session(sessions, budget):
+    """The session keeps ONE chunk stream (two staging slots): a plan of
+    the same layout reuses its slots and replays its own graphs beside the
+    first plan's, a plan of another layout replaces it and the graphs
+    captured over the old slots are dropped with it."""
+    rs, ps = sessions
+    q6 = open("queries/tpch/6.sql").read()
+    q6b = q6.replace("0.06 - 0.01", "0.05 - 0.01")
+    q1 = open("queries/tpch/1.sql").read()
+    assert q6b != q6
+    _forget_plans(ps)
+    for sql in (q6, q6b, q6, q6b):
+        assert ps.sql(sql).format_rows() == rs.sql(sql).format_rows()
+    (stream,) = _streams(ps)
+    assert len(_chunk_graphs(ps)) == 2 and len(stream.plans) == 2
+    cs0 = compilestats.snapshot()
+    assert ps.sql(q1).format_rows() == rs.sql(q1).format_rows()
+    assert compilestats.delta(cs0)["captures"] == 2
+    (stream2,) = _streams(ps)
+    assert stream2 is not stream and len(_chunk_graphs(ps)) == 1
+    cs0 = compilestats.snapshot()
+    assert ps.sql(q1).format_rows() == rs.sql(q1).format_rows()
+    assert (compilestats.delta(cs0)["captures"], len(_streams(ps))) == (0, 1)
+    _forget_plans(ps)

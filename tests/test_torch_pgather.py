@@ -494,3 +494,46 @@ def test_profile_names_every_engine_kernel():
     for name in names:
         assert gpu_profile._PORT_KERNEL_RE.search(
             f"void (anonymous namespace)::{name}<8>(Planes, int const*)")
+
+
+def test_bench_sort_route_equals_clamped_take():
+    """The reference's sort route as tools/threshold_bench.py --only route
+    times it (one stable sort of the indices, the sorted gather at the
+    sorted indices, one unsort) with the plain sorted gather: bit-equal to
+    t[clamp(idx)] with duplicate and out-of-bounds indices, for 1, 2, 8 and
+    11 int32 planes (more than _MAX_PLANES share the one sort) and for
+    int64, float64 and bool columns through pgather._limbify."""
+    from lingodb_tpu_torch.tools import threshold_bench as tb
+
+    for planes in (1, 2, 8, 11):
+        rng = _rng(planes)
+        s, n = 40_000, 70_000
+        tables = [_t(rng.integers(-(1 << 31), (1 << 31) - 1, s)
+                     .astype(np.int32)) for _ in range(planes)]
+        idx = rng.integers(-50, s + 50, n).astype(np.int32)
+        idx[::7] = idx[3]  # duplicates
+        got = tb.sort_route(torch, pg, tables, _t(idx))
+        j = np.clip(idx, 0, s - 1)
+        for g, t in zip(got, tables):
+            assert g.dtype == torch.int32
+            assert np.array_equal(g.numpy(), t.numpy()[j]), planes
+
+    rng = _rng(7)
+    s, n = 30_000, 50_000
+    for cols in ([rng.random(s) < 0.4, rng.random(s) < 0.6],
+                 [rng.standard_normal(s) for _ in range(3)],
+                 [rng.integers(-(1 << 62), 1 << 62, s) for _ in range(5)]):
+        idx = rng.integers(-3, s + 3, n)
+        planes, outs, rebuilds = [], [], []
+        for c in cols:
+            limbs, alloc = pg._limbify(_t(c))
+            o, rb = alloc(n)
+            planes.extend(limbs)
+            outs.extend(o)
+            rebuilds.append(rb)
+        got = tb.sort_route(torch, pg, planes, _t(idx.astype(np.int32)))
+        for o, g in zip(outs, got):
+            o.copy_(g)
+        for rb, c in zip(rebuilds, cols):
+            assert np.array_equal(rb().numpy(), np.take(c, idx, mode="clip")), \
+                c.dtype

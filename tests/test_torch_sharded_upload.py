@@ -375,3 +375,191 @@ def test_a_missed_gather_raises(meshes, checks, monkeypatch):
                         lambda self, op: self.run_sharded(op.child))
     with _on_mesh(pm), pytest.raises(ExecError, match="Sharded"):
         s.sql("select okey from lines limit 3")
+
+
+# ---------------------------- the general-mode fused aggregate on a mesh
+# Where the reference keeps its fused program on a mesh (every key a
+# string or a bool, or a subtree below system.shuffle_min_rows) and the
+# program takes the general (sorted) mode, the port gathers the base
+# columns once onto the session's device and runs the one-card program
+# there. At sf 0.01 the dense limit is lowered to 64 so that customer's
+# and supplier's names (1,500 and 100) take the general mode, as
+# customer's 150,000 names do at SF1; system.shuffle_min_rows is raised to
+# 1,000 so that supplier (100 rows, held sharded at SMALL_ROWS 64) is below
+# it, as its 10,000 rows are below 65,536 at SF1.
+# Each case: its name, its statement (None: TPC-H q21), and the base the
+# gather moves: the table and the scan's own restriction, under which only
+# its surviving rows are gathered.
+GENERAL = [
+    ("names", "select c_name, count(*), sum(c_acctbal) from customer, nation "
+              "where c_nationkey = n_nationkey and n_name <> 'CHINA' "
+              "group by c_name", ("customer", "")),
+    ("acctbal", "select s_acctbal, count(*) from supplier "
+                "group by s_acctbal", ("supplier", "")),
+    ("q21", None, ("lineitem", "where l_receiptdate > l_commitdate")),
+]
+
+
+@pytest.fixture()
+def general_mode(meshes, monkeypatch):
+    from lingodb_tpu_torch.ops import groupby as gb
+
+    monkeypatch.setattr(gb, "DENSE_DOMAIN_LIMIT", 64)
+    settings.set_setting("system.shuffle_min_rows", 1000)
+    yield
+    settings.set_setting("system.shuffle_min_rows", 32)
+
+
+def _forget(session):
+    session.stage_cache.clear()
+    for store in session.graph_stores():
+        store.clear()
+
+
+@pytest.mark.parametrize("name,sql,base", GENERAL,
+                         ids=[g[0] for g in GENERAL])
+def test_general_mode_runs_the_gathered_program(meshes, tpch, general_mode,
+                                                monkeypatch, name, sql, base):
+    """The first run tries a position's program, finds the general mode,
+    marks the plan and runs the one-card program over the scan's surviving
+    rows gathered once; the second goes straight there: one gather (the
+    base: the dimension builds are kept), no capture, one replay. Rows
+    equal the one-card session's."""
+    from lingodb_tpu_torch.runtime.executor import Executor
+
+    pm, _rm = meshes
+    meshed, one = tpch
+    sql = sql or _sql(21)
+    with _on_mesh(None):
+        want = one.sql(sql).format_rows()
+    gathered = []
+    orig = Executor._materialized_base
+
+    def spy(self, cur):
+        got = orig(self, cur)
+        gathered.append((cur.table, got[1]))
+        return got
+
+    monkeypatch.setattr(Executor, "_materialized_base", spy)
+    runs = []
+    with _on_mesh(pm):
+        _forget(meshed)
+        for _run in range(2):
+            c0, g0 = compilestats.snapshot(), sh.STATS["gathers"]
+            got = meshed.sql(sql).format_rows()
+            runs.append((compilestats.delta(c0), sh.STATS["gathers"] - g0))
+            assert sorted(got) == sorted(want)
+    assert any(k[0] == "fused_mesh_general" for k in meshed.stage_cache
+               if isinstance(k, tuple))
+    table, where = base
+    with _on_mesh(None):
+        rows = int(one.sql(f"select count(*) from {table} {where}")
+                   .format_rows()[0][0])
+    assert gathered and all(g == (table, rows) for g in gathered)
+    (d1, g1), (d2, g2) = runs
+    assert g1 >= 1 and d1["captures"] >= 1
+    assert g2 == 1 and (d2["captures"], d2["replays"]) == (0, 1), runs
+
+
+def test_general_mode_equals_the_reference_mesh(meshes, tpch, general_mode):
+    """The statements of the gathered route against the reference's meshed
+    session over the same sf 0.01 tables (its own dense limit: its rows do
+    not depend on the mode)."""
+    pm, _rm = meshes
+    meshed, _one = tpch
+    rs = ref_ldb.create_in_memory()
+    _ref_install(rs, ref_gen.generate(0.01, SEED))
+    ref_settings.set_setting("system.shuffle_min_rows", 1000)
+    try:
+        for _name, sql, _base in GENERAL:
+            sql = sql or _sql(21)
+            with _on_mesh(pm):
+                got = meshed.sql(sql).format_rows()
+            assert sorted(got) == sorted(rs.sql(sql).format_rows()), _name
+    finally:
+        ref_settings.set_setting("system.shuffle_min_rows", 32)
+
+
+def test_non_dense_keys_over_a_big_subtree_stay_sharded(meshes, tpch):
+    """Where the reference declines its fused program on a mesh (a key that
+    is not a string or a bool over a subtree of at least
+    system.shuffle_min_rows rows), the port declines too: the sharded
+    aggregate runs, nothing is gathered, no plan is marked."""
+    pm, _rm = meshes
+    meshed, one = tpch
+    sql = "select o_custkey, count(*) from orders group by o_custkey"
+    with _on_mesh(None):
+        want = one.sql(sql).format_rows()
+    before = dict(sh.STATS)
+    with _on_mesh(pm):
+        _forget(meshed)
+        got = meshed.sql(sql).format_rows()
+    moved = {k: sh.STATS[k] - before[k] for k in sh.STATS}
+    assert sorted(got) == sorted(want)
+    assert moved["groupbys"] >= 1 and moved["gathers"] == 0, moved
+    assert not any(k[0] == "fused_mesh_general" for k in meshed.stage_cache
+                   if isinstance(k, tuple))
+
+
+def test_names_over_orders_group_below_the_join(meshes, tpch, general_mode):
+    """c_name's sum of o_totalprice over orders and customer: the
+    optimizer's eager aggregation groups orders by o_custkey below the join
+    (a sharded aggregate: an integer key over a big subtree), so the fused
+    aggregate's base is that grouping's result, not a table held on the
+    mesh, and it runs the one-card program over it: no plan is marked.
+    Rows equal the one-card session's."""
+    pm, _rm = meshes
+    meshed, one = tpch
+    sql = ("select c_name, sum(o_totalprice) from orders, customer "
+           "where o_custkey = c_custkey group by c_name")
+    plan = meshed.prepare(sql).plan
+    top = next(op for op in L.walk_plan(plan) if isinstance(op, L.Aggregate))
+    assert any(isinstance(op, L.Aggregate)
+               for op in L.walk_plan(top.child))
+    with _on_mesh(None):
+        want = one.sql(sql).format_rows()
+    with _on_mesh(pm):
+        _forget(meshed)
+        got = meshed.sql(sql).format_rows()
+    assert sorted(got) == sorted(want)
+    assert not any(k[0] == "fused_mesh_general" for k in meshed.stage_cache
+                   if isinstance(k, tuple))
+
+
+def test_take_keeps_a_wide_columns_validity_on_the_host():
+    """VTable.take with a device index: a wide-decimal (host object)
+    column's data and validity both gathered on the host. A validity left
+    on the device beside host data broke the next expression (q17 on the
+    mesh: numpy & tensor in _eval_and)."""
+    from lingodb_tpu_torch.runtime.vtable import SCol, VTable
+    from lingodb_tpu_torch.sql.types import K, Type
+
+    wide = Type(K.DECIMAL, nullable=True, p=36, s=22)
+    data = np.array([10 ** 30 + i for i in range(5)], dtype=object)
+    valid = np.array([True, False, True, True, False])
+    vt = VTable({1: SCol(wide, data, valid),
+                 2: SCol(Type(K.INT), torch.arange(5, dtype=torch.int32))}, 5)
+    out = vt.take(torch.tensor([4, 0, 2]), 3)
+    c = out.col(1)
+    assert isinstance(c.valid, np.ndarray)
+    assert list(c.data) == [data[4], data[0], data[2]]
+    assert list(c.valid) == [False, True, True]
+    assert out.col(2).data.tolist() == [4, 0, 2]
+
+
+@pytest.mark.parametrize("min_rows", [32, 1000])
+def test_q17_on_the_mesh(meshes, tpch, min_rows):
+    """q17's scalar subquery yields a wide decimal (0.2 * avg) that the
+    sharded single join carries: rows equal the one-card session's."""
+    pm, _rm = meshes
+    meshed, one = tpch
+    sql = _sql(17)
+    settings.set_setting("system.shuffle_min_rows", min_rows)
+    try:
+        with _on_mesh(None):
+            want = one.sql(sql).format_rows()
+        with _on_mesh(pm):
+            got = meshed.sql(sql).format_rows()
+    finally:
+        settings.set_setting("system.shuffle_min_rows", 32)
+    assert got == want
