@@ -108,6 +108,14 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               equal to the resident run's; then each at 1 GiB with a chunk
               program that reads the host (host_read_part): its capture
               raises HostRead and it streams uncaptured, rows equal;
+              (a'') five aggregates over a wide decimal that only the host
+              computes (sum, avg, a restricted global sum, min/max of
+              l_extendedprice / 7, a price per unit) over the lineitem
+              subset at the scale factor (SF1: 6M rows), streamed at a
+              64 MiB budget in exact host lanes (more than one chunk, the
+              plan uncaptured, the table never uploaded whole) against
+              resident; rows equal as strings; wall ms both ways, chunks,
+              host fill ms and the uncaptured chunk program's ms a chunk;
               (b) window functions over SF1 orders and lineitem (ranking,
               running and bounded frames, the sparse table's min/max,
               lag/lead/nth_value), card against CPU session;
@@ -1357,6 +1365,97 @@ def host_read_part(torch, big, q, sql, resident):
         ex.Executor._chunk_program = orig
 
 
+# phase 9 (a''): aggregates over a wide decimal that only the host computes
+# (a quotient past 18 digits, a host object column in the chunk program)
+HOST_DECIMAL_SQL = {
+    "sum": "SELECT l_returnflag, sum(l_extendedprice / 7) FROM lineitem "
+           "GROUP BY l_returnflag ORDER BY l_returnflag",
+    "avg": "SELECT l_returnflag, avg(l_extendedprice / 7) FROM lineitem "
+           "GROUP BY l_returnflag ORDER BY l_returnflag",
+    "global": "SELECT sum(l_extendedprice / 3) FROM lineitem "
+              "WHERE l_quantity < 10",
+    "minmax": "SELECT l_returnflag, min(l_extendedprice / 7), "
+              "max(l_extendedprice / 7) FROM lineitem "
+              "GROUP BY l_returnflag ORDER BY l_returnflag",
+    "per_unit": "SELECT l_returnflag, sum(l_extendedprice * 1.0 / l_quantity) "
+                "FROM lineitem GROUP BY l_returnflag ORDER BY l_returnflag",
+}
+HOST_DECIMAL_BUDGET = 64 << 20
+
+
+def host_decimal_part(torch, pg, ldb, device, sf, seed, slice_launches,
+                      smi_line):
+    """Phase 9 (a''): the five HOST_DECIMAL_SQL statements over the lineitem
+    subset at the scale factor, streamed at a 64 MiB budget (exact host
+    lanes, the plan uncaptured, more than one chunk, the table never
+    uploaded whole) against resident at the default budget; rows equal as
+    strings. Logs each statement's wall ms both ways, its chunks, the host's
+    fill ms and its uncaptured chunk program's ms a chunk (the object
+    lanes' work on the host)."""
+    from lingodb_tpu_torch.tools import tpchbig
+    from lingodb_tpu_torch.utils import compilestats, settings
+
+    t0 = time.perf_counter()
+    table = tpchbig.generate(sf, seed)
+    log(f"# slice (a'') data: lineitem subset sf={sf:g}, {table.num_rows} "
+        f"rows, generated in {time.perf_counter() - t0:.1f}s ({smi_line})")
+    big = ldb.create_in_memory(device=device)
+    tpchbig.install(big, table)
+    default_budget = settings.DEVICE_BYTE_BUDGET.get()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    try:
+        for name, sql in HOST_DECIMAL_SQL.items():
+            label = f"slice (a'') {name}"
+            settings.DEVICE_BYTE_BUDGET.set(str(default_budget))
+            big.device_table("lineitem")  # uploaded before the timed run
+            big.executor.last_chunked = None
+            resident, resident_ms = timed(lambda: big.sql(sql).format_rows())
+            if big.executor.last_chunked is not None:
+                fail(f"{label}: streamed at the default budget")
+            settings.DEVICE_BYTE_BUDGET.set(str(HOST_DECIMAL_BUDGET))
+            big._evict_device_memory()
+            big._device_cache.clear()
+            c0 = compilestats.snapshot()
+            (rows, counts, nchk), ms = timed(lambda: run_checked(
+                torch, pg, lambda: big.sql(sql).format_rows()))
+            d = compilestats.delta(c0)
+            for k, v in counts.items():
+                slice_launches[k] = slice_launches.get(k, 0) + v
+            plan = big.executor.last_chunked
+            marked = any(isinstance(k, tuple) and k and k[0] == "chunked_eager"
+                         for k in big.stage_cache)
+            if plan is None or plan["chunks"] < 2:
+                fail(f"{label}: did not stream in more than one chunk: {plan}")
+            if not marked or (d["captures"], d["replays"]) != (0, 0):
+                fail(f"{label}: marked uncaptured {marked}, captures / "
+                     f"replays {d['captures']} / {d['replays']}")
+            if "lineitem" in big._device_cache:
+                fail(f"{label}: the streamed table was uploaded")
+            if rows != resident:
+                fail(f"{label}: streamed rows differ from the resident run's"
+                     f"\n{rows}\n{resident}")
+            log(f"# {label}: rows={len(rows)} wall_ms streamed {ms:.2f} "
+                f"resident {resident_ms:.2f} chunks={plan['chunks']} "
+                f"m={plan['chunk_rows']} width={plan['width']} "
+                f"host_fill_ms={plan['host_fill_ms']:.2f} "
+                f"uncaptured_program_ms_a_chunk="
+                f"{plan['uncaptured_program_ms'] / plan['chunks']:.2f} "
+                f"launches={json.dumps(counts)} checked={nchk} rows equal "
+                f"the resident run's ({smi_line})")
+    finally:
+        settings.DEVICE_BYTE_BUDGET.set(str(default_budget))
+        big._evict_device_memory()
+        del big, table
+        torch.cuda.empty_cache()
+
+
 FLOAT_REL = 1e-12  # floats of the card against the CPU session's
 
 
@@ -1412,7 +1511,7 @@ def card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, label, sql, slice_launches,
 
 
 def executor_slice_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, args,
-                         launches):
+                         launches, smi_line):
     """Phase 9 (see the module docstring)."""
     from lingodb_tpu_torch.ops import bytestr, strings
     from lingodb_tpu_torch.utils.settings import EXECUTION_MODE
@@ -1423,6 +1522,12 @@ def executor_slice_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, args,
     out_of_core_part(torch, pg, ldb, gpu_profile, gpu.device, args.sf,
                      args.seed, slice_launches)
     log(f"# slice (a): {time.perf_counter() - t_phase:.1f}s")
+
+    # (a'') aggregates over wide decimals that only the host computes
+    t0 = time.perf_counter()
+    host_decimal_part(torch, pg, ldb, gpu.device, args.sf, args.seed,
+                      slice_launches, smi_line)
+    log(f"# slice (a''): {time.perf_counter() - t0:.1f}s")
 
     # (b) window functions over orders and lineitem
     t0 = time.perf_counter()
@@ -3005,13 +3110,15 @@ def main() -> int:
         fail(f"kbench exited {kb.returncode}: {kb.stderr[-2000:]}")
     kb_out = json.loads(kb.stdout.splitlines()[-1])
     launches["kbench"] = kb_out["launches"]
-    k4 = next(c for c in kb_out["cases"] if c["name"] == "k4_segscan_w2")
-    cases.append({"name": "segscan", "shape": f"n={kb_out['n']} W=2 runs of 4 "
-                  "(kernel bench)", "max_abs_err": 0, "ms": k4["ms"],
-                  "device_ms": k4["card_ms"], "plain_ms": k4["plain_ms"],
-                  "library_ms": None, "library_device_ms": None,
-                  "bound_ms": k4["bound_ms"],
-                  "bound_by": "bytes", "bytes": k4["bytes"]})
+    for case, shape in (("k4_segscan_w2", "runs of 4"),
+                        ("k4_segscan_onerun", "one run")):
+        k4 = next(c for c in kb_out["cases"] if c["name"] == case)
+        cases.append({"name": "segscan", "shape": f"n={kb_out['n']} W=2 "
+                      f"{shape} (kernel bench)", "max_abs_err": 0,
+                      "ms": k4["ms"], "device_ms": k4["card_ms"],
+                      "plain_ms": k4["plain_ms"], "library_ms": None,
+                      "library_device_ms": None, "bound_ms": k4["bound_ms"],
+                      "bound_by": "bytes", "bytes": k4["bytes"]})
     # compact_positions at the fused queries' shapes, held bit for bit
     # against the plain version (the bench exits non-zero on a difference)
     # and timed by the kernel bench
@@ -3072,7 +3179,7 @@ def main() -> int:
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 9")
     # ---- phase 9: the executor slice
     executor_slice_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, args,
-                         launches)
+                         launches, smi_line)
 
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 10")
     # ---- phase 10: the fused programs as CUDA graphs

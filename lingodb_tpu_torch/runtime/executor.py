@@ -465,8 +465,12 @@ class Executor:
         masked to the first `nvalid` rows (a (1,) int64 tensor, so that a
         captured graph reads it from its static input). Returns the lanes
         by position and the meta the finish reads (held with the graph and
-        handed back at every replay): nothing is read to the host."""
-        meta = {"agg_dicts": {}, "agg_limbs": set()}
+        handed back at every replay): nothing is read to the host, unless
+        an aggregate's argument is a wide decimal that only the host
+        computes (a host object array): its lanes are exact host lanes,
+        their positions in meta["host_lanes"], and such a program runs
+        uncaptured."""
+        meta = {"agg_dicts": {}, "agg_limbs": set(), "host_lanes": set()}
         env = {}
         i = 0
         for cid, t, d, hv in templates:
@@ -507,20 +511,44 @@ class Executor:
                 outs.append(outs[0])
                 continue
             arg = sc._bcast(env[spec.arg], m)
-            avalid = arg.valid
+            # a host column's validity is on the host: its count is not
+            avalid = None if arg.valid is None else be.like(arg.valid, ref)
             vm = ones if avalid is None else be.astype(avalid, jnp.int64)
             cnt = msum(vm)
             if spec.fn == "count":
                 outs.append(cnt)
                 outs.append(cnt)
                 continue
+            wide = (spec.fn == "sum" and spec.out.type.kind == K.DECIMAL
+                    and dec_is_wide(spec.out.type))
+            if is_obj(arg.data):
+                # a wide decimal only the host computes (a quotient, a
+                # product past 18 digits): exact Python-int lanes, as the
+                # eager grouping takes them (ops/groupby.py aggregate)
+                keep = gb._host_arr(mask)
+                if arg.valid is not None:
+                    keep = keep & gb._host_arr(arg.valid)
+                seg = gb._host_arr(gid)
+                meta["host_lanes"].add(len(outs))
+                if spec.fn == "sum":
+                    outs.append(be.segment_sum(np.where(keep, arg.data, 0),
+                                               seg, num_segments=domain))
+                    if wide:  # the limb layout's second lane: a placeholder
+                        outs.append(be.full(domain, 0, jnp.int64, ref))
+                    outs.append(cnt)
+                    continue
+                red = np.full(domain, (1 if spec.fn == "min" else -1) * 10**45,
+                              dtype=np.object_)
+                (np.minimum if spec.fn == "min" else np.maximum).at(
+                    red, seg[keep], arg.data[keep])
+                outs.append(red)
+                outs.append(cnt)
+                continue
             if spec.fn == "sum":
                 data = be.astype(arg.data, np_dtype(spec.out.type))
                 if avalid is not None:
                     data = jnp.where(avalid, data, jnp.zeros_like(data))
-                if (spec.out.type.kind == K.DECIMAL
-                        and dec_is_wide(spec.out.type)
-                        and be.dt(data) == np.int64):
+                if wide and be.dt(data) == np.int64:
                     meta["agg_limbs"].add(spec.out.cid)
                     outs.append(msum(data >> 32))
                     outs.append(msum(data & 0xFFFFFFFF))
@@ -556,6 +584,9 @@ class Executor:
         a device-sized chunk and the merge is the host-side combine (the
         ThreadLocal::merge role). The engage decision is kept in
         `self.last_chunked`."""
+        import time
+
+        from ..ops import decwide
         from ..plan.serial import plan_key
         from . import device as dv
         from . import exestore
@@ -600,6 +631,7 @@ class Executor:
                       col.valid is not None)
                      for info, col in zip(scan.cols, cols)]
         kinds = ["sum"]  # the `present` lane
+        exact = set()  # wide sums: ONE exact total a group after the combine
         for spec in op.aggs:
             if spec.fn in ("count_star", "count"):
                 kinds += ["sum", "sum"]
@@ -607,6 +639,7 @@ class Executor:
                 if (spec.out.type.kind == K.DECIMAL
                         and dec_is_wide(spec.out.type)):
                     kinds += ["limb", "lo", "sum"]
+                    exact.add(spec.out.cid)
                 else:
                     kinds += ["sum", "sum"]
             elif spec.fn == "min":
@@ -642,14 +675,15 @@ class Executor:
         # a chunk program that cannot be captured streams uncaptured
         eager = bool(cache.get(("chunked_eager", basekey)))
 
-        def _norm(host):
-            """Chunk lanes -> accumulable form (limb pairs become ONE exact
-            object lane; the placeholder keeps indices aligned)."""
+        def _norm(host, host_lanes):
+            """Chunk lanes -> accumulable form: a wide sum becomes ONE exact
+            object lane (a limb pair combines; a host lane already is one,
+            whatever this chunk's representation of the argument), and the
+            placeholder keeps indices aligned."""
             out = list(host)
             for i, k in enumerate(kinds):
-                if k == "limb":
-                    out[i] = (out[i].astype(object) * (1 << 32)
-                              + out[i + 1].astype(object))
+                if k == "limb" and i not in host_lanes:
+                    out[i] = decwide.combine_limbs(out[i], out[i + 1])
                     out[i + 1] = np.zeros_like(host[i + 1])
             return out
 
@@ -661,6 +695,7 @@ class Executor:
             return program
 
         acc = None
+        uncaptured_s = 0.0  # the chunk programs run as they are called
         with tracer.Trace("execution", f"chunked_agg:{scan.table}"):
             stream.stage(0)
             try:
@@ -682,15 +717,18 @@ class Executor:
                             # called, host reads and all
                             cache[("chunked_eager", basekey)] = eager = True
                     if eager:
+                        t0 = time.perf_counter()
                         res, meta = self._chunk_program(
                             op, steps, scan, templates, m, domain, arrs, nvt)
+                        uncaptured_s += time.perf_counter() - t0
                     stream.release(ci)
                     if ci + 1 < n_chunks:
                         stream.stage(ci + 1)  # its copy rides this compute
                     # read before the next replay: a graph's outputs hold
                     # until then
                     got = dv.fetch_arrays_np(res)
-                    host = _norm([got[i] for i in range(len(res))])
+                    host = _norm([got[i] for i in range(len(res))],
+                                 meta["host_lanes"])
                     del arrs, res
                     if acc is None:
                         acc = host
@@ -698,10 +736,16 @@ class Executor:
                     for i, k in enumerate(kinds):
                         if k in ("sum", "limb"):
                             acc[i] = acc[i] + host[i]
-                        elif k == "min":
-                            acc[i] = np.minimum(acc[i], host[i])
-                        elif k == "max":
-                            acc[i] = np.maximum(acc[i], host[i])
+                        elif k in ("min", "max"):
+                            # a group with no value in a chunk holds that
+                            # chunk's sentinel (the dtype's extreme, or
+                            # 10^45 in a host lane): the counts (lane i + 1,
+                            # not yet added in) pick the side with values
+                            f = np.minimum if k == "min" else np.maximum
+                            acc[i] = np.where(
+                                host[i + 1] == 0, acc[i],
+                                np.where(acc[i + 1] == 0, host[i],
+                                         f(acc[i], host[i])))
                         # "lo": placeholder, stays zero
             finally:
                 stream.finish()
@@ -709,18 +753,11 @@ class Executor:
         meta = {"mode": "dense", "domain": domain, "radices": radices,
                 "key_templates": key_templates, "key_offsets": None,
                 "join_sis": (), "agg_dicts": meta["agg_dicts"],
-                "agg_limbs": meta["agg_limbs"]}
+                "agg_limbs": set(), "agg_exact": exact}
         plan["bytes_copied"] = stream.bytes_copied
         plan["host_fill_ms"] = stream.fill_s * 1e3
+        plan["uncaptured_program_ms"] = uncaptured_s * 1e3
         plan["allocated_after_chunk"] = stream.allocated_after_chunk
-        # re-split exact limb totals into (hi, lo) int64 lanes for the
-        # shared dense finish (combine_limbs(hi, lo) == hi*2^32 + lo)
-        for i, k in enumerate(kinds):
-            if k == "limb":
-                tot = acc[i]
-                acc[i] = np.array([int(x) >> 32 for x in tot], np.int64)
-                acc[i + 1] = np.array([int(x) & 0xFFFFFFFF for x in tot],
-                                      np.int64)
         res = {"lanes": acc, "extras": (), "step_counts": (), "oob": None}
         return self._finish_fused_dense(op, res, meta)
 
@@ -2732,11 +2769,16 @@ class Executor:
             sel = slice(None)
         idx = 1
         for spec in op.aggs:
-            if spec.out.cid in meta["agg_limbs"]:
+            if spec.out.cid in meta["agg_limbs"] | meta.get("agg_exact",
+                                                            set()):
                 from ..ops import decwide
 
-                val = decwide.demote_if_possible(decwide.combine_limbs(
-                    lanes[idx][sel], lanes[idx + 1][sel]))
+                # a wide sum: a limb pair, or an exact object total (the
+                # out-of-core combine) beside a placeholder
+                tot = lanes[idx][sel]
+                if spec.out.cid in meta["agg_limbs"]:
+                    tot = decwide.combine_limbs(tot, lanes[idx + 1][sel])
+                val = decwide.demote_if_possible(tot)
                 cnt = lanes[idx + 2][sel]
                 idx += 3
             else:

@@ -16,6 +16,9 @@ N = 60,000,000 rows (6,000,000 with --quick). Cases:
   k2_sorted_sparse1pct      gather_sorted_i32: 1 % of the rows, sorted
   k4_segscan_w2             segscan_i32: runs of 4, two planes
   k4_segscan_w8             the same with eight planes (one launch)
+  k4_segscan_onerun         two planes, one run over the whole array (the
+                            worst case: every tile's carry comes through
+                            the look-back)
   torch_index_sorted        plain torch indexing of the dense case (baseline)
   torch_cumsum_*, torch_cummax_*
                             the fused grouping's prefix sum and running max
@@ -212,7 +215,13 @@ def main(argv=None) -> int:
     ok = _equal(torch, pg.segscan_i32(gid, planes), pg.segscan_i32_plain(gid, planes))
     rep("k4_segscan_w8", ok, lambda: pg.segscan_i32(gid, planes),
         4 * n + 2 * 4 * n * 8, n, lambda: pg.segscan_i32_plain(gid, planes))
-    del gid, v1, ones, planes
+    one_run = torch.zeros(n, device=dev, dtype=torch.int32)
+    ok = _equal(torch, pg.segscan_i32(one_run, [v1, ones]),
+                pg.segscan_i32_plain(one_run, [v1, ones]))
+    rep("k4_segscan_onerun", ok, lambda: pg.segscan_i32(one_run, [v1, ones]),
+        4 * n + 2 * 4 * n * 2, n,
+        lambda: pg.segscan_i32_plain(one_run, [v1, ones]))
+    del gid, v1, ones, planes, one_run
 
     # baseline: plain torch indexing of the dense monotone case
     idx64 = idx.to(torch.int64)

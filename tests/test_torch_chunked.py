@@ -18,6 +18,8 @@ host, and runs through the session's graph store, captured once a slot
 every later run.
 """
 
+import sqlite3
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,8 @@ from lingodb_tpu.utils import settings as ref_settings
 import lingodb_tpu_torch as ldb
 from lingodb_tpu_torch.runtime import executor as ex
 from lingodb_tpu_torch.runtime import exestore
-from lingodb_tpu_torch.tools import tpchbig
+from lingodb_tpu_torch.tools import sqlite_oracle as so
+from lingodb_tpu_torch.tools import tpchbig, tpchgen
 from lingodb_tpu_torch.utils import compilestats, settings
 
 pytestmark = pytest.mark.filterwarnings("error:__array_wrap__")
@@ -301,4 +304,94 @@ def test_one_chunk_stream_a_session(sessions, budget):
     cs0 = compilestats.snapshot()
     assert ps.sql(q1).format_rows() == rs.sql(q1).format_rows()
     assert (compilestats.delta(cs0)["captures"], len(_streams(ps))) == (0, 1)
+    _forget_plans(ps)
+
+
+# Aggregates over a wide decimal that only the host computes (a quotient
+# past 18 digits: a host object column in the chunk program). The streamed
+# rows must equal the port's resident rows as strings: the JAX package is
+# no oracle here (its wide quotients wrap: sum(l_extendedprice / 7) gives
+# -0.245761671309375607354 for 'A'), sqlite3 is, within a relative 1e-9.
+C8_SF = 0.05  # 300,000 rows: two chunks of m = 2^18 at BUDGET
+C8_SQL = {
+    "sum": "SELECT l_returnflag, sum(l_extendedprice / 7) FROM lineitem "
+           "GROUP BY l_returnflag ORDER BY l_returnflag",
+    "avg": "SELECT l_returnflag, avg(l_extendedprice / 7) FROM lineitem "
+           "GROUP BY l_returnflag ORDER BY l_returnflag",
+    "global": "SELECT sum(l_extendedprice / 3) FROM lineitem "
+              "WHERE l_quantity < 10",
+    "minmax": "SELECT l_returnflag, min(l_extendedprice / 7), "
+              "max(l_extendedprice / 7) FROM lineitem "
+              "GROUP BY l_returnflag ORDER BY l_returnflag",
+    "per_unit": "SELECT l_returnflag, sum(l_extendedprice * 1.0 / l_quantity) "
+                "FROM lineitem GROUP BY l_returnflag ORDER BY l_returnflag",
+    # NULL operands: every 'A' and 'R' row has linestatus 'F', so their
+    # groups hold no value (NULL results beside a present group)
+    "null_operand": "SELECT l_returnflag, sum(CASE WHEN l_linestatus = 'O' "
+                    "THEN l_extendedprice / 7 END), "
+                    "min(l_extendedprice / NULLIF(l_quantity, 1)), "
+                    "max(CASE WHEN l_linestatus = 'O' "
+                    "THEN l_extendedprice / 7 END) FROM lineitem "
+                    "GROUP BY l_returnflag ORDER BY l_returnflag",
+    # the restriction empties the 'A' and 'R' groups
+    "emptied_group": "SELECT l_returnflag, sum(l_extendedprice / 7), "
+                     "min(l_extendedprice / 7), max(l_extendedprice / 3) "
+                     "FROM lineitem WHERE l_shipdate > date '1995-06-17' "
+                     "GROUP BY l_returnflag ORDER BY l_returnflag",
+    "emptied_global": "SELECT sum(l_extendedprice / 3), "
+                      "min(l_extendedprice / 3), count(*) FROM lineitem "
+                      "WHERE l_quantity < 0",
+}
+
+
+@pytest.fixture(scope="module")
+def c8():
+    t = tpchbig.generate(C8_SF, SEED)
+    ps = ldb.create_in_memory(device="cpu")
+    tpchbig.install(ps, t)
+    conn = sqlite3.connect(":memory:")
+    tpchgen.to_sqlite(conn, {"lineitem": t})
+    yield ps, conn
+    conn.close()
+
+
+@pytest.mark.parametrize("name", list(C8_SQL))
+def test_streamed_aggregate_over_host_decimals_is_exact(c8, budget, name,
+                                                        monkeypatch):
+    """Sum, min and max (avg as sum and count) of a host object column
+    stream in exact host lanes, combined exactly across chunks (never split
+    into int64 limbs): the streamed rows equal the resident run's, the
+    table is not uploaded whole, and the plan streams uncaptured."""
+    ps, conn = c8
+    sql = C8_SQL[name]
+    settings.DEVICE_BYTE_BUDGET.set(str(10 << 30))
+    resident = ps.sql(sql).format_rows()
+    settings.DEVICE_BYTE_BUDGET.set(str(BUDGET))
+    _forget_plans(ps)
+
+    def no_upload(table):
+        raise AssertionError(f"{table} uploaded whole")
+
+    monkeypatch.setattr(ps, "device_table", no_upload)
+    ps.executor.last_chunked = None
+    cs0 = compilestats.snapshot()
+    res = ps.sql(sql)
+    d = compilestats.delta(cs0)
+    assert res.format_rows() == resident
+    assert ps.executor.last_chunked["chunks"] == 2
+    assert any(k[0] == "chunked_eager" for k in ps.stage_cache
+               if isinstance(k, tuple))
+    assert (d["captures"], d["replays"]) == (0, 0)
+    if name == "sum":
+        # the 'A' total needs more than the 95 bits of an int64 limb pair
+        assert int(resident[0][1].replace(".", "")) > 1 << 95
+    ours, theirs = so.our_rows(res), so.run_sqlite(conn, sql)
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            if isinstance(x, str) or x is None or y is None:
+                assert x == y
+            else:
+                assert x == pytest.approx(y, rel=1e-9, abs=0), (x, y)
     _forget_plans(ps)
