@@ -25,7 +25,14 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               kernel keeps on the card), count and slots bit for bit, and
               from two threads on the default stream at once (50 calls
               each, sel 0.5 and 0.02, with a time limit on the join: a hang
-              fails);
+              fails); gather_chunked and gather_sorted also on the edges
+              of theirs (every plane width alone and eight widths in one
+              call, s = 1 and 16,384, K1's plane groups past 227 KB and
+              its direct and staged forms, n = 0 and 1, planes, idx and
+              outputs at an odd element, out-of-range and SENTINEL
+              indices, K2 given unsorted indices), bit for bit; K2's cases
+              also print the sector floor (32 bytes for each sector that
+              holds a requested entry);
               segscan is only
               checked here (at lineitem's length, runs of 4 and one run over
               the whole array; then n below one tile and at a tile's edges,
@@ -135,9 +142,10 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               masks written into its input buffer (sel 0, 0.5 and 1, a
               count above k, the call number at its wrap), then two threads
               each replaying its own graph on its own stream (time limit on
-              the join), and gather_chunked, gather_sorted and segscan
-              captured and replayed once each: bit for bit against the
-              plain versions;
+              the join), and gather_chunked (int32 planes, planes of three
+              widths, and 10 rows: its direct form), gather_sorted (int32
+              planes, three widths) and segscan captured and replayed once
+              each: bit for bit against the plain versions;
               (b) the fused queries of phases 4 and 4b (q6, q1, q14, q3,
               q4 and the eleven; 15 distinct) from an empty stage cache and
               store with system.capstore_dir set: three runs each, run 1
@@ -254,6 +262,7 @@ import time
 from lingodb_tpu_torch.tools.kbench import HBM_BYTES_PER_S
 from lingodb_tpu_torch.tools.kbench import call_ms as time_ms
 from lingodb_tpu_torch.tools.kbench import card_ms as device_ms
+from lingodb_tpu_torch.tools.kbench import sector_count
 
 QUERIES = ["6", "1", "14", "3", "4"]
 TOPK_CHAIN_QUERIES = ["2", "3", "10", "18", "21", "8", "9", "11", "16", "17",
@@ -357,11 +366,17 @@ def fmt_ms(v) -> str:
 
 
 def max_abs_err(torch, got, want) -> int:
+    """The largest difference between got and want, tensor by tensor, of
+    their bits read as integers (a float's bits: 0 only where bit-equal)."""
     worst = 0
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype:
             fail(f"shape/dtype mismatch {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
         if g.numel():
+            if g.dtype.is_floating_point:
+                as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+                g = g.view(as_int[g.dtype.itemsize])
+                w = w.view(as_int[w.dtype.itemsize])
             worst = max(worst, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
     return worst
 
@@ -575,6 +590,7 @@ def check_sorted(torch, pg, s, mask, cases):
     for c, idx in ((1, idx), (2, idx), (8, idx), (7, idx[:: 26].contiguous()),
                    (3, idx), (2, few)):
         distinct = int(torch.unique_consecutive(idx.clamp(0, s - 1)).numel())
+        sectors = sector_count(torch, idx.clamp(0, s - 1), 4)
         n = int(idx.numel())
         planes = planes8[:c]
         got = pg.gather_sorted_planes(planes, idx)
@@ -591,16 +607,117 @@ def check_sorted(torch, pg, s, mask, cases):
         cases.append(case_entry(
             "gather_sorted", f"s={s} n={n} C={c}", err, ms, dev, plain, lib,
             lib_dev, 4 * n + 4 * c * n + 4 * c * distinct))
+        # the sector floor: the card moves whole 32-byte sectors
+        cases[-1]["floor_ms"] = ((4 * n + 4 * c * n + 32 * c * sectors)
+                                 / HBM_BYTES_PER_S * 1e3)
         if err:
             fail(f"gather_sorted differs from plain version (C={c}, n={n})")
-    # 64-bit column through strided limb planes, unsorted + out-of-range idx
+    # a 64-bit column as one 8-byte plane, unsorted + out-of-range idx
     wide = torch.randint(-(1 << 62), 1 << 62, (s,), device="cuda", generator=gen)
     ridx = torch.randint(-5, s + 5, (1 << 20,), device="cuda", generator=gen).to(torch.int32)
     ridx[-1] = pg.SENTINEL
     got = pg.take_fast(wide, ridx, monotone=True)
     want = wide[ridx.to(torch.int64).clamp(0, s - 1)]
     if not torch.equal(got, want):
-        fail("take_fast wrong for int64 limbs / unsorted / out-of-range idx")
+        fail("take_fast wrong for int64 / unsorted / out-of-range idx")
+    check_gather_edges(torch, pg, s, cases)
+
+
+# the gathers' planes: one of each width, in the order of GATHER_DTYPES
+GATHER_DTYPES = ("bool", "int8", "uint8", "int16", "int32", "float32",
+                 "int64", "float64")
+
+
+def gather_planes(torch, gen, s, dtypes=GATHER_DTYPES):
+    """One plane of s random elements of each dtype named."""
+    out = []
+    for name in dtypes:
+        dt = getattr(torch, name)
+        if dt == torch.bool:
+            out.append(torch.rand(s, device="cuda", generator=gen) < 0.5)
+        elif dt.is_floating_point:
+            out.append(torch.randn(s, device="cuda", generator=gen).to(dt))
+        else:
+            bits = 8 * dt.itemsize
+            lo = 0 if dt == torch.uint8 else -(1 << (bits - 1))
+            hi = (1 << bits if dt == torch.uint8 else 1 << (bits - 1)) - 1
+            out.append(torch.randint(lo, hi, (s,), device="cuda",
+                                     generator=gen, dtype=torch.int64).to(dt))
+    return out
+
+
+def check_gather_edges(torch, pg, s_big, cases):
+    """K1 and K2 on the edges of their contracts, each call bit for bit
+    against its plain version (recorded in `cases` without times): every
+    width alone and all eight in one call; s = 1, 16,384 and K1's plane
+    groups past 227 KB (two and eight 8-byte planes at s = 16,384), K1's
+    direct form (few rows) and staged form (many); n = 0 and n = 1; planes,
+    idx and outputs that start at an odd element (not 16-byte aligned);
+    out-of-range and SENTINEL indices; K2 given unsorted indices (a wrong
+    monotone hint); a bool output stays 0/1 bytes."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    kernels = (("gather_chunked", pg.gather_chunked_planes,
+                pg.gather_chunked_planes_plain),
+               ("gather_sorted", pg.gather_sorted_planes,
+                pg.gather_sorted_planes_plain))
+
+    def idx_for(s, n, sort):
+        i = torch.randint(-3, s + 3, (n,), device="cuda", generator=gen)
+        if n > 2:
+            i[n // 2] = pg.SENTINEL
+        i = i.to(torch.int32)
+        return torch.sort(i).values if sort else i
+
+    def same(name, label, kernel, plain, planes, idx, outs=None):
+        got = kernel(planes, idx, outs=outs)
+        want = plain(planes, idx)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        for g in got:
+            if g.dtype == torch.bool and g.numel() and int(
+                    g.view(torch.uint8).max()) > 1:
+                fail(f"{name} {label}: a bool output holds a byte above 1")
+        cases.append({"name": name, "shape": f"edge: {label}",
+                      "max_abs_err": err})
+        if err:
+            fail(f"{name} differs from plain version ({label})")
+
+    for name, kernel, plain in kernels:
+        sort = name == "gather_sorted"
+        for s, n in ((1, 1000), (16_384, 1 << 20), (16_384, 100), (4_000, 7)):
+            idx = idx_for(s, n, sort)
+            every = gather_planes(torch, gen, s)
+            for p, dt in zip(every, GATHER_DTYPES):
+                same(name, f"s={s} n={n} {dt}", kernel, plain, [p], idx)
+            same(name, f"s={s} n={n} all eight widths", kernel, plain, every,
+                 idx)
+        for c in (2, 8):  # 8-byte planes of 128 KB: K1 in c groups
+            planes = gather_planes(torch, gen, 16_384, ("int64",) * c)
+            same(name, f"s=16384 n={1 << 20} C={c} int64", kernel, plain,
+                 planes, idx_for(16_384, 1 << 20, sort))
+        planes = gather_planes(torch, gen, 5_000, ("bool", "int64", "int16"))
+        for n in (0, 1):
+            same(name, f"s=5000 n={n}", kernel, plain, planes,
+                 idx_for(5_000, n, sort))
+        # views that start at an odd element: planes (no bulk staging), idx
+        # (no 16-byte index loads) and outputs (no whole-quad stores)
+        wide = gather_planes(torch, gen, 5_001, ("int32", "int64", "bool"))
+        odd = [p[1:] for p in wide]
+        idx = idx_for(5_000, 100_001, sort)[1:]
+        same(name, "odd views of planes and idx", kernel, plain, odd, idx)
+        bufs = [torch.empty(100_001, dtype=p.dtype, device="cuda")
+                for p in odd]
+        same(name, "odd views of the outputs", kernel, plain, odd, idx,
+             outs=[b[1:] for b in bufs])
+    # K2 given unsorted indices: the hint is wrong, the values are not
+    planes = gather_planes(torch, gen, s_big, ("int64", "bool", "float32"))
+    same("gather_sorted", f"s={s_big} unsorted (wrong monotone hint)",
+         pg.gather_sorted_planes, pg.gather_sorted_planes_plain, planes,
+         idx_for(s_big, 1 << 20, False))
+    idx = idx_for(s_big, 4096, False)
+    got = pg.take_fast_multi(planes, idx, monotone=True)
+    if max_abs_err(torch, got, pg.gather_sorted_planes_plain(planes, idx)):
+        fail("take_fast_multi with a wrong monotone hint differs")
 
 
 def check_chunked(torch, pg, n, cases):
@@ -1751,7 +1868,26 @@ def check_graph_kernels(torch, pg, u, limit_s=300.0):
     idx = torch.zeros(n, dtype=torch.int32, device="cuda")
     sidx = torch.zeros(n // 2, dtype=torch.int32, device="cuda")
     gid = torch.zeros(n, dtype=torch.int32, device="cuda")
+    # planes of three widths in one launch, and K1's direct form (10 rows)
+    mixed = gather_planes(torch, gen, n, ("int64", "bool", "float32"))
+    mixed_small = [p[:10_000].clone() for p in mixed]
+    few = torch.zeros(10, dtype=torch.int32, device="cuda")
     for name, fn, fill, plain in (
+            ("gather_chunked, three widths",
+             lambda: pg.gather_chunked_planes(mixed_small, idx),
+             lambda: idx.copy_(torch.randint(0, 10_000, (n,), device="cuda",
+                                             generator=gen)),
+             lambda: pg.gather_chunked_planes_plain(mixed_small, idx)),
+            ("gather_chunked, 10 rows (the direct form)",
+             lambda: pg.gather_chunked_planes(mixed_small, few),
+             lambda: few.copy_(torch.randint(-5, 10_005, (10,), device="cuda",
+                                             generator=gen)),
+             lambda: pg.gather_chunked_planes_plain(mixed_small, few)),
+            ("gather_sorted, three widths",
+             lambda: pg.gather_sorted_planes(mixed, sidx),
+             lambda: sidx.copy_(torch.sort(torch.randint(
+                 0, n, (n // 2,), device="cuda", generator=gen)).values),
+             lambda: pg.gather_sorted_planes_plain(mixed, sidx)),
             ("gather_chunked", lambda: pg.gather_chunked_planes(small, idx),
              lambda: idx.copy_(torch.randint(0, 10_000, (n,), device="cuda",
                                              generator=gen)),
@@ -1767,8 +1903,9 @@ def check_graph_kernels(torch, pg, u, limit_s=300.0):
         fill()
         gk.replay()
         replay_check(torch, name, list(out), list(plain()))
-    log("# graphs: gather_chunked, gather_sorted and segscan replayed with "
-        "new inputs, equal to their plain versions")
+    log("# graphs: gather_chunked (int32 planes, three widths, the direct "
+        "form), gather_sorted (int32 planes, three widths) and segscan "
+        "replayed with new inputs, equal to their plain versions")
 
 
 def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
@@ -2979,7 +3116,9 @@ def main() -> int:
             f"(on the card {c['device_ms']:.4f} ms), plain "
             f"{c['plain_ms']:.4f} ms, library {fmt_ms(c['library_ms'])} ms "
             f"(on the card {fmt_ms(c['library_device_ms'])} ms), "
-            f"bound {c['bound_ms']:.4f} ms, max_abs_err {c['max_abs_err']}")
+            f"bound {c['bound_ms']:.4f} ms"
+            + (f", sector floor {c['floor_ms']:.4f} ms" if "floor_ms" in c
+               else "") + f", max_abs_err {c['max_abs_err']}")
     del mask
     torch.cuda.empty_cache()
 

@@ -52,8 +52,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # a source's headers (csrc/*.cuh) are part of what it builds from
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -107,12 +109,10 @@ def _declare(libs) -> None:
     t = libs["compact_positions"].ldb_compact_tile
     t.argtypes = []
     t.restype = i32
-    f = libs["gather_sorted"].ldb_gather_sorted
-    f.argtypes = [vp, vp, vp, vp, i32, i64, vp, i64, vp]
-    f.restype = i32
-    f = libs["gather_chunked"].ldb_gather_chunked
-    f.argtypes = [vp, vp, vp, vp, i32, i64, vp, i64, i32, vp]
-    f.restype = i32
+    for lib_name in ("gather_sorted", "gather_chunked"):  # one packed call
+        f = getattr(libs[lib_name], f"ldb_{lib_name}")
+        f.argtypes = [ctypes.c_char_p]
+        f.restype = i32
     f = libs["segscan"].ldb_segscan
     f.argtypes = [vp, i64, vp, vp, vp, vp, i32, vp, vp]
     f.restype = i32

@@ -3,19 +3,24 @@ and the dispatcher that routes gathers and compactions to them.
 
 The reference engine's JIT'd tuple loops (lingo-db: src/runtime/Hashtable.cpp,
 LazyJoinHashtable.cpp:7-32, generated per-morsel loops) run these at memory
-speed. Kernels (sources under csrc/, all int32 in-kernel; wrappers limb-split
-64-bit types):
+speed. Kernels (sources under csrc/; the two gathers take planes of 1, 2,
+4 or 8 bytes, each gathered at its own width, up to 8 of any widths a
+launch):
 
   gather_chunked_planes(tables, idx)  table <= CHUNK_TABLE_LIMIT entries:
-                                      whole table in shared memory, indices
-                                      streamed through it.
+                                      the tables in shared memory, indices
+                                      streamed through them (tables of at
+                                      most 64 KB, or few rows against the
+                                      table: read through L1 instead).
   compact_positions(mask, k)          ascending positions of mask's set
                                       bits and their exact count: one pass
                                       with decoupled look-back.
   gather_sorted_planes(tables, idx)   idx monotone nondecreasing (post-filter
                                       positions, sorted-FK probes): one index
                                       decode shared by all planes, reads
-                                      coalesce because neighbours are near.
+                                      coalesce because neighbours are near
+                                      (sparse: a block a plane, to keep
+                                      the loads in flight).
   segscan_i32(gid, vals)              segmented inclusive sum of int32
                                       planes over a sorted key: one pass
                                       with decoupled look-back. No engine
@@ -32,6 +37,7 @@ graph's owner adds to LAUNCHES at every replay (runtime/exestore.py).
 from __future__ import annotations
 
 import ctypes
+import struct
 import threading
 
 import numpy as np
@@ -42,6 +48,13 @@ from . import backend as be
 SENTINEL = 2147483646
 CHUNK_TABLE_LIMIT = 16384
 _MAX_PLANES = 8  # per kernel call (the kernels' pointer tables hold 8)
+# log2 of a plane element's bytes, by its dtype's itemsize: the two gathers
+# copy elements of these widths as bits, so every dtype of them is exact
+_LOG2_WIDTH = {1: 0, 2: 1, 4: 2, 8: 3}
+# the two gathers' packed call (csrc/gather_planes.cuh): 6 header words,
+# then 5 a plane
+_DESC = [struct.Struct(f"<{6 + 5 * c}q") for c in range(_MAX_PLANES + 1)]
+_KERNEL_FN: dict = {}  # kernel name -> its bound C entry point
 
 # launches per kernel since the last reset_counters()
 LAUNCHES = {"compact_positions": 0, "gather_sorted": 0, "gather_chunked": 0,
@@ -53,10 +66,14 @@ def reset_counters() -> None:
         LAUNCHES[k] = 0
 
 
-def _launched(name: str) -> None:
+def _launched(name: str, capturing: bool | None = None) -> None:
     """One launch of kernel `name` by its wrapper: counted in LAUNCHES, or,
-    where the call is being captured, in the capture's tally."""
-    if torch.cuda.is_current_stream_capturing():
+    where the call is being captured, in the capture's tally. `capturing`
+    is what the launch saw (the gathers' entry points report it), else it is
+    asked of the current stream."""
+    if capturing is None:
+        capturing = torch.cuda.is_current_stream_capturing()
+    if capturing:
         tally = getattr(_compact_local, "tally", None)
         if tally is not None:
             tally[name] = tally.get(name, 0) + 1
@@ -76,21 +93,42 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+def _check_rc(rc: int, what: str) -> None:
+    """Raise for a gather entry point's negative return (a CUDA error, or
+    at or below -10000 arguments it does not take)."""
+    if rc <= -10000:
+        raise ValueError(f"{what}: arguments refused by the kernel ({rc})")
+    if rc < 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {-rc}")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_planes(tables, idx, what: str) -> int:
-    s = int(tables[0].shape[0])
+def _check_planes(tables, idx, what: str, meta=None) -> int:
+    """The table length s of a gather's planes: 1..8 equal-length 1-D
+    tensors of 1, 2, 4 or 8-byte elements on idx's device, idx int32.
+    Reads cheap attributes only, each once; `meta`, where given, receives
+    each plane's (dtype, data pointer, element stride)."""
     if not 1 <= len(tables) <= _MAX_PLANES:
         raise ValueError(f"{what}: 1..{_MAX_PLANES} planes, got {len(tables)}")
-    for t in tables:
-        if t.dtype != torch.int32 or t.ndim != 1 or int(t.shape[0]) != s:
-            raise ValueError(f"{what}: planes must be equal-length 1-D int32")
-        if t.device != idx.device:
-            raise ValueError(f"{what}: planes and idx on different devices")
     if idx.dtype != torch.int32:
         raise ValueError(f"{what}: idx must be int32")
+    dev = idx.get_device()
+    s = -1
+    for t in tables:
+        shape, dt = t.shape, t.dtype
+        if len(shape) != 1 or (s >= 0 and shape[0] != s):
+            raise ValueError(f"{what}: planes must be equal-length 1-D")
+        s = shape[0]
+        if dt.itemsize not in _LOG2_WIDTH:
+            raise ValueError(f"{what}: planes of 1, 2, 4 or 8-byte elements, "
+                             f"got {dt}")
+        if t.get_device() != dev:
+            raise ValueError(f"{what}: planes and idx on different devices")
+        if meta is not None:
+            meta.append((dt, t.data_ptr(), t.stride()[0]))
     if s < 1:
         raise ValueError(f"{what}: empty table")
     if s > 2147483647:
@@ -98,24 +136,68 @@ def _check_planes(tables, idx, what: str) -> int:
     return s
 
 
-def _plane_args(tables, outs):
-    """ctypes pointer/stride arrays for a group of (possibly strided) planes."""
-    c = len(tables)
-    ptr_t, i64_t = ctypes.c_void_p * c, ctypes.c_int64 * c
-    return (ptr_t(*[t.data_ptr() for t in tables]),
-            i64_t(*[t.stride(0) for t in tables]),
-            ptr_t(*[o.data_ptr() for o in outs]),
-            i64_t(*[o.stride(0) if o.numel() > 1 else 1 for o in outs]))
+def _alloc_outs(dtypes, n: int, device):
+    """Output planes of n rows of `dtypes` and their (data pointer, element
+    stride): planes of one dtype share one allocation, each row 16-byte
+    aligned (its pointer computed, not asked)."""
+    dt = dtypes[0]
+    if len(dtypes) == 1:
+        o = torch.empty((n,), dtype=dt, device=device)
+        return [o], [(o.data_ptr(), 1)]
+    if all(d == dt for d in dtypes):
+        w = dt.itemsize
+        row = -(-n * w // 16) * 16 // w
+        buf = torch.empty((len(dtypes) * row,), dtype=dt, device=device)
+        base = buf.data_ptr()
+        outs = list(buf.as_strided((len(dtypes), n), (row, 1)).unbind(0))
+        return outs, [(base + p * row * w, 1) for p in range(len(dtypes))]
+    outs = [torch.empty((n,), dtype=d, device=device) for d in dtypes]
+    return outs, [(o.data_ptr(), 1) for o in outs]
 
 
-def _alloc_outs(tables, n: int, outs):
+def _given_outs(meta, n: int, outs, dev: int):
+    """The caller's output planes, checked, and their (pointer, stride)."""
+    if len(outs) != len(meta):
+        raise ValueError("one output plane per plane")
+    words = []
+    for (dt, _ptr, _stride), o in zip(meta, outs):
+        if o.dtype != dt or o.dim() != 1 or o.shape[0] != n:
+            raise ValueError("output planes must be 1-D of idx's length and "
+                             "their plane's dtype")
+        if o.get_device() != dev:
+            raise ValueError("output planes on another device")
+        words.append((o.data_ptr(), o.stride()[0]))
+    return list(outs), words
+
+
+def _gather(name: str, tables, idx, outs, limit: int):
+    """The CUDA path of gather kernel `name` (ldb_<name>) for 1-D contiguous
+    idx: the planes checked (s <= limit), the outputs made (or `outs`
+    checked), and one launch on idx's device and current stream, the call
+    packed into one buffer of int64 words. Returns the output planes."""
+    meta = []
+    s = _check_planes(tables, idx, name, meta)
+    if s > limit:
+        raise ValueError(f"{name}: table of {s} entries exceeds {limit}")
+    n = idx.shape[0]
+    dev = idx.get_device()
     if outs is None:
-        buf = torch.empty((len(tables), n), dtype=torch.int32,
-                          device=tables[0].device)
-        return [buf[p] for p in range(len(tables))]
-    for o in outs:
-        if o.dtype != torch.int32 or o.ndim != 1 or int(o.shape[0]) != n:
-            raise ValueError("output planes must be 1-D int32 of idx's length")
+        outs, out_words = _alloc_outs([m[0] for m in meta], n, idx.device)
+    else:
+        outs, out_words = _given_outs(meta, n, outs, dev)
+    if n:
+        fn = _KERNEL_FN.get(name)
+        if fn is None:
+            from . import cuda_build
+
+            fn = _KERNEL_FN[name] = getattr(cuda_build.lib(name), f"ldb_{name}")
+        words = [len(tables), n, s, idx.data_ptr(),
+                 torch._C._cuda_getCurrentRawStream(dev), dev]
+        for (dt, ptr, stride), (out, out_stride) in zip(meta, out_words):
+            words += (ptr, out, stride, out_stride, _LOG2_WIDTH[dt.itemsize])
+        rc = fn(_DESC[len(tables)].pack(*words))
+        _check_rc(rc, name)
+        _launched(name, rc == 1)
     return outs
 
 
@@ -131,44 +213,34 @@ def gather_chunked_planes_plain(tables, idx):
 
 
 def gather_chunked_planes(tables, idx, outs=None):
-    """[t[clip(idx)] for t in tables] for int32 1-D equal-length tables with
-    <= CHUNK_TABLE_LIMIT entries; idx any shape int32. One kernel launch.
-    `outs` may name preallocated 1-D int32 outputs (idx must then be 1-D)."""
-    s = _check_planes(tables, idx, "gather_chunked")
-    if s > CHUNK_TABLE_LIMIT:
-        raise ValueError(f"gather_chunked: table of {s} entries exceeds "
-                         f"{CHUNK_TABLE_LIMIT}")
+    """[t[clip(idx)] for t in tables] for 1..8 equal-length 1-D tables of
+    <= CHUNK_TABLE_LIMIT entries, each of 1, 2, 4 or 8-byte elements and
+    gathered at its own dtype; idx any shape int32. One kernel launch.
+    `outs` may name preallocated 1-D outputs (idx must then be 1-D)."""
     if not idx.is_cuda:
+        s = _check_planes(tables, idx, "gather_chunked")
+        if s > CHUNK_TABLE_LIMIT:
+            raise ValueError(f"gather_chunked: table of {s} entries exceeds "
+                             f"{CHUNK_TABLE_LIMIT}")
         res = gather_chunked_planes_plain(tables, idx)
         if outs is not None:
             for o, r in zip(outs, res):
                 o.copy_(r)
             return list(outs)
         return res
-    from . import cuda_build
-
-    flat = idx.reshape(-1).contiguous()
-    n = int(flat.shape[0])
-    outs = _alloc_outs(tables, n, outs)
-    if n:
-        pin, sin, pout, sout = _plane_args(tables, outs)
-        # enough resident blocks to hide load latency: as many per SM as
-        # their shared-memory tables allow (at most 8), each looping over
-        # index tiles
-        sms = torch.cuda.get_device_properties(idx.device).multi_processor_count
-        per_sm = max(1, min(8, (200 << 10) // (4 * s)))
-        fn = cuda_build.lib("gather_chunked").ldb_gather_chunked
-        with torch.cuda.device(idx.device):
-            err = fn(pin, sin, pout, sout, len(tables), s, flat.data_ptr(), n,
-                     per_sm * sms, _stream(idx))
-        _launched("gather_chunked")
-        _check(err, "gather_chunked")
-    return [o.reshape(idx.shape) for o in outs]
+    flat = idx.reshape(-1)
+    if not flat.is_contiguous():
+        flat = flat.contiguous()
+    outs = _gather("gather_chunked", tables, flat, outs, CHUNK_TABLE_LIMIT)
+    if idx.dim() == 1:
+        return outs
+    return [o.view(idx.shape) for o in outs]
 
 
 def gather_chunked_i32(table, idx):
-    """table[clip(idx)] for int32 1-D table with <= CHUNK_TABLE_LIMIT
-    entries; idx any shape int32. Out-of-range indices are clamped."""
+    """table[clip(idx)] for a 1-D table with <= CHUNK_TABLE_LIMIT entries
+    (the one-plane case); idx any shape int32. Out-of-range indices are
+    clamped."""
     return gather_chunked_planes([table], idx)[0]
 
 
@@ -306,7 +378,8 @@ def gather_sorted_planes_plain(tables, idx):
 
 
 def gather_sorted_planes(tables, idx, outs=None):
-    """[t[clip(idx)] for t in tables] for equal-length 1-D int32 tables and
+    """[t[clip(idx)] for t in tables] for 1..8 equal-length 1-D tables,
+    each of 1, 2, 4 or 8-byte elements and gathered at its own dtype, and
     monotone nondecreasing 1-D int32 idx, in ONE kernel launch.
 
     The CUDA kernel reads global memory directly and so serves every index,
@@ -315,40 +388,41 @@ def gather_sorted_planes(tables, idx, outs=None):
     it in an overflow count (sized by `d_chunks`, `t_rows`, `conservative`);
     none of that has a counterpart here, so the port returns the values
     alone."""
-    s = _check_planes(tables, idx, "gather_sorted")
-    if idx.ndim != 1:
+    if idx.dim() != 1:
         raise ValueError("gather_sorted: idx must be 1-D")
     if not idx.is_cuda:
+        _check_planes(tables, idx, "gather_sorted")
         res = gather_sorted_planes_plain(tables, idx)
         if outs is not None:
             for o, r in zip(outs, res):
                 o.copy_(r)
             return list(outs)
         return res
-    from . import cuda_build
-
-    idx = idx.contiguous()
-    n = int(idx.shape[0])
-    outs = _alloc_outs(tables, n, outs)
-    if n:
-        pin, sin, pout, sout = _plane_args(tables, outs)
-        fn = cuda_build.lib("gather_sorted").ldb_gather_sorted
-        with torch.cuda.device(idx.device):
-            err = fn(pin, sin, pout, sout, len(tables), s, idx.data_ptr(), n,
-                     _stream(idx))
-        _launched("gather_sorted")
-        _check(err, "gather_sorted")
-    return list(outs)
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    return _gather("gather_sorted", tables, idx, outs, 2147483647)
 
 
 def gather_sorted_i32(table, idx):
-    """Single-plane gather_sorted_planes (kept for tests/direct callers)."""
+    """Single-plane gather_sorted_planes (the one-plane case, for tests and
+    direct callers)."""
     return gather_sorted_planes([table], idx)[0]
 
 
 # --------------------------------------------------------------------------
 # K4: segscan — segmented inclusive sum over a sorted int32 key
 # --------------------------------------------------------------------------
+
+def _plane_args(tables, outs):
+    """ctypes pointer/stride arrays for a group of (possibly strided) int32
+    planes."""
+    c = len(tables)
+    ptr_t, i64_t = ctypes.c_void_p * c, ctypes.c_int64 * c
+    return (ptr_t(*[t.data_ptr() for t in tables]),
+            i64_t(*[t.stride(0) for t in tables]),
+            ptr_t(*[o.data_ptr() for o in outs]),
+            i64_t(*[o.stride(0) if o.numel() > 1 else 1 for o in outs]))
+
 
 def _segscan_scratch(n: int, widths, tile_rows):
     """Where each launch's scratch lies in the one zeroed int64 buffer of a
@@ -402,7 +476,7 @@ def segscan_i32(gid, vals):
         raise ValueError("segscan: gid too long")
     lib = cuda_build.lib("segscan")
     gid = gid.contiguous()
-    outs = _alloc_outs(vals, n, None)
+    outs, _ = _alloc_outs([v.dtype for v in vals], n, gid.device)
     starts = range(0, len(vals), _MAX_PLANES)
     offsets, total = _segscan_scratch(
         n, [len(vals[g0:g0 + _MAX_PLANES]) for g0 in starts], lib.ldb_segscan_tile)
@@ -431,67 +505,38 @@ def use_kernels(*tensors) -> bool:
     """Whether gathers/compactions take the kernel route: some tensor lies on
     a CUDA device. Tests force the route for CPU tensors with
     FORCE_KERNELS=True (the wrappers then run their plain versions, so
-    routing, limb-splitting and padding are exercised)."""
+    routing, grouping and padding are exercised)."""
     if FORCE_KERNELS is not None:
         return FORCE_KERNELS
     return any(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors)
 
 
-def _limbify(table):
-    """Split a 1-D table into int32 planes (views where the width allows) +
-    a function that allocates the gathered column and its output planes."""
-    dt = table.dtype
-    if dt == torch.bool or dt.itemsize <= 2:
-        def alloc(n):
-            buf = torch.empty((n,), dtype=torch.int32, device=table.device)
-            return [buf], lambda: buf.to(dt)
-
-        return [table.to(torch.int32)], alloc
-    table = table.contiguous()
-    if dt.itemsize == 4:
-        def alloc(n):
-            buf = torch.empty((n,), dtype=dt, device=table.device)
-            return [buf.view(torch.int32)], lambda: buf
-
-        return [table.view(torch.int32)], alloc
-    limbs = table.view(torch.int32)  # (2 S,), low limb first
-
-    def alloc(n):
-        buf = torch.empty((n,), dtype=dt, device=table.device)
-        v = buf.view(torch.int32)
-        return [v[0::2], v[1::2]], lambda: buf
-
-    return [limbs[0::2], limbs[1::2]], alloc
-
-
-def _planes_gather(planes, outs, idx32, monotone: bool, s: int):
-    """Gather a group of <= _MAX_PLANES equal-length i32 planes with shared
-    idx into `outs` through whichever kernel applies."""
+def _planes_gather(planes, idx32, monotone: bool, s: int):
+    """Gather a group of <= _MAX_PLANES equal-length planes of any widths
+    with shared idx through whichever kernel applies."""
     if s <= CHUNK_TABLE_LIMIT:
-        gather_chunked_planes(planes, idx32, outs=outs)
-    elif monotone:
-        gather_sorted_planes(planes, idx32, outs=outs)
-    else:
-        # random big-table gather: plain indexing, one plane at a time. The
-        # reference sends such gathers of at least 4M indices through a
-        # sort, its sorted gather and an unsort
-        # (lingodb_tpu/ops/pgather.py:801-816). On the card that route
-        # (tools/threshold_bench.py --only route: one stable sort, K2 at
-        # the sorted indices, a scatter back) took 1.52-8.13x the card time
-        # of plain indexing at every shape timed: n 1M-60M indices, tables
-        # of 1.5M and 15M rows, 1, 2 and 8 planes (NVIDIA H100 80GB HBM3,
-        # 700.00 W), so it is not taken here.
-        j = idx32.to(torch.int64).clamp(0, s - 1)
-        for o, t in zip(outs, planes):
-            o.copy_(t[j])
+        return gather_chunked_planes(planes, idx32)
+    if monotone:
+        return gather_sorted_planes(planes, idx32)
+    # random big-table gather: plain indexing, one plane at a time. The
+    # reference sends such gathers of at least 4M indices through a sort,
+    # its sorted gather and an unsort (lingodb_tpu/ops/pgather.py:801-816).
+    # On the card that route (tools/threshold_bench.py --only route: one
+    # stable sort, K2 at the sorted indices, a scatter back) took
+    # 1.52-8.13x the card time of plain indexing at every shape timed: n
+    # 1M-60M indices, tables of 1.5M and 15M rows, 1, 2 and 8 planes
+    # (NVIDIA H100 80GB HBM3, 700.00 W), so it is not taken here.
+    j = idx32.to(torch.int64).clamp(0, s - 1)
+    return [t[j] for t in planes]
 
 
 def take_fast_multi(tables, idx, *, monotone: bool = False):
     """[t[idx] for t in tables] with OOB clipped, for equal-length 1-D
-    tables sharing one index array. Columns are limb-split to i32 planes and
-    gathered in batched kernel calls (<= _MAX_PLANES planes each): one index
-    decode per group instead of per column. Set monotone=True ONLY for
-    nondecreasing idx; a wrong hint costs time, not correctness."""
+    tables sharing one index array. Each column is one plane of its own
+    dtype (bool, 1-, 2-, 4- or 8-byte), gathered as it is, with no cast,
+    in batched kernel calls (<= _MAX_PLANES planes of any widths each): one
+    index decode per group instead of per column. Set monotone=True ONLY
+    for nondecreasing idx; a wrong hint costs time, not correctness."""
     if not tables:
         return []
     if not be.is_torch(idx) or any(not be.is_torch(t) for t in tables):
@@ -512,17 +557,10 @@ def take_fast_multi(tables, idx, *, monotone: bool = False):
     if any(int(t.shape[0]) != s for t in tables):
         raise ValueError("take_fast_multi: equal-length tables required")
     idx32 = idx.to(torch.int32) if idx.dtype != torch.int32 else idx
-    planes, outs, rebuilds = [], [], []
-    for t in tables:
-        limbs, alloc = _limbify(t)
-        o, rb = alloc(n)
-        planes.extend(limbs)
-        outs.extend(o)
-        rebuilds.append(rb)
-    for g0 in range(0, len(planes), _MAX_PLANES):
-        _planes_gather(planes[g0:g0 + _MAX_PLANES], outs[g0:g0 + _MAX_PLANES],
-                       idx32, monotone, s)
-    return [rb() for rb in rebuilds]
+    out = []
+    for g0 in range(0, len(tables), _MAX_PLANES):
+        out += _planes_gather(tables[g0:g0 + _MAX_PLANES], idx32, monotone, s)
+    return out
 
 
 def take_fast(table, idx, *, monotone: bool = False):

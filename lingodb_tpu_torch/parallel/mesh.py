@@ -109,12 +109,15 @@ def _as_tensor(arr) -> torch.Tensor:
 
 def make_mesh(n_devices: int | None = None, axis: str = "dp",
               devices=None) -> Mesh:
-    """A mesh over `devices` (default: every CUDA device, else the CPU),
+    """A mesh over `devices` (default: every CUDA device; with none present
+    it raises, as the engine never quietly runs on the CPU: pass devices),
     the first `n_devices` of them when given."""
     if devices is None:
-        devices = ([torch.device("cuda", i)
-                    for i in range(torch.cuda.device_count())]
-                   or [torch.device("cpu")])
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("make_mesh: no CUDA device available: pass "
+                               "devices (e.g. ['cpu'] * 4) explicitly")
     devices = list(devices)
     if n_devices is not None:
         devices = devices[:n_devices]

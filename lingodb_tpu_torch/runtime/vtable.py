@@ -127,13 +127,26 @@ class SCol:
                 self.type, data[idx],
                 None if self.valid is None else _host_idx(self.valid)[idx],
                 self.dictionary)
-        return SCol(
-            self.type,
-            pg.take_fast(data, idx, monotone=monotone),
-            None if self.valid is None
-            else pg.take_fast(self.valid, idx, monotone=monotone),
-            self.dictionary,
-        )
+        if not self._one_gather():
+            return SCol(
+                self.type,
+                pg.take_fast(data, idx, monotone=monotone),
+                None if self.valid is None
+                else pg.take_fast(self.valid, idx, monotone=monotone),
+                self.dictionary,
+            )
+        data, valid = pg.take_fast_multi([data, self.valid], idx,
+                                         monotone=monotone)
+        return SCol(self.type, data, valid, self.dictionary)
+
+    def _one_gather(self) -> bool:
+        """Whether take gathers data and validity in one call (one launch,
+        one read of the index): both 1-D on the same tier."""
+        from ..ops import backend as be
+
+        return (self.valid is not None and not is_obj(self.data)
+                and self.data.ndim == 1
+                and be.is_torch(self.data) == be.is_torch(self.valid))
 
     def take_with_invalid(self, idx, oob_invalid, monotone: bool = False) -> "SCol":
         """Gather, then mark rows where oob_invalid is True as NULL (used for
@@ -146,14 +159,18 @@ class SCol:
             idx = _host_idx(idx)
             oob_invalid = _host_idx(oob_invalid).astype(np.bool_)
         bidx = xnp.maximum(idx, 0)
-        data = pg.take_fast(self.data, bidx, monotone=monotone)
-        if self.valid is not None:
-            base = pg.take_fast(self.valid, bidx, monotone=monotone)
-        elif be.is_torch(data):
-            base = torch.ones((idx.shape[0],), dtype=torch.bool,
-                              device=data.device)
+        if self._one_gather():
+            data, base = pg.take_fast_multi([self.data, self.valid], bidx,
+                                            monotone=monotone)
         else:
-            base = np.ones(idx.shape[0], np.bool_)
+            data = pg.take_fast(self.data, bidx, monotone=monotone)
+            if self.valid is not None:
+                base = pg.take_fast(self.valid, bidx, monotone=monotone)
+            elif be.is_torch(data):
+                base = torch.ones((idx.shape[0],), dtype=torch.bool,
+                                  device=data.device)
+            else:
+                base = np.ones(idx.shape[0], np.bool_)
         oob_invalid = be.like(oob_invalid, base)
         return SCol(self.type.as_nullable(), data, base & ~oob_invalid, self.dictionary)
 

@@ -1,8 +1,9 @@
-"""The measurements behind three kernels' design constants, and a breakdown
+"""The measurements behind five kernels' design constants, and a breakdown
 of the cases where each reads furthest from its bound, on the card.
 
     python3 -m lingodb_tpu_torch.tools.design_sweep
     python3 -m lingodb_tpu_torch.tools.design_sweep --only gather_shift
+    python3 -m lingodb_tpu_torch.tools.design_sweep --only gathers
     python3 -m lingodb_tpu_torch.tools.design_sweep --counters   # only those
 
 A variant is the kept source with one constant rewritten, compiled by nvcc
@@ -24,6 +25,18 @@ again last, so that drift over the run shows. Variants:
       2^21, n = 6M and 60M, at 6M on each side of each edge (the whole
       table held, the staged form's last table), and over the range of
       tables held in part at 6M and 60M
+  gathers, the engine's K1 and K2 (csrc/gather_planes.cuh, shared by
+      csrc/gather_sorted.cu and csrc/gather_chunked.cu): K2 with quads of
+      rows in the one-plane kernel (kStridedOne = false: the first
+      design), 4 rows strided by the block in the all-planes kernel too
+      (kStridedAll), a thread for all planes at every grid
+      (kSplitBlocksPerSM = 0; with strided rows too) and a block a plane
+      at every grid; K1 with blocks of 512 threads against the kept 1024
+      (kStagedThreads), quads in its direct form, the direct form only for
+      few rows (kDirectTableBytes = 0), at every shape and at none
+      (kDirectRowBytes). At chip_smoke.py phase 3's shapes (TPC-H SF1) and
+      K1's few rows against its table, with index_select of the stacked
+      planes beside them (int32 planes)
 
 Breakdowns, with the kept kernels: compact_positions with k = 0 (the mask
 read, counted, scanned and looked back over, no position written) beside
@@ -62,8 +75,21 @@ VARIANTS = {
     ("table_gather", "l2"): {"kStagedMaxEntries": "0"},
     ("table_gather", "partial_wide"): {"kStagedMaxEntries": "16 * kPartMax"},
     ("table_gather", "stage_loads"): {"kStageBulk": "false"},
+    ("gather_sorted", "quad_one"): {"kStridedOne": "false"},
+    ("gather_sorted", "strided_all"): {"kStridedAll": "true"},
+    ("gather_sorted", "no_split"): {"kSplitBlocksPerSM": "0"},
+    ("gather_sorted", "no_split_strided"): {"kSplitBlocksPerSM": "0",
+                                            "kStridedAll": "true"},
+    ("gather_sorted", "all_split"): {"kSplitBlocksPerSM": "1 << 20"},
+    ("gather_chunked", "threads512"): {"kStagedThreads": "512"},
+    ("gather_chunked", "quad_one"): {"kStridedOne": "false"},
+    ("gather_chunked", "no_l1_rule"): {"kDirectTableBytes": "0"},
+    ("gather_chunked", "all_direct"): {"kDirectRowBytes": "0"},
+    ("gather_chunked", "no_direct"): {"kDirectRowBytes": "1 << 20",
+                                      "kDirectTableBytes": "0"},
 }
-SECTIONS = ("compact_positions", "sublane_gather", "gather_shift", "counters")
+SECTIONS = ("compact_positions", "sublane_gather", "gather_shift", "gathers",
+            "counters")
 METRICS = ("dram__bytes_read.sum", "dram__bytes_write.sum",
            "lts__t_sectors_op_read.sum")
 
@@ -75,6 +101,18 @@ def variant_source(text: str, consts: dict) -> str:
                              rf"\g<1>{value};", text)
         if hits != 1:
             raise ValueError(f"design_sweep: no single constant {name}")
+    return text
+
+
+def kernel_source(name: str) -> str:
+    """csrc/<name>.cu with the shared headers it includes inlined, so that
+    a variant can rewrite their constants too."""
+    from ..ops import cuda_build
+
+    text = (cuda_build.CSRC / f"{name}.cu").read_text()
+    for head in sorted(cuda_build.CSRC.glob("*.cuh")):
+        text = text.replace(f'#include "{head.name}"', head.read_text()
+                            .replace("#pragma once", ""))
     return text
 
 
@@ -90,8 +128,7 @@ def build_variants(libraries) -> dict:
         if name not in libraries:
             continue
         src = out_dir / f"{name}_{variant}.cu"
-        text = (cuda_build.CSRC / f"{name}.cu").read_text()
-        src.write_text(variant_source(text, consts))
+        src.write_text(variant_source(kernel_source(name), consts))
         lib = out_dir / f"lib{name}_{variant}.so"
         procs.append(((name, variant), lib, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
@@ -112,7 +149,9 @@ _kept: dict = {}  # the kept libraries, as first built
 def use(name: str, lib) -> None:
     """Bind `lib` (None: the kept build) as kernel library `name`."""
     from ..ops import cuda_build
+    from ..ops import pgather
 
+    pgather._KERNEL_FN.clear()  # the gathers' entry points, bound anew
     if not _kept:
         _kept.update(cuda_build.build_all())
     libs = dict(_kept)
@@ -258,11 +297,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     print(f"# design_sweep: {smi.stdout.strip()}", flush=True)
-    libraries = {"compact_positions": "compact_positions",
-                 "sublane_gather": "tile_gather",
-                 "gather_shift": "table_gather"}
-    variants = build_variants({libraries[s] for s in args.only
-                               if s in libraries})
+    libraries = {"compact_positions": ("compact_positions",),
+                 "sublane_gather": ("tile_gather",),
+                 "gather_shift": ("table_gather",),
+                 "gathers": ("gather_sorted", "gather_chunked")}
+    variants = build_variants({lib for s in args.only if s in libraries
+                               for lib in libraries[s]})
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases, failed = [], []
@@ -284,6 +324,8 @@ def main(argv=None) -> int:
         sweep_sublane(torch, sb, variants, rep, gen)
     if "gather_shift" in args.only:
         sweep_gather_shift(torch, sb, variants, rep, gen)
+    if "gathers" in args.only:
+        sweep_gathers(torch, pg, variants, rep, gen)
     if "counters" in args.only:
         cases.append({"counters": run_counters()})
 
@@ -357,6 +399,78 @@ def sweep_sublane(torch, sb, variants, rep, gen) -> None:
             m * 128 * 8 + r * 128 * 4)
         del tab, ridx
     use("tile_gather", None)
+
+
+def sweep_gathers(torch, pg, variants, rep, gen) -> None:
+    """K2's and K1's variants at chip_smoke.py phase 3's shapes and at K1's
+    few rows against its table; index_select of the stacked planes (int32
+    cases) once beside them."""
+    dev = torch.device("cuda")
+    s = 5_997_593  # lineitem at SF1
+
+    def planes(rows, c, dtype=torch.int32):
+        return [torch.randint(-(1 << 31), (1 << 31) - 1, (rows,), device=dev,
+                              generator=gen, dtype=torch.int64).to(dtype)
+                for _ in range(c)]
+
+    keep = torch.rand(s, device=dev, generator=gen) < 0.5
+    (dense,) = torch.nonzero(keep, as_tuple=True)
+    dense = dense.to(torch.int32)
+    sparse = dense[::26].contiguous()  # q6's survivors: 115,405 rows
+    few = dense[::max(int(dense.numel()) // 1024, 1)].contiguous()
+    wide = planes(s, 8)
+    k2 = [(f"s={s} n={int(dense.numel())} C={c}", wide[:c], dense)
+          for c in (1, 2, 8)]
+    k2 += [(f"s={s} n={int(sparse.numel())} C=7", wide[:7], sparse),
+           (f"s={s} n={int(few.numel())} C=2", wide[:2], few),
+           (f"s={s} n={int(dense.numel())} int64+bool",
+            [planes(s, 1, torch.int64)[0], keep], dense)]
+    for shape, tabs, idx in k2:
+        if all(t.dtype == torch.int32 for t in tabs):
+            stacked, idx64 = torch.stack(tabs), idx.to(torch.int64)
+            rep("index_select", "library", shape, True,
+                lambda t=stacked, i=idx64: torch.index_select(t, 1, i),
+                4 * idx.numel() * (1 + 2 * len(tabs)))
+    for variant in ("kept", "quad_one", "strided_all", "no_split",
+                    "no_split_strided", "all_split", "kept"):
+        use("gather_sorted", variants.get(("gather_sorted", variant)))
+        for shape, tabs, idx in k2:
+            n = idx.numel()
+            ok = all(torch.equal(a, b) for a, b in zip(
+                pg.gather_sorted_planes(tabs, idx),
+                pg.gather_sorted_planes_plain(tabs, idx)))
+            rep("gather_sorted", variant, shape, ok,
+                lambda t=tabs, i=idx: pg.gather_sorted_planes(t, i),
+                4 * n + sum(2 * t.dtype.itemsize * n for t in tabs))
+    use("gather_sorted", None)
+    del wide, dense, sparse, few, keep, k2
+    k1 = []
+    for tab_rows, c, n in ((25, 1, s), (10_000, 1, s), (16_384, 1, s),
+                           (10_000, 2, s), (150, 1, 75_029), (11_268, 6, 10),
+                           (16_384, 1, 1_000), (16_384, 1, 16_384),
+                           (16_384, 1, 100_000), (16_384, 8, 100_000)):
+        tabs = planes(tab_rows, c, torch.int64 if c == 8 else torch.int32)
+        idx = torch.randint(0, tab_rows, (n,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        shape = f"s={tab_rows} n={n} C={c}" + (" int64" if c == 8 else "")
+        k1.append((shape, tabs, idx))
+        if c < 8:
+            stacked, idx64 = torch.stack(tabs), idx.to(torch.int64)
+            rep("index_select", "library", shape, True,
+                lambda t=stacked, i=idx64: torch.index_select(t, 1, i),
+                4 * n * (1 + c))
+    for variant in ("kept", "threads512", "quad_one", "no_l1_rule",
+                    "all_direct", "no_direct", "kept"):
+        use("gather_chunked", variants.get(("gather_chunked", variant)))
+        for shape, tabs, idx in k1:
+            n = idx.numel()
+            ok = all(torch.equal(a, b) for a, b in zip(
+                pg.gather_chunked_planes(tabs, idx),
+                pg.gather_chunked_planes_plain(tabs, idx)))
+            rep("gather_chunked", variant, shape, ok,
+                lambda t=tabs, i=idx: pg.gather_chunked_planes(t, i),
+                4 * n + sum(t.dtype.itemsize * (n + t.numel()) for t in tabs))
+    use("gather_chunked", None)
 
 
 def run_counters() -> dict:

@@ -32,8 +32,9 @@ import warnings
 # names of the engine kernels' __global__ functions in lingodb_tpu_torch/csrc/
 # (each in an anonymous namespace, which tells them apart from PyTorch's own
 # reduce/scan kernels); tests/test_torch_pgather.py holds the list against
-# the sources
-PORT_KERNELS = ("compact_prologue", "compact_kernel", "gather_sorted_kernel",
+# the sources. gather_direct_kernel is the direct form of both gathers (K2,
+# and K1 at few rows against its table)
+PORT_KERNELS = ("compact_prologue", "compact_kernel", "gather_direct_kernel",
                 "gather_chunked_kernel", "segscan_kernel")
 _PORT_KERNEL_RE = re.compile(r"\(anonymous namespace\)::(%s)[<(]"
                              % "|".join(PORT_KERNELS))

@@ -7,6 +7,12 @@ the JAX package's kernel bench, benchtools/tools_kbench2.py).
 N = 60,000,000 rows (6,000,000 with --quick). Cases:
 
   k1_chunked_S1024, _S8192  gather_chunked_i32: random idx into a small table
+  k1_chunked_q3, _S16384_n1000
+                            gather_chunked_planes with few rows against the
+                            table (q3's 10 rows of an 11,268-entry table, 6
+                            planes): the direct form
+  k1_chunked_wide_bool      an int64 and a bool plane of an 8,192-entry
+                            table in one launch
   k3_compact_p0.01, _p0.5   compact_positions: random mask, capacity 1.5x
   k3_compact_q14, _q3_lead, _q3_boundary, _q4
                             compact_positions at the shapes the fused
@@ -14,6 +20,11 @@ N = 60,000,000 rows (6,000,000 with --quick). Cases:
                             capacity and count; the same in both modes)
   k2_sorted_dense           gather_sorted_i32: monotone idx, steps of 0 or 1
   k2_sorted_sparse1pct      gather_sorted_i32: 1 % of the rows, sorted
+  k2_sorted_sparse_q6       gather_sorted_planes, 7 int32 planes at 1.92 % of
+                            the rows (q6's survivors of lineitem), with the
+                            sector floor beside the bound and index_select
+                            of the stacked (7, N) table as the yardstick
+  k2_sorted_wide_bool       an int64 and a bool plane at dense monotone idx
   k4_segscan_w2             segscan_i32: runs of 4, two planes
   k4_segscan_w8             the same with eight planes (one launch)
   k4_segscan_onerun         two planes, one run over the whole array (the
@@ -32,8 +43,11 @@ version on the same inputs. Per case it prints the check, ms per call by CUDA
 events around 10 calls ("call", host launch cost included), the kernels' own
 time per call from torch.profiler ("card"), the plain version's call time
 ("plain") and the bytes bound: each input read once and each output written
-once, over the H100 SXM data-sheet rate of 3.35 TB/s. The last line is one
-JSON object with every case. Any failed check exits non-zero. Needs a CUDA
+once, over the H100 SXM data-sheet rate of 3.35 TB/s; where indices are
+sparse also the sector floor (each 32-byte sector that holds a requested
+entry read whole), and where one PyTorch call computes the same function its
+call and card time ("library"). The last line is one JSON object with every
+case. Any failed check exits non-zero. Needs a CUDA
 device: without one it fails and never runs on the CPU."""
 
 from __future__ import annotations
@@ -98,6 +112,13 @@ def blocked_cumsum(v, width: int = 1024):
     return (within + offs[:, None]).reshape(-1)[:n]
 
 
+def sector_count(torch, idx, width: int) -> int:
+    """32-byte sectors of a plane of `width`-byte elements (32-byte aligned)
+    that hold an entry idx requests: idx sorted."""
+    return int(torch.unique_consecutive(idx.to(torch.int64) * width // 32)
+               .numel())
+
+
 def _equal(torch, got, want) -> bool:
     return all(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
                for g, w in zip(got, want))
@@ -127,16 +148,29 @@ def main(argv=None) -> int:
           f"N={n}", flush=True)
     cases = []
 
-    def rep(name, ok, fn, nbytes, rows, plain=None):
+    def rep(name, ok, fn, nbytes, rows, plain=None, floor_bytes=None,
+            library=None):
         ms = call_ms(torch, fn)
         card = card_ms(torch, fn)
         plain_ms = None if plain is None else call_ms(torch, plain, 3)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        cases.append({"name": name, "correct": bool(ok), "rows": rows,
-                      "ms": ms, "card_ms": card, "plain_ms": plain_ms,
-                      "bound_ms": bound, "bytes": nbytes})
-        plain_txt = "" if plain is None else f" plain={plain_ms:.4f}ms"
-        print(f"{name}: call={ms:.4f}ms card={card:.4f}ms{plain_txt} "
+        case = {"name": name, "correct": bool(ok), "rows": rows, "ms": ms,
+                "card_ms": card, "plain_ms": plain_ms, "bound_ms": bound,
+                "bytes": nbytes}
+        extra = ""
+        if plain is not None:
+            extra += f" plain={plain_ms:.4f}ms"
+        if floor_bytes is not None:
+            case["floor_ms"] = floor_bytes / HBM_BYTES_PER_S * 1e3
+            extra += (f" floor={case['floor_ms']:.4f}ms "
+                      f"card/floor={card / case['floor_ms']:.2f}")
+        if library is not None:
+            case["library_ms"] = call_ms(torch, library)
+            case["library_card_ms"] = card_ms(torch, library)
+            extra += (f" library={case['library_ms']:.4f}ms "
+                      f"(card {case['library_card_ms']:.4f}ms)")
+        cases.append(case)
+        print(f"{name}: call={ms:.4f}ms card={card:.4f}ms{extra} "
               f"bound={bound:.4f}ms card/bound={card / max(bound, 1e-9):.2f} "
               f"rate={rows / ms / 1e6:.2f}Ge/s correct={bool(ok)}", flush=True)
 
@@ -154,6 +188,29 @@ def main(argv=None) -> int:
             4 * n + 4 * n + 4 * s, n,
             lambda t=table, i=idx: pg.gather_chunked_planes_plain([t], i))
         del idx
+    # few rows against the table: q3's shape, and 1,000 rows of 16,384
+    for name, s, c, rows in (("k1_chunked_q3", 11_268, 6, 10),
+                             ("k1_chunked_S16384_n1000", 16_384, 1, 1000)):
+        planes = [rand_i32(-(1 << 31), (1 << 31) - 1, s) for _ in range(c)]
+        idx = rand_i32(0, s, rows)
+        ok = _equal(torch, pg.gather_chunked_planes(planes, idx),
+                    pg.gather_chunked_planes_plain(planes, idx))
+        stacked, idx64 = torch.stack(planes), idx.to(torch.int64)
+        rep(name, ok, lambda p=planes, i=idx: pg.gather_chunked_planes(p, i),
+            4 * rows + 4 * c * rows + 4 * c * s, rows,
+            lambda p=planes, i=idx: pg.gather_chunked_planes_plain(p, i),
+            library=lambda t=stacked, i=idx64: torch.index_select(t, 1, i))
+    # an int64 and a bool plane in one launch
+    wide = [torch.randint(-(1 << 62), 1 << 62, (8192,), device=dev,
+                          generator=gen),
+            torch.rand(8192, device=dev, generator=gen) < 0.5]
+    idx = rand_i32(0, 8192, n)
+    ok = _equal(torch, pg.gather_chunked_planes(wide, idx),
+                pg.gather_chunked_planes_plain(wide, idx))
+    rep("k1_chunked_wide_bool", ok, lambda: pg.gather_chunked_planes(wide, idx),
+        4 * n + 9 * n + 9 * 8192, n,
+        lambda: pg.gather_chunked_planes_plain(wide, idx))
+    del idx, wide
 
     # K3 compact_positions
     u = torch.rand(n, device=dev, generator=gen)
@@ -201,7 +258,34 @@ def main(argv=None) -> int:
     ok = _equal(torch, [pg.gather_sorted_i32(table, sel)],
                 pg.gather_sorted_planes_plain([table], sel))
     rep("k2_sorted_sparse1pct", ok, lambda: pg.gather_sorted_i32(table, sel),
-        4 * nsel * 3, nsel, lambda: pg.gather_sorted_planes_plain([table], sel))
+        4 * nsel * 3, nsel, lambda: pg.gather_sorted_planes_plain([table], sel),
+        floor_bytes=8 * nsel + 32 * sector_count(torch, sel, 4))
+
+    # q6's survivors: 7 planes at 1.92 % of the rows, sorted
+    nq6 = n * 115_405 // 5_997_593
+    sel = torch.sort(torch.randperm(n, device=dev, generator=gen)[:nq6]).values
+    sel = sel.to(torch.int32)
+    planes = [table] + [rand_i32(-(1 << 31), (1 << 31) - 1, n)
+                        for _ in range(6)]
+    ok = _equal(torch, pg.gather_sorted_planes(planes, sel),
+                pg.gather_sorted_planes_plain(planes, sel))
+    stacked, sel64 = torch.stack(planes), sel.to(torch.int64)
+    rep("k2_sorted_sparse_q6", ok, lambda: pg.gather_sorted_planes(planes, sel),
+        4 * nq6 + 2 * 7 * 4 * nq6, nq6,
+        lambda: pg.gather_sorted_planes_plain(planes, sel),
+        floor_bytes=4 * nq6 + 7 * (4 * nq6 + 32 * sector_count(torch, sel, 4)),
+        library=lambda: torch.index_select(stacked, 1, sel64))
+    del planes, stacked, sel64
+
+    # an int64 and a bool plane at the dense monotone indices
+    wide = [torch.randint(-(1 << 62), 1 << 62, (n,), device=dev, generator=gen),
+            torch.rand(n, device=dev, generator=gen) < 0.5]
+    ok = _equal(torch, pg.gather_sorted_planes(wide, idx),
+                pg.gather_sorted_planes_plain(wide, idx))
+    rep("k2_sorted_wide_bool", ok, lambda: pg.gather_sorted_planes(wide, idx),
+        4 * n + 9 * n + 9 * distinct, n,
+        lambda: pg.gather_sorted_planes_plain(wide, idx))
+    del wide
 
     # K4 segscan: runs of 4, two planes
     gid = (torch.arange(n, device=dev, dtype=torch.int32) // 4)

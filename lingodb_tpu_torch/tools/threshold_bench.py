@@ -88,7 +88,6 @@ def sweeps(torch, pg, rows: int) -> dict:
     wide = torch.randint(-(1 << 62), 1 << 62, (rows,), device="cuda", generator=gen)
     narrow = torch.randint(0, 1 << 30, (rows,), device="cuda", generator=gen).to(torch.int32)
     tables = [wide, narrow]
-    planes = [narrow, wide.view(torch.int32)[0::2], wide.view(torch.int32)[1::2]]
     out = {"rows": rows, "size_gather": [], "size_compact": [], "gap": [],
            "random": []}
 
@@ -121,7 +120,7 @@ def sweeps(torch, pg, rows: int) -> dict:
         out["gap"].append({"gap": gap, "n": int(idx.numel()), **r})
     for n in (1 << 12, 1 << 16, 1 << 20, 1 << 22):
         idx = torch.randint(0, rows, (n,), device="cuda", generator=gen).to(torch.int32)
-        r = both(torch, lambda: pg.gather_sorted_planes(planes, idx),
+        r = both(torch, lambda: pg.gather_sorted_planes(tables, idx),
                  lambda: plain_take(torch, tables, idx))
         out["random"].append({"n": n, **r})
     return out
@@ -130,15 +129,15 @@ def sweeps(torch, pg, rows: int) -> dict:
 def sort_route(torch, pg, tables, idx):
     """[t[clip(idx)] for t in tables] for any 1-D int32 idx through the
     sorted gather: one stable sort of the indices with their positions,
-    gather_sorted_planes (K2) of every group of up to 8 planes at the sorted
-    indices, and one unsort (each gathered plane scattered back by the
-    positions): the reference's sort route, timed here against plain
-    indexing. The engine does not take it (ops/pgather.py::_planes_gather
-    says why)."""
+    gather_sorted_planes (K2) of every group of up to 8 planes (each of its
+    own dtype) at the sorted indices, and one unsort (each gathered plane
+    scattered back by the positions): the reference's sort route, timed here
+    against plain indexing. The engine does not take it
+    (ops/pgather.py::_planes_gather says why)."""
     n = int(idx.shape[0])
     sidx, perm = torch.sort(idx, stable=True)
-    outs = [torch.empty((n,), dtype=torch.int32, device=idx.device)
-            for _ in tables]
+    outs = [torch.empty((n,), dtype=t.dtype, device=idx.device)
+            for t in tables]
     for g0 in range(0, len(tables), 8):
         got = pg.gather_sorted_planes(tables[g0:g0 + 8], sidx)
         for o, v in zip(outs[g0:g0 + 8], got):

@@ -13,7 +13,7 @@ from lingodb_tpu_torch.tools import design_sweep as ds
 def test_variant_rewrites_only_its_constants(key):
     name, _ = key
     consts = ds.VARIANTS[key]
-    text = (cuda_build.CSRC / f"{name}.cu").read_text()
+    text = ds.kernel_source(name)  # the shared headers inlined
     new = ds.variant_source(text, consts)
     old_lines, new_lines = text.splitlines(), new.splitlines()
     assert len(old_lines) == len(new_lines)

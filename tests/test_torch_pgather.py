@@ -350,10 +350,20 @@ def test_take_fast_small_table_uses_chunked_route(monkeypatch):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    t = torch.zeros(10, dtype=torch.int64)
+    """Planes of 16-byte elements, planes of unequal length or 2-D, an
+    int64 index, more than 8 planes and a table past the chunk limit raise
+    (planes of 1, 2, 4 and 8 bytes are taken: tests/test_torch_gather_widths
+    .py)."""
+    t = torch.zeros(10, dtype=torch.complex128)
     i = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        pg.gather_sorted_planes([t], i)
+    ok = torch.zeros(10, dtype=torch.int64)
+    for bad_tables, bad_idx in (([t], i), ([ok, ok[:9]], i),
+                                ([ok.reshape(2, 5)], i), ([ok], i.long()),
+                                ([ok] * 9, i)):
+        with pytest.raises(ValueError):
+            pg.gather_sorted_planes(bad_tables, bad_idx)
+        with pytest.raises(ValueError):
+            pg.gather_chunked_planes(bad_tables, bad_idx)
     with pytest.raises(ValueError):
         pg.gather_chunked_planes([torch.zeros(20000, dtype=torch.int32)], i)
     with pytest.raises(ValueError):
@@ -483,12 +493,13 @@ def test_profile_names_every_engine_kernel():
 
     csrc = pathlib.Path(pg.__file__).parent.parent / "csrc"
     names = set()
-    for src in ("gather_chunked", "gather_sorted", "compact_positions",
-                "segscan"):
-        text = (csrc / f"{src}.cu").read_text()
+    for src in ("gather_chunked.cu", "gather_sorted.cu", "gather_planes.cuh",
+                "compact_positions.cu", "segscan.cu"):
+        text = (csrc / src).read_text()
         found = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                            r"\s+)?(\w+)\s*\(", text)
-        assert found, src
+        # gather_sorted.cu launches the header's direct form only
+        assert found or src == "gather_sorted.cu", src
         names.update(found)
     assert names == set(gpu_profile.PORT_KERNELS)
     for name in names:
@@ -502,7 +513,7 @@ def test_bench_sort_route_equals_clamped_take():
     sorted indices, one unsort) with the plain sorted gather: bit-equal to
     t[clamp(idx)] with duplicate and out-of-bounds indices, for 1, 2, 8 and
     11 int32 planes (more than _MAX_PLANES share the one sort) and for
-    int64, float64 and bool columns through pgather._limbify."""
+    int64, float64 and bool columns, each one plane of its own dtype."""
     from lingodb_tpu_torch.tools import threshold_bench as tb
 
     for planes in (1, 2, 8, 11):
@@ -524,16 +535,9 @@ def test_bench_sort_route_equals_clamped_take():
                  [rng.standard_normal(s) for _ in range(3)],
                  [rng.integers(-(1 << 62), 1 << 62, s) for _ in range(5)]):
         idx = rng.integers(-3, s + 3, n)
-        planes, outs, rebuilds = [], [], []
-        for c in cols:
-            limbs, alloc = pg._limbify(_t(c))
-            o, rb = alloc(n)
-            planes.extend(limbs)
-            outs.extend(o)
-            rebuilds.append(rb)
-        got = tb.sort_route(torch, pg, planes, _t(idx.astype(np.int32)))
-        for o, g in zip(outs, got):
-            o.copy_(g)
-        for rb, c in zip(rebuilds, cols):
-            assert np.array_equal(rb().numpy(), np.take(c, idx, mode="clip")), \
+        got = tb.sort_route(torch, pg, [_t(c) for c in cols],
+                            _t(idx.astype(np.int32)))
+        for g, c in zip(got, cols):
+            assert g.numpy().dtype == c.dtype
+            assert np.array_equal(g.numpy(), np.take(c, idx, mode="clip")), \
                 c.dtype
