@@ -67,7 +67,14 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
   5. the rest the other 17 TPC-H queries, card against CPU session
   6. battery  ~100 SQL statements over small tables held as tensors (joins of
               every kind, set operations, subqueries, casts, NULLs), card
-              against CPU session
+              against CPU session; (b) the statements of
+              lingodb_tpu_torch/tools/sqlite_battery.py (ORDER BY / LIMIT /
+              OFFSET after a set operation, grouped string keys with NULLs
+              under string functions, set operations, ROLLUP and CUBE) on
+              the tensor tier, and CUBE over two keys with NULLs at 30,000
+              rows at the default tier, each card row equal to the CPU
+              session's and to sqlite3's, every K1-K3 call checked against
+              its plain version and counted
   7. kbench   `python -m lingodb_tpu_torch.tools.kbench --quick` as a
               subprocess, the entry point that runs segscan (no engine
               caller): every kernel at 6M rows, held against its plain
@@ -1595,6 +1602,86 @@ def same_rows(got, want) -> bool:
             elif a != b:
                 return False
     return True
+
+
+SQLITE_BIG_ROWS = 30_000  # phase 6 (b)'s CUBE table, at the default tier
+
+
+def sqlite_phase(torch, pg, ldb, launches):
+    """Phase 6 (b): the statements of tools/sqlite_battery.py (ORDER BY /
+    LIMIT / OFFSET after a set operation; grouped string keys with NULLs
+    under string functions, set operations, ROLLUP and CUBE) on the tensor
+    tier (SMALL_ROWS = 2), and CUBE over two keys with NULLs at
+    SQLITE_BIG_ROWS rows at the default SMALL_ROWS. Each statement runs on
+    the card with every K1-K3 call checked against its plain version and
+    counted, and its rows must equal the CPU session's (same_rows) and
+    sqlite3's (ROLLUP and CUBE against their UNION ALL expansion; NULLs last
+    when ascending, first when descending, as the engines order them).
+    Statements without an ORDER BY compare as multisets."""
+    import sqlite3
+    from contextlib import closing
+
+    from lingodb_tpu_torch.runtime import device as dv
+    from lingodb_tpu_torch.tools import sqlite_battery as sb
+    from lingodb_tpu_torch.tools import sqlite_oracle as so
+
+    def row_key(row):
+        return tuple((v is None, str(v)) for v in row)
+
+    big = {f"{name}_{SQLITE_BIG_ROWS}": sb.cube_two_keys("big", *keys)
+           for name, keys in (("cube_b_d", ("b", "d")),
+                              ("cube_d_s", ("d", "s")))}
+    groups = [  # (SMALL_ROWS, setup, statements, ordered)
+        (2, sb.SETOP_SETUP,
+         {**sb.SETOP_WHOLE_RESULT, **sb.SETOP_UNCHANGED}, True),
+        (2, sb.null_key_setup(), sb.NULL_KEY_STATEMENTS, False),
+        (dv.SMALL_ROWS, sb.null_key_setup(SQLITE_BIG_ROWS, table="big"), big,
+         False),
+    ]
+    t0 = time.perf_counter()
+    small_rows = dv.SMALL_ROWS
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    n_stmts = n_checked = 0
+    for tier, setup, stmts, ordered in groups:
+        dv.SMALL_ROWS = tier  # read when a column is first uploaded
+        gpu = ldb.create_in_memory()
+        cpu = ldb.create_in_memory(device="cpu")
+        with closing(sqlite3.connect(":memory:")) as conn:
+            for st in setup:
+                gpu.sql_stmt(st)
+                cpu.sql_stmt(st)
+                conn.execute(st)
+            for name, (sql, sqlite_sql) in stmts.items():
+                res, counts, nchk = run_checked(torch, pg,
+                                                lambda: gpu.sql(sql))
+                got, want = res.to_pylist(), cpu.sql(sql).to_pylist()
+                if not ordered:
+                    got = sorted(got, key=row_key)
+                    want = sorted(want, key=row_key)
+                if not same_rows(got, want):
+                    fail(f"phase 6 (b) {name}: card rows differ from the "
+                         f"CPU session's: {sql}\ncard={got[:4]}\n"
+                         f"cpu={want[:4]}")
+                ok, msg = so.rows_equal(
+                    so.our_rows(res), so.run_sqlite(conn, sqlite_sql or sql),
+                    ordered=ordered)
+                if not ok:
+                    fail(f"phase 6 (b) {name}: card rows differ from "
+                         f"sqlite3's: {sql}: {msg}")
+                for k in total:
+                    total[k] += counts[k]
+                n_stmts += 1
+                n_checked += nchk
+        dv.SMALL_ROWS = small_rows
+    if not any(total.values()):
+        fail("phase 6 (b): no engine kernel launched")
+    launches["p6b"] = {"gather_chunked": total["K1"],
+                       "gather_sorted": total["K2"],
+                       "compact_positions": total["K3"]}
+    log(f"# sqlite statements (6 b): {n_stmts} statements equal on the card, "
+        f"the CPU session and sqlite3 in {time.perf_counter() - t0:.1f}s; "
+        f"launches (K1, K2, K3, each call checked: {n_checked}): "
+        f"{json.dumps(total)}")
 
 
 def card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, label, sql, slice_launches,
@@ -3237,6 +3324,10 @@ def main() -> int:
             fail(f"battery: GPU rows differ from the CPU session's: {q}")
     log(f"# battery: {len(sql_battery.QUERIES)} statements equal on card and CPU")
     dv.SMALL_ROWS = small_rows
+
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 6 (b)")
+    # ---- phase 6 (b): statements held against sqlite3 as well
+    sqlite_phase(torch, pg, ldb, launches)
 
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 7")
     # ---- phase 7: the kernel bench, the entry point that runs segscan

@@ -690,12 +690,14 @@ def segmented_scan_minmax(vals, pb, is_min: bool):
 def lut_take(lut, codes):
     """Gather a host-built lookup table by device codes. Routes through the
     kernel-aware dispatcher (ops/pgather.py): dictionary LUTs are small, so
-    on the card this is the shared-memory small-table gather."""
+    on the card this is the shared-memory small-table gather. Codes outside
+    the table clamp to its ends on both tiers, as pgather.take_fast clamps
+    them (a NULL row's code may be any value)."""
     if is_torch(codes):
         from . import pgather
 
         return pgather.take_fast(to_device(lut, codes.device), codes)
-    return np.asarray(lut)[np.asarray(codes)]
+    return np.take(np.asarray(lut), np.asarray(codes), mode="clip")
 
 
 def iota(n: int, dtype, ref=None):

@@ -795,7 +795,9 @@ def _eval_concat(args: list[SCol], t: Type) -> SCol:
     n = max(a.data.shape[0] for a in args if a.data.ndim)
     for a in args:
         codes = be.to_host(jnp.broadcast_to(a.data, (n,)))
-        host.append(a.dictionary[codes])
+        # a NULL row's code may lie outside the dictionary: clamp it, as
+        # be.lut_take does
+        host.append(np.take(a.dictionary, codes, mode="clip"))
     vals = ["".join(str(x) for x in row) for row in zip(*host)]
     nd, codes = strings.encode_strings(vals)
     valid = _and_valid(*args)

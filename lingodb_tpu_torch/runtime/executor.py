@@ -2757,7 +2757,12 @@ class Executor:
             for pos, cid in enumerate(op.group_by):
                 ktype, kdict, knullable = meta["key_templates"][pos]
                 code = codes[pos]
-                valid = (code != (radices[pos] - 1)) if knullable else None
+                valid = None
+                if knullable:
+                    # the NULL slot is the radix's last code, one past a
+                    # dictionary's end: the NULL row keeps code 0
+                    valid = code != (radices[pos] - 1)
+                    code = np.where(valid, code, 0)
                 if offsets[pos] is not None:
                     code = code + offsets[pos]  # bounded codes: value - kmin
                 agg_cols[cid] = cpu_col(

@@ -51,6 +51,9 @@ def _references_cte(node, name: str) -> bool:
     return walk(node)
 
 
+# the row count of an OFFSET given without a LIMIT: every row that is left
+NO_LIMIT = 1 << 62
+
 # ----------------------------------------------------------------- aggregates
 AGG_FNS = {
     "sum", "count", "avg", "min", "max", "stddev_samp", "var_samp",
@@ -261,15 +264,11 @@ class Binder:
         all_ = kind.endswith("_all")
         kind = kind.removesuffix("_all")
         plan = L.SetOp(kind, all_, lplan, rplan, out_cols, lmap, rmap)
-        cols = out_cols
-        # order/limit over the set-op result
-        if stmt.order_by:
-            sscope = Scope(scope)
-            sscope.add(TableBinding("", cols))
-            plan, cols = self._apply_order_limit(plan, cols, stmt, sscope, cols)
-        elif stmt.limit is not None:
-            plan = L.Limit(plan, self.const_int(stmt.limit), self.const_int(stmt.offset) if stmt.offset else 0)
-        return plan, cols
+        # order/limit/offset over the set-op result; ORDER BY names resolve
+        # against the left branch's output names
+        sscope = Scope(scope)
+        sscope.add(TableBinding("", out_cols))
+        return self._apply_order_limit(plan, out_cols, stmt, sscope, out_cols)
 
     def bind_values(self, rows: list[list[A.Expr]], scope: Scope, alias: str, column_aliases=None):
         bound_rows = []
@@ -623,6 +622,7 @@ class Binder:
 
     def _apply_order_limit(self, plan, out_cols, stmt, scope, select_cols,
                            group_repl=None, agg_collect=None, alias_map=None):
+        offset = self.const_int(stmt.offset) if stmt.offset else 0
         if stmt.order_by:
             keys = []
             computed = []
@@ -653,17 +653,13 @@ class Binder:
             if computed:
                 plan = L.Map(plan, computed)
             if stmt.limit is not None:
-                plan = L.TopK(
-                    plan, keys, self.const_int(stmt.limit),
-                    self.const_int(stmt.offset) if stmt.offset else 0,
-                )
-            else:
-                plan = L.Sort(plan, keys)
-        elif stmt.limit is not None:
-            plan = L.Limit(
-                plan, self.const_int(stmt.limit),
-                self.const_int(stmt.offset) if stmt.offset else 0,
-            )
+                return L.TopK(plan, keys, self.const_int(stmt.limit),
+                              offset), out_cols
+            plan = L.Sort(plan, keys)
+        if stmt.limit is not None or offset:
+            # an OFFSET without a LIMIT skips rows and keeps all the rest
+            plan = L.Limit(plan, NO_LIMIT if stmt.limit is None
+                           else self.const_int(stmt.limit), offset)
         return plan, out_cols
 
     def _substitute_alias_deep(self, e: A.Expr, alias_map, scope) -> A.Expr:

@@ -466,21 +466,29 @@ class Parser:
         return stmt
 
     def parse_set_expr(self) -> A.SelectStmt:
-        left = self.parse_select_core()
+        left = self.parse_select_core(modifiers=False)
         while self.at_kw("union", "intersect", "except"):
             op = self.next().value
             if self.accept_kw("all"):
                 op = op + "_all"
             else:
                 self.accept_kw("distinct")
-            right = self.parse_select_core()
+            right = self.parse_select_core(modifiers=False)
             node = A.SelectStmt(set_op=op, left=left, right=right)
             left = node
-        # trailing ORDER BY / LIMIT apply to the whole set expression
+        # trailing ORDER BY / LIMIT / OFFSET apply to the whole set
+        # expression; an unparenthesized branch takes none of its own. A
+        # parenthesized query that has its own modifiers becomes a derived
+        # table, so that the trailing ones apply to its result.
+        if ((left.order_by or left.limit is not None
+             or left.offset is not None)
+                and self.at_kw("order", "limit", "offset")):
+            left = A.SelectStmt(items=[A.SelectItem(A.Star())],
+                                from_refs=[A.SubqueryRef(left)])
         self._parse_modifiers(left)
         return left
 
-    def parse_select_core(self) -> A.SelectStmt:
+    def parse_select_core(self, modifiers: bool = True) -> A.SelectStmt:
         if self.at_op("("):
             self.next()
             inner = self.parse_select()
@@ -525,7 +533,8 @@ class Parser:
                     break
         if self.accept_kw("having"):
             stmt.having = self.parse_expr()
-        self._parse_modifiers(stmt)
+        if modifiers:
+            self._parse_modifiers(stmt)
         return stmt
 
     def _parse_modifiers(self, stmt: A.SelectStmt):
