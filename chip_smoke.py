@@ -70,7 +70,10 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               against CPU session; (b) the statements of
               lingodb_tpu_torch/tools/sqlite_battery.py (ORDER BY / LIMIT /
               OFFSET after a set operation, grouped string keys with NULLs
-              under string functions, set operations, ROLLUP and CUBE) on
+              under string functions, set operations, ROLLUP and CUBE;
+              lag / lead, ntile, nth_value, substring, replace, concat and
+              NULL literal arguments at their edges, two of them raising
+              PostgreSQL's errors) on
               the tensor tier, and CUBE over two keys with NULLs at 30,000
               rows at the default tier, each card row equal to the CPU
               session's and to sqlite3's, every K1-K3 call checked against
@@ -154,7 +157,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               planes, three widths) and segscan captured and replayed once
               each: bit for bit against the plain versions;
               (b) the fused queries of phases 4 and 4b (q6, q1, q14, q3,
-              q4 and the eleven; 15 distinct) from an empty stage cache and
+              q4 and the eleven; 15 distinct) and a grouped sum of round
+              with digits (ROUND_SQL; its replay must sync as q1's does)
+              from an empty stage cache and
               store with system.capstore_dir set: three runs each, run 1
               calibrates and captures, runs 2 and 3 capture, build and
               calibrate nothing and replay; rows equal the CPU session's;
@@ -1610,14 +1615,18 @@ SQLITE_BIG_ROWS = 30_000  # phase 6 (b)'s CUBE table, at the default tier
 def sqlite_phase(torch, pg, ldb, launches):
     """Phase 6 (b): the statements of tools/sqlite_battery.py (ORDER BY /
     LIMIT / OFFSET after a set operation; grouped string keys with NULLs
-    under string functions, set operations, ROLLUP and CUBE) on the tensor
-    tier (SMALL_ROWS = 2), and CUBE over two keys with NULLs at
-    SQLITE_BIG_ROWS rows at the default SMALL_ROWS. Each statement runs on
-    the card with every K1-K3 call checked against its plain version and
-    counted, and its rows must equal the CPU session's (same_rows) and
-    sqlite3's (ROLLUP and CUBE against their UNION ALL expansion; NULLs last
-    when ascending, first when descending, as the engines order them).
-    Statements without an ORDER BY compare as multisets."""
+    under string functions, set operations, ROLLUP and CUBE; lag / lead,
+    ntile, nth_value, substring, replace, concat and NULL literal arguments
+    at their edges) on the tensor tier (SMALL_ROWS = 2), and CUBE over two
+    keys with NULLs at SQLITE_BIG_ROWS rows at the default SMALL_ROWS. Each
+    statement runs on the card with every K1-K3 call checked against its
+    plain version and counted, and its rows must equal the CPU session's
+    (same_rows) and sqlite3's (ROLLUP and CUBE against their UNION ALL
+    expansion; PostgreSQL's result spelled for sqlite3 where the two
+    differ; NULLs last when ascending, first when descending, as the engines
+    order them). A statement that must raise (sqlite_battery.Raises) raises
+    PostgreSQL's words on the card and on the CPU session. Statements
+    without an ORDER BY compare as multisets."""
     import sqlite3
     from contextlib import closing
 
@@ -1631,18 +1640,29 @@ def sqlite_phase(torch, pg, ldb, launches):
     big = {f"{name}_{SQLITE_BIG_ROWS}": sb.cube_two_keys("big", *keys)
            for name, keys in (("cube_b_d", ("b", "d")),
                               ("cube_d_s", ("d", "s")))}
-    groups = [  # (SMALL_ROWS, setup, statements, ordered)
-        (2, sb.SETOP_SETUP,
+    groups = [  # (label, SMALL_ROWS, setup, statements, ordered)
+        ("setop", 2, sb.SETOP_SETUP,
          {**sb.SETOP_WHOLE_RESULT, **sb.SETOP_UNCHANGED}, True),
-        (2, sb.null_key_setup(), sb.NULL_KEY_STATEMENTS, False),
-        (dv.SMALL_ROWS, sb.null_key_setup(SQLITE_BIG_ROWS, table="big"), big,
-         False),
+        ("null_keys", 2, sb.null_key_setup(), sb.NULL_KEY_STATEMENTS, False),
+        ("cube_big", dv.SMALL_ROWS,
+         sb.null_key_setup(SQLITE_BIG_ROWS, table="big"), big, False),
+        ("semantics", 2, sb.semantics_setup(), sb.SEMANTICS_STATEMENTS, True),
     ]
+
+    def raised(session, sql):
+        try:
+            session.sql(sql)
+        except Exception as exc:  # the statement must raise
+            return exc
+        return None
+
     t0 = time.perf_counter()
     small_rows = dv.SMALL_ROWS
     total = {"K1": 0, "K2": 0, "K3": 0}
     n_stmts = n_checked = 0
-    for tier, setup, stmts, ordered in groups:
+    for label, tier, setup, stmts, ordered in groups:
+        t_group = time.perf_counter()
+        group = {"K1": 0, "K2": 0, "K3": 0}
         dv.SMALL_ROWS = tier  # read when a column is first uploaded
         gpu = ldb.create_in_memory()
         cpu = ldb.create_in_memory(device="cpu")
@@ -1652,6 +1672,22 @@ def sqlite_phase(torch, pg, ldb, launches):
                 cpu.sql_stmt(st)
                 conn.execute(st)
             for name, (sql, sqlite_sql) in stmts.items():
+                if isinstance(sqlite_sql, sb.Raises):
+                    exc, counts, nchk = run_checked(
+                        torch, pg, lambda: raised(gpu, sql))
+                    want_exc = raised(cpu, sql)
+                    if (exc is None or want_exc is None
+                            or str(sqlite_sql) not in str(exc)
+                            or str(sqlite_sql) not in str(want_exc)):
+                        fail(f"phase 6 (b) {name}: {sql} must raise "
+                             f"'{sqlite_sql}': card {exc!r}, CPU session "
+                             f"{want_exc!r}")
+                    for k in total:
+                        total[k] += counts[k]
+                        group[k] += counts[k]
+                    n_stmts += 1
+                    n_checked += nchk
+                    continue
                 res, counts, nchk = run_checked(torch, pg,
                                                 lambda: gpu.sql(sql))
                 got, want = res.to_pylist(), cpu.sql(sql).to_pylist()
@@ -1670,9 +1706,13 @@ def sqlite_phase(torch, pg, ldb, launches):
                          f"sqlite3's: {sql}: {msg}")
                 for k in total:
                     total[k] += counts[k]
+                    group[k] += counts[k]
                 n_stmts += 1
                 n_checked += nchk
         dv.SMALL_ROWS = small_rows
+        log(f"# sqlite statements (6 b) {label}: {len(stmts)} statements in "
+            f"{time.perf_counter() - t_group:.1f}s, launches (K1, K2, K3) "
+            f"{json.dumps(group)}")
     if not any(total.values()):
         fail("phase 6 (b): no engine kernel launched")
     launches["p6b"] = {"gather_chunked": total["K1"],
@@ -1853,6 +1893,10 @@ def executor_slice_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, args,
 
 # ---- phase 10: the fused programs as CUDA graphs
 GRAPH_THREAD_REPLAYS = 50
+# round with digits inside the fused aggregate: its digits are read from the
+# plan, so the program is captured (ORDER BY for a fixed row order)
+ROUND_SQL = ("SELECT l_returnflag, sum(round(l_extendedprice, 1)) "
+             "FROM lineitem GROUP BY l_returnflag ORDER BY l_returnflag")
 
 
 def replay_check(torch, label, got, want):
@@ -2005,8 +2049,10 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
 
     t_phase = time.perf_counter()
     check_graph_kernels(torch, pg, mask_u)
-    queries = list(dict.fromkeys(QUERIES + TOPK_CHAIN_QUERIES))
-    sqls = {q: open(f"queries/tpch/{q}.sql").read() for q in queries}
+    queries = list(dict.fromkeys(QUERIES + TOPK_CHAIN_QUERIES)) + ["round"]
+    sqls = {q: open(f"queries/tpch/{q}.sql").read() for q in queries
+            if q != "round"}
+    sqls["round"] = ROUND_SQL
     for q in queries:
         if q not in cpu_rows:
             cpu_rows[q] = cpu.sql(sqls[q]).format_rows()
@@ -2107,6 +2153,15 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
             f"alone (gc {alone[2]:.2f} ms, gen2 {alone[3]}), "
             f"{un_split[0]:.2f}/{un_split[1]:.2f} uncaptured (gc "
             f"{un_split[2]:.2f} ms, gen2 {un_split[3]})")
+    # round's digits read nothing to the host: its replays sync as q1's
+    # (a fused aggregate with a sort) do
+    got = table["round"]["captured"]["syncs"]
+    want = table["1"]["captured"]["syncs"]
+    if got != want:
+        fail(f"graphs (b): the round statement's replay syncs {got} times, "
+             f"q1's {want}")
+    log(f"# graphs (b) round: {ROUND_SQL}: captured once, replayed, rows "
+        f"equal the CPU session's; replay syncs {got} (q1: {want})")
     # what one generation-2 collection costs in this process now (C5: a
     # prepared run's spikes), the frozen heap aside
     gen2 = gc.get_stats()[2]["collections"] - gen2_before

@@ -137,7 +137,13 @@ def _and_valid(*cols: SCol):
     out = None
     for c in cols:
         if c.valid is not None:
-            out = c.valid if out is None else (out & c.valid)
+            v = c.valid
+            if out is not None and be.is_torch(out) != be.is_torch(v):
+                # an exact wide decimal's host column meets a tensor's
+                # validity: combine them on the host, where its arithmetic
+                # runs
+                out, v = be.to_host(out), be.to_host(v)
+            out = v if out is None else (out & v)
     return out
 
 
@@ -455,6 +461,8 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
     if op == "or":
         return _eval_or([eval_expr(a, env) for a in e.args], e.type)
     args = [eval_expr(a, env) for a in e.args]
+    if op in _STRICT and any(_plan_null(a) for a in e.args):
+        return _null_result(e.type, args)
     if op == "not":
         a = args[0]
         return SCol(e.type, ~be.astype(a.data, jnp.bool_), a.valid)
@@ -552,6 +560,8 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
     if op == "replace":
         a, frm, to = args
         f, t_ = str(frm.dictionary[0]), str(to.dictionary[0])
+        if not f:  # an empty search string matches nothing
+            return SCol(e.type, a.data, a.valid, a.dictionary)
         nd, remap = strings.map_dictionary(a.dictionary, lambda s: s.replace(f, t_))
         return SCol(e.type, be.lut_take(remap, a.data), a.valid, nd)
     if op in ("startswith", "endswith"):
@@ -563,7 +573,7 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
     if op in ("abs", "floor", "ceil", "sqrt", "exp", "ln", "log10", "sin", "cos"):
         return _eval_math1(op, args[0], e.type)
     if op == "round":
-        return _eval_round(args, e.type)
+        return _eval_round(args, e.type, e.args)
     if op == "pow":
         a, b = args
         return SCol(e.type, jnp.power(a.data, b.data), _and_valid(a, b))
@@ -751,24 +761,63 @@ def _eval_string_map(op: str, a: SCol, t: Type) -> SCol:
     return SCol(t, be.lut_take(remap, a.data), a.valid, nd)
 
 
-def _host_int(expr, c: SCol) -> int:
-    """A constant argument's value on the host: the plan's constant itself
-    where it is one (its evaluated copy may lie on the card, and reading it
-    back would stall the stream)."""
-    if isinstance(expr, Const):
-        return 0 if expr.value is None else int(expr.value)
-    return int(c.data)
+def _host_int(expr, c: SCol):
+    """A constant integer argument's value on the host, None for NULL: read
+    from the plan where the argument is a constant expression (its
+    evaluated copy may lie on the card, and reading it back would stall the
+    stream, and a CUDA graph's capture refuses it)."""
+    from .consteval import ConstEvalError, eval_const
+
+    try:
+        return eval_const(expr, Type.bigint())
+    except ConstEvalError:
+        return int(c.data)
+
+
+def _plan_null(expr) -> bool:
+    """True where an argument is a NULL literal of the plan (cast or not),
+    decided on the host."""
+    while isinstance(expr, Cast):
+        expr = expr.arg
+    return isinstance(expr, Const) and expr.value is None
+
+
+# functions that give NULL where any argument is NULL, and read a constant
+# argument on the host (a pattern, a search string, digits, a position): a
+# NULL literal there gives a NULL column before anything is read
+_STRICT = frozenset((
+    "like", "ilike", "regexp_replace", "replace", "substring", "startswith",
+    "endswith", "round", "date_trunc", "length", "upper", "lower", "ltrim",
+    "rtrim", "trim", "reverse"))
+
+
+def _null_result(t: Type, args: list[SCol]) -> SCol:
+    """A column of NULLs of type `t`, as long as the arguments' rows and
+    beside them (a 0-dim constant where every argument is one)."""
+    t = t.as_nullable()
+    ref = next((a.data for a in args if a.data.ndim != 0), None)
+    if ref is None:
+        return const_scol(None, t)
+    n = ref.shape[0]
+    like = ref if be.is_torch(ref) else None
+    return SCol(t, be.full(n, 0, np_dtype(t), like),
+                be.full(n, False, jnp.bool_, like),
+                np.array([""], dtype=object) if t.is_string else None)
 
 
 def _eval_substring(args: list[SCol], t: Type, exprs) -> SCol:
+    """PostgreSQL's substring(s, start, length): the characters at the
+    positions [start, start + length) that lie inside [1, len(s)]."""
     a, start, ln = args
     if start.data.ndim == 0 and ln.data.ndim == 0:
         s0 = _host_int(exprs[1], start)
         l0 = _host_int(exprs[2], ln)
+        if l0 < 0:
+            raise EvalError("negative substring length not allowed")
+        lo, hi = max(s0 - 1, 0), max(s0 - 1 + l0, 0)
 
         def fn(s):
-            b = max(s0 - 1, 0)
-            return s[b:b + l0]
+            return s[lo:hi]
 
         nd, remap = strings.map_dictionary(a.dictionary, fn)
         return SCol(t, be.lut_take(remap, a.data), a.valid, nd)
@@ -823,9 +872,9 @@ def _eval_math1(op: str, a: SCol, t: Type) -> SCol:
     return SCol(t, fn(be.astype(d, jnp.float64)), a.valid)
 
 
-def _eval_round(args: list[SCol], t: Type) -> SCol:
+def _eval_round(args: list[SCol], t: Type, exprs) -> SCol:
     a = args[0]
-    digits = int(args[1].data) if len(args) > 1 else 0
+    digits = _host_int(exprs[1], args[1]) if len(args) > 1 else 0
     if t.kind == K.DECIMAL and not dec_is_float(t):
         if digits >= t.s:
             return a

@@ -330,7 +330,7 @@ def _frame_agg(f: L.WindowFn, t: Type, arg, arg_sorted, lo, hi, n) -> SCol:
         elif fn == "last_value":
             idx = hi
         else:
-            idx = lo + int(f.extra) - 1
+            idx = lo + _positive(f) - 1
             empty = empty | (idx > hi) | (idx < lo)
         idx_c = jnp.clip(idx, 0, n - 1)
         data = jnp.take(vals, idx_c, axis=0)
@@ -394,10 +394,16 @@ def _compute_fn(f: L.WindowFn, op: L.Window, vt: VTable, perm, seg, num_parts,
         return SCol(t, be.astype(run_end - jnp.take(part_start, seg) + 1,
                                  jnp.float64) / size, None)
     if fn == "ntile":
-        k = int(f.extra)
+        # SQL's buckets: the first size mod k hold q + 1 rows, the rest q
+        k = _positive(f)
         size = jnp.take(part_end, seg) - jnp.take(part_start, seg) + 1
-        return SCol(t, jnp.floor_divide(pos_in_part * k, jnp.maximum(size, 1)) + 1,
-                    None)
+        q = jnp.floor_divide(size, k)
+        r = size - q * k
+        big = r * (q + 1)  # rows in the larger buckets
+        bucket = jnp.where(
+            pos_in_part < big, jnp.floor_divide(pos_in_part, q + 1),
+            r + jnp.floor_divide(pos_in_part - big, jnp.maximum(q, 1)))
+        return SCol(t, bucket + 1, None)
 
     arg = vt.col(f.arg) if f.arg is not None else None
     arg_sorted = None if arg is None else arg.take(perm)
@@ -410,16 +416,8 @@ def _compute_fn(f: L.WindowFn, op: L.Window, vt: VTable, perm, seg, num_parts,
         return _frame_agg(f, t, arg, arg_sorted, lo, hi, n)
 
     if fn in ("lead", "lag"):
-        off = int(f.extra or 1)
-        src = pos + (off if fn == "lead" else -off)
-        in_part = ((src >= jnp.take(part_start, seg))
-                   & (src <= jnp.take(part_end, seg)))
-        src_c = jnp.clip(src, 0, n - 1)
-        data = jnp.take(arg_sorted.data, src_c, axis=0)
-        base_valid = arg_sorted.valid_mask() if arg_sorted.valid is not None else None
-        v = (jnp.take(base_valid, src_c) if base_valid is not None
-             else be.full(n, True, jnp.bool_, pos))
-        return SCol(t, data, v & in_part, arg_sorted.dictionary)
+        return _lead_lag(f, t, vt, arg_sorted, pos, seg, part_start, part_end,
+                         n)
     if fn == "first_value":
         idx = jnp.take(part_start, seg)
         data = jnp.take(arg_sorted.data, idx, axis=0)
@@ -493,6 +491,54 @@ def _compute_fn(f: L.WindowFn, op: L.Window, vt: VTable, perm, seg, num_parts,
             cnt = jnp.take(ctot, seg)
         return SCol(t, out, cnt > 0, arg_sorted.dictionary)
     raise NotImplementedError(f"window function {fn}")
+
+
+def _positive(f: L.WindowFn) -> int:
+    """ntile's bucket count or nth_value's position: PostgreSQL refuses
+    one below 1 (a NULL one never reaches here: the binder gives NULL)."""
+    k = int(f.extra)
+    if k <= 0:
+        from .scalar import EvalError
+
+        raise EvalError(f"argument of {f.fn} must be greater than zero")
+    return k
+
+
+def _lead_lag(f: L.WindowFn, t: Type, vt: VTable, arg_sorted: SCol, pos,
+              seg, part_start, part_end, n) -> SCol:
+    """lag / lead by a constant offset (1 where none was given; 0 is the
+    current row, a negative one looks the other way). Rows whose source
+    lies outside the partition take the default, a constant of the
+    argument's type (NULL where none was given); a string default joins
+    the argument's dictionary."""
+    off = 1 if f.extra is None else int(f.extra)
+    src = pos + (off if f.fn == "lead" else -off)
+    in_part = ((src >= jnp.take(part_start, seg))
+               & (src <= jnp.take(part_end, seg)))
+    src_c = jnp.clip(src, 0, n - 1)
+    data = jnp.take(arg_sorted.data, src_c, axis=0)
+    base_valid = arg_sorted.valid_mask() if arg_sorted.valid is not None else None
+    v = (jnp.take(base_valid, src_c) if base_valid is not None
+         else be.full(n, True, jnp.bool_, pos))
+    dictionary = arg_sorted.dictionary
+    if f.default is None:
+        return SCol(t, data, v & in_part, dictionary)
+    from .scalar import eval_expr
+
+    d = eval_expr(f.default, {})  # a 0-dim constant on the host
+    if dictionary is not None:
+        from . import strings
+
+        word = str(d.dictionary[0])
+        merged, remap, _ = strings.remap_to_merged(
+            dictionary, np.array([word], dtype=object))
+        data = be.lut_take(be.astype(remap, np.int32), data)
+        dictionary = merged
+        fill = int(np.searchsorted(merged, word))
+    else:
+        fill = d.data.item()
+    data = jnp.where(in_part, data, be.full(n, fill, be.dt(data), pos))
+    return SCol(t, data, v | ~in_part, dictionary)
 
 
 def _neutral(dtype, is_min: bool):

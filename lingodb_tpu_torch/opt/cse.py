@@ -91,7 +91,8 @@ def _params(op: L.LogicalOp, canon: dict[int, int]):
         return (tuple(cn(p) for p in op.partition_by),
                 tuple((cn(k.cid), k.ascending, k.nulls_first) for k in op.order_by),
                 tuple((f.fn, None if f.arg is None else cn(f.arg),
-                       repr(f.extra), str(f.out.type)) for f in op.funcs),
+                       repr(f.extra), repr(f.default), str(f.out.type))
+                      for f in op.funcs),
                 op.frame_start, op.frame_end, op.frame_mode)
     if isinstance(op, L.Materialize):
         return (tuple(cn(c) for c in op.cids), tuple(op.names))

@@ -315,7 +315,8 @@ class WindowFn:
     out: ColInfo
     fn: str  # rank, dense_rank, row_number, sum, min, max, count, avg, count_star, lead, lag, first_value, last_value, ntile
     arg: Optional[int]  # cid
-    extra: Optional[object] = None  # e.g. lead/lag offset or default
+    extra: Optional[object] = None  # lead/lag offset, nth_value / ntile argument
+    default: Optional[object] = None  # lead/lag default: a constant BExpr
 
 
 @dataclass

@@ -48,7 +48,8 @@ def plan_key(op: L.LogicalOp) -> str:
     elif isinstance(op, L.Window):
         parts.append(repr(op.partition_by))
         parts.extend(f"{k.cid}{k.ascending}" for k in op.order_by)
-        parts.extend(f"{f.out.cid}={f.fn}({f.arg},{f.extra})" for f in op.funcs)
+        parts.extend(f"{f.out.cid}={f.fn}({f.arg},{f.extra},{f.default!r})"
+                     for f in op.funcs)
     elif isinstance(op, L.Materialize):
         parts.append(repr(op.cids))
     elif isinstance(op, L.Tmp):

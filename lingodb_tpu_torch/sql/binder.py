@@ -441,7 +441,7 @@ class Binder:
                 children[0],
                 [mapping.get(p, p) for p in op.partition_by],
                 [L.SortKey(mapping.get(k.cid, k.cid), k.ascending, k.nulls_first) for k in op.order_by],
-                [L.WindowFn(mc(f.out), f.fn, None if f.arg is None else mapping.get(f.arg, f.arg), f.extra) for f in op.funcs],
+                [L.WindowFn(mc(f.out), f.fn, None if f.arg is None else mapping.get(f.arg, f.arg), f.extra, f.default) for f in op.funcs],
                 op.frame_start, op.frame_end, op.frame_mode,
             )
         if isinstance(op, L.Materialize):
@@ -1039,40 +1039,69 @@ class Binder:
                 arg = None
                 arg_t = None
                 extra = None
+                default = None
+                b = None
                 if fn == "count" and c.star:
                     fn = "count_star"
-                elif fn == "nth_value":
+                elif fn in ("nth_value", "lead", "lag"):
                     b = self.bind_post_agg(c.args[0], scope, group_repl, agg_collect)
-                    arg = as_cid(b, "__warg")
-                    arg_t = b.type
-                    from ..ops.consteval import eval_const
-
-                    extra = int(eval_const(self.bind_scalar(c.args[1], Scope()), Type.bigint()))
-                elif fn in ("lead", "lag"):
-                    b = self.bind_post_agg(c.args[0], scope, group_repl, agg_collect)
-                    arg = as_cid(b, "__warg")
-                    arg_t = b.type
-                    if len(c.args) > 1:
-                        from ..ops.consteval import eval_const
-
-                        extra = int(eval_const(self.bind_scalar(c.args[1], Scope()), Type.bigint()))
+                    if fn == "nth_value":
+                        extra = self._window_int_arg(c.args[1])
+                    else:
+                        extra = (self._window_int_arg(c.args[1])
+                                 if len(c.args) > 1 else 1)
+                    if len(c.args) > 2:
+                        b, default = self._leadlag_default(b, c.args[2])
                 elif fn == "ntile":
-                    from ..ops.consteval import eval_const
-
-                    extra = int(eval_const(self.bind_scalar(c.args[0], Scope()), Type.bigint()))
+                    extra = self._window_int_arg(c.args[0])
                 elif c.args:
                     b = self.bind_post_agg(c.args[0], scope, group_repl, agg_collect)
-                    arg = as_cid(b, "__warg")
+                if b is not None:
                     arg_t = b.type
                 out_t = self._window_type(fn, arg_t)
+                if fn in ("nth_value", "lead", "lag", "ntile") and extra is None:
+                    # a NULL offset, position or bucket count: NULL on
+                    # every row, as PostgreSQL gives
+                    self._expr_repl[id(c)] = Const(None, out_t.as_nullable())
+                    continue
+                if b is not None:
+                    arg = as_cid(b, "__warg")
                 out = self.fresh(fn, out_t)
-                funcs.append(L.WindowFn(out, fn, arg, extra))
+                funcs.append(L.WindowFn(out, fn, arg, extra, default))
                 self._expr_repl[id(c)] = ColRef(out.cid, out_t)
+            if not funcs:
+                continue
             if pre:
                 plan = L.Map(plan, pre)
             fs, fe, mode = self._translate_frame(ws.frame)
             plan = L.Window(plan, part, order, funcs, fs, fe, mode)
         return plan
+
+    def _window_int_arg(self, e: A.Expr) -> Optional[int]:
+        """A window function's constant integer argument (lag / lead's
+        offset, nth_value's position, ntile's bucket count); None for NULL."""
+        from ..ops.consteval import eval_const
+
+        v = eval_const(self.bind_scalar(e, Scope()), Type.bigint())
+        return None if v is None else int(v)
+
+    def _leadlag_default(self, b: BExpr, e: A.Expr):
+        """lag / lead's default: a constant, coerced with the argument to
+        their common type by the rule coalesce uses. Returns the argument
+        (coerced) and the default (None where it is NULL)."""
+        from ..ops.consteval import ConstEvalError, eval_const
+
+        d = self.bind_scalar(e, Scope())
+        if d.type.kind == K.NULL:
+            return b, None
+        t = self.common_type(b.type, d.type)
+        d = self.coerce(d, t.as_nullable(d.type.nullable))
+        try:
+            value = eval_const(d, t)
+        except ConstEvalError:
+            raise BindError("lag / lead default must be a constant") from None
+        b = self.coerce(b, t.as_nullable(b.type.nullable))
+        return b, (None if value is None else d)
 
     def _window_type(self, fn: str, arg_t: Optional[Type]) -> Type:
         if fn in ("row_number", "rank", "dense_rank", "ntile", "count", "count_star"):
@@ -1276,7 +1305,7 @@ class Binder:
         if isinstance(op, L.Window):
             funcs = [L.WindowFn(w.out, w.fn,
                                 None if w.arg is None else m.get(w.arg, w.arg),
-                                w.extra) for w in op.funcs]
+                                w.extra, w.default) for w in op.funcs]
             new = op.replace_children(ch)
             new.partition_by = [m.get(c, c) for c in op.partition_by]
             new.order_by = [L.SortKey(m.get(k.cid, k.cid), k.ascending,
@@ -1586,6 +1615,8 @@ class Binder:
             if e.op == "-":
                 return Call("neg", [v], v.type)
             if e.op == "not":
+                if v.type.kind == K.NULL:
+                    return Const(None, Type.bool_(True))
                 if v.type.kind != K.BOOL:
                     raise BindError("NOT requires boolean")
                 return Call("not", [v], v.type)
@@ -1665,7 +1696,8 @@ class Binder:
             v = self._bind(e.expr, scope, post_agg, subq)
             s = self._bind(e.start, scope, post_agg, subq)
             ln = self._bind(e.length, scope, post_agg, subq) if e.length else Const(1 << 30, Type.int_())
-            return Call("substring", [v, s, ln], Type.string(v.type.nullable))
+            return Call("substring", [v, s, ln], Type.string(
+                v.type.nullable or s.type.nullable or ln.type.nullable))
         if isinstance(e, A.FuncCall):
             return self.bind_func(e, scope, post_agg, subq)
         if isinstance(e, A.ScalarSubquery):
@@ -1747,6 +1779,17 @@ class Binder:
     def bind_arith(self, op: str, l: BExpr, r: BExpr) -> BExpr:
         nullable = l.type.nullable or r.type.nullable
         lk, rk = l.type.kind, r.type.kind
+        if K.NULL in (lk, rk) and {lk, rk} & {K.DATE, K.TIMESTAMP}:
+            # a NULL beside a date is typed as PostgreSQL types an unknown:
+            # as the other side's type where that operator exists (date -
+            # date -> integer), else date + integer -> date, timestamp +
+            # interval -> timestamp
+            other = lk if rk == K.NULL else rk
+            if op == "-" and other == K.DATE:
+                return Const(None, Type.int_(True))
+            if op == "+":
+                return Const(None, Type.date(True) if other == K.DATE
+                             else Type.timestamp(True))
         # date/timestamp/interval arithmetic
         if lk in (K.DATE, K.TIMESTAMP) and rk == K.INTERVAL:
             opname = "date_add" if op == "+" else "date_sub"
@@ -1840,8 +1883,19 @@ class Binder:
         if n in ("length", "char_length", "character_length"):
             return Call("length", args, Type.bigint(nullable))
         if n == "concat":
-            args = [self.coerce(a, Type.string(a.type.nullable)) for a in args]
-            return Call("concat", args, Type.string(nullable))
+            # PostgreSQL's concat() skips NULL arguments (|| gives NULL)
+            parts = []
+            for a in args:
+                if a.type.kind == K.NULL:
+                    continue
+                a = self.coerce(a, Type.string(a.type.nullable))
+                if a.type.nullable:
+                    a = Call("coalesce", [a, Const("", Type.string())],
+                             Type.string(False))
+                parts.append(a)
+            if not parts:
+                return Const("", Type.string())
+            return Call("concat", parts, Type.string(False))
         if n == "substr" or n == "substring":
             ln = args[2] if len(args) > 2 else Const(1 << 30, Type.int_())
             return Call("substring", [args[0], args[1], ln], Type.string(nullable))
@@ -1861,10 +1915,10 @@ class Binder:
             a0 = args[0]
             if n == "round" and a0.type.kind == K.DECIMAL:
                 digits = args[1] if len(args) > 1 else Const(0, Type.int_())
-                return Call("round", [a0, digits], a0.type)
+                return Call("round", [a0, digits], a0.type.as_nullable(nullable))
             if n in ("abs", "floor", "ceil", "round") and a0.type.kind in (K.INT, K.BIGINT, K.DECIMAL):
                 if n == "round" and len(args) > 1:
-                    return Call("round", [a0, args[1]], a0.type)
+                    return Call("round", [a0, args[1]], a0.type.as_nullable(nullable))
                 return Call(n, [a0], a0.type)
             t = Type.double(nullable)
             return Call(n, [self.coerce(a, Type.double(a.type.nullable)) for a in args], t)
@@ -1872,10 +1926,12 @@ class Binder:
             part = args[0]
             if not isinstance(part, Const):
                 raise BindError("date_part requires constant part")
+            if part.value is None:
+                return Const(None, Type.bigint(True))
             return Call(f"extract_{str(part.value).lower()}", [args[1]], Type.bigint(nullable))
         if n == "date_trunc":
             part = args[0]
-            return Call("date_trunc", args, args[1].type)
+            return Call("date_trunc", args, args[1].type.as_nullable(nullable))
         if n == "datediff":
             part = args[0]
             if not isinstance(part, Const):
@@ -1885,7 +1941,7 @@ class Binder:
         if n == "hash":
             return Call("hash", args, Type.bigint(False))
         if n == "regexp_replace":
-            return Call("regexp_replace", args, args[0].type)
+            return Call("regexp_replace", args, args[0].type.as_nullable(nullable))
         if n in ("starts_with", "startswith"):
             return Call("startswith", args, Type.bool_(nullable))
         if n in ("ends_with", "endswith"):

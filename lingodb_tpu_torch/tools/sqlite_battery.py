@@ -164,3 +164,130 @@ NULL_KEY_STATEMENTS = {
         "SELECT id, (SELECT max(w) FROM u WHERE u.k = t.b AND u.s = t.s) "
         "FROM t", None),
 }
+
+
+def semantics_setup(rows: int = 300, seed: int = 20241017) -> list[str]:
+    """w(id, g, v, m, x, s, dt) of `rows` rows made from `seed`: seven
+    partitions g, NULLs in v, m, x, s and dt, and strings with a
+    two-byte character ('éclair') and an empty one."""
+    rng = np.random.default_rng(seed)
+
+    def maybe(v, p_null=0.15):
+        return None if rng.random() < p_null else v
+
+    words = ["apple", "éclair", "banana", "", "kiwi", "Apple pie"]
+    t = []
+    for i in range(rows):
+        day = 1 + int(rng.integers(0, 28))
+        t.append((i, int(rng.integers(0, 7)),
+                  maybe(int(rng.integers(0, 100))),
+                  maybe(f"{int(rng.integers(-50000, 50000)) / 100:.2f}"),
+                  maybe(float(rng.integers(-4000, 4000)) / 8),
+                  maybe(words[rng.integers(len(words))]),
+                  maybe(f"2020-{1 + int(rng.integers(0, 12)):02d}-{day:02d}",
+                        0.1)))
+    body = ", ".join(
+        "(" + ", ".join("NULL" if x is None else
+                        (x if j == 3 else _lit(x)) for j, x in enumerate(r))
+        + ")" for r in t)
+    return ["CREATE TABLE w(id INT, g INT, v INT, m DECIMAL(10,2), x DOUBLE, "
+            "s VARCHAR(12), dt DATE)",
+            f"INSERT INTO w VALUES {body}"]
+
+
+class Raises(str):
+    """In place of sqlite3's form: the statement must raise, with these
+    words in its message (PostgreSQL's)."""
+
+
+def _w(expr: str, where: str = "") -> str:
+    return f"SELECT id, {expr} FROM w {where}ORDER BY id"
+
+
+# over semantics_setup()'s table, each ordered by id. The second entry is
+# sqlite3's form where it differs from the statement (PostgreSQL's result
+# spelled for sqlite3 where the two disagree), or Raises(PostgreSQL's words)
+SEMANTICS_STATEMENTS = {
+    # lag / lead: the default fills rows outside the partition; offset 0 is
+    # the current row; a NULL offset gives NULL
+    "lag_default": (_w("lag(v, 1, -99) OVER (PARTITION BY g ORDER BY id)"),
+                    None),
+    "lead_default": (_w("lead(v, 1, -99) OVER (ORDER BY id)"), None),
+    "lag_string_default": (
+        _w("lag(s, 1, 'none') OVER (PARTITION BY g ORDER BY id)"), None),
+    "lag_decimal_default": (
+        _w("lag(m, 2, 0.5) OVER (PARTITION BY g ORDER BY id)"), None),
+    "lag_int_decimal_default": (
+        _w("lag(v, 1, 0.5) OVER (PARTITION BY g ORDER BY id)"), None),
+    "lead_negative_default": (
+        _w("lead(s, -2, 'x') OVER (PARTITION BY g ORDER BY id)"), None),
+    "lag_offset_zero": (_w("lag(id, 0) OVER (ORDER BY id)"), None),
+    "lead_offset_zero": (_w("lead(id, 0) OVER (ORDER BY id)"), None),
+    "lag_null_offset": (_w("lag(v, NULL) OVER (ORDER BY id)"), None),
+    "lag_beyond_partition": (
+        _w("lag(v, 400, 7) OVER (PARTITION BY g ORDER BY id)"), None),
+    # ntile: the first size mod k buckets hold one row more
+    "ntile_4_of_10": (_w("ntile(4) OVER (ORDER BY id)", "WHERE id < 10 "),
+                      None),
+    "ntile_7_partitions": (_w("ntile(7) OVER (PARTITION BY g ORDER BY id)"),
+                           None),
+    "ntile_6_partitions_desc": (
+        _w("ntile(6) OVER (PARTITION BY g ORDER BY v DESC NULLS FIRST, id)"), None),
+    "ntile_more_than_rows": (_w("ntile(400) OVER (ORDER BY id)"), None),
+    "ntile_null": (_w("ntile(NULL) OVER (ORDER BY id)"), _w("NULL")),
+    "ntile_zero": (_w("ntile(0) OVER (ORDER BY id)"),
+                   Raises("argument of ntile must be greater than zero")),
+    # substring: the characters at [start, start + length) within the
+    # string; replace with an empty search string
+    "substring_zero_start": (_w("substring(s, 0, 3)"), None),
+    "substring_negative_start": (_w("substring(s, -1, 3)"),
+                                 _w("substr(s, 1, 1)")),
+    "substring_far_negative_start": (_w("substring(s, -5, 3)"),
+                                     _w("substr(s, 1, 0)")),
+    "substring_from_for": (_w("substring(s FROM 0 FOR 4)"),
+                           _w("substr(s, 0, 4)")),
+    "substring_negative_length": (
+        _w("substring(s, 1, -1)"),
+        Raises("negative substring length not allowed")),
+    "replace_empty_search": (_w("replace(s, '', 'x')"), None),
+    "replace_null_to": (_w("replace(s, 'a', NULL)"), None),
+    "replace_null_from": (_w("replace(s, NULL, 'x')"), None),
+    "substring_null_start": (_w("substring(s, NULL, 2)"), None),
+    "substring_null_length": (_w("substring(s, 2, NULL)"), None),
+    "round_null_digits": (_w("round(m, NULL)"), None),
+    "like_null": (_w("s LIKE NULL"), None),
+    "date_plus_null": (_w("dt + NULL"), None),
+    "null_plus_date": (_w("NULL + dt"), None),
+    # more of the same: NULL in any argument of a string or date function
+    "regexp_replace_null_pattern": (_w("regexp_replace(s, NULL, 'x')"),
+                                    _w("NULL")),
+    "regexp_replace_null_replacement": (_w("regexp_replace(s, 'a', NULL)"),
+                                        _w("NULL")),
+    "starts_with_null": (_w("starts_with(s, NULL)"), _w("NULL")),
+    "ends_with_null": (_w("ends_with(s, NULL)"), _w("NULL")),
+    "length_null": (_w("length(NULL)"), None),
+    "substring_of_null": (_w("substring(NULL, 1, 2)"), None),
+    "null_like": (_w("NULL LIKE 'a%'"), None),
+    "ilike_null": (_w("s ILIKE NULL"), _w("s LIKE NULL")),
+    "not_like_null": (_w("s NOT LIKE NULL"), None),
+    "date_trunc_null_part": (_w("date_trunc(NULL, dt)"), _w("NULL")),
+    "date_part_null_part": (_w("date_part(NULL, dt)"), _w("NULL")),
+    "date_minus_null": (_w("dt - NULL"), None),
+    "not_null": (_w("NOT NULL"), None),
+    # concat() skips NULL arguments, as || does not
+    "concat_skips_null_column": (_w("concat(s, 'x')"),
+                                 _w("coalesce(s, '') || 'x'")),
+    "concat_skips_null_literal": (_w("concat(s, NULL, '-')"),
+                                  _w("coalesce(s, '') || '-'")),
+    # an exact wide decimal (a division's quotient) beside a tensor column
+    # (sqlite3 divides an integral value as an integer)
+    "wide_decimal_plus_column": (_w("m / 3 + v"), _w("m / 3.0 + v")),
+    "wide_decimal_plus_decimal": (_w("m / 3 + m * 2"),
+                                  _w("m / 3.0 + m * 2")),
+    # nth_value's position: below 1 raises, NULL gives NULL
+    "nth_value_null": (_w("nth_value(v, NULL) OVER (ORDER BY id)"),
+                       _w("NULL")),
+    "nth_value_zero": (
+        _w("nth_value(v, 0) OVER (ORDER BY id)"),
+        Raises("argument of nth_value must be greater than zero")),
+}

@@ -368,26 +368,20 @@ def test_perf_mode_profile_equals_reference(env, q, capfd):
                if r[4])
 
 
-def test_fused_programs_copy_nothing_from_the_host(env, monkeypatch):
-    """Inside the fused programs no tensor is made from host data except
-    through backend.to_device (which a CUDA graph's capture serves from a
-    copy it keeps), nothing is read to the host and nothing waits for a
-    size the card computes: no torch.tensor / as_tensor / from_numpy, no
-    element set from a host scalar, no index from a host list or array, a
-    0-dim tensor or a boolean mask, no nonzero / unique / masked_select /
-    repeat_interleave, no item / int / bool / tolist / cpu / numpy. On the
-    card each is a host-to-device copy or a read to the host, which a
-    capture refuses (tests/test_torch_fused.py holds the reads on ten
-    queries; this, every guard on all 22)."""
+def _guard_host_reads(monkeypatch):
+    """Guards on every way a fused program could copy from the host or read
+    to it (see test_fused_programs_copy_nothing_from_the_host), on while
+    Executor._fused_program or _fused_chain_program runs. Returns the list
+    the guards append each offending call's site to, and the list of the
+    programs that ran."""
     import traceback
 
     import numpy as np
 
     from lingodb_tpu_torch.ops import backend as be
 
-    _rs, carried, _want = env
     state = {"inside": False, "upload": False}
-    bad = []
+    bad, ran = [], []
 
     def guard(name, orig, check=lambda a, k: True):
         def call(*a, **k):
@@ -456,7 +450,8 @@ def test_fused_programs_copy_nothing_from_the_host(env, monkeypatch):
     for name in ("_fused_program", "_fused_chain_program"):
         orig_prog = getattr(ex.Executor, name)
 
-        def prog(self, *a, _orig=orig_prog, **k):
+        def prog(self, *a, _orig=orig_prog, _name=name, **k):
+            ran.append(_name)
             state["inside"] = True
             try:
                 with Reads():
@@ -465,6 +460,22 @@ def test_fused_programs_copy_nothing_from_the_host(env, monkeypatch):
                 state["inside"] = False
 
         monkeypatch.setattr(ex.Executor, name, prog)
+    return bad, ran
+
+
+def test_fused_programs_copy_nothing_from_the_host(env, monkeypatch):
+    """Inside the fused programs no tensor is made from host data except
+    through backend.to_device (which a CUDA graph's capture serves from a
+    copy it keeps), nothing is read to the host and nothing waits for a
+    size the card computes: no torch.tensor / as_tensor / from_numpy, no
+    element set from a host scalar, no index from a host list or array, a
+    0-dim tensor or a boolean mask, no nonzero / unique / masked_select /
+    repeat_interleave, no item / int / bool / tolist / cpu / numpy. On the
+    card each is a host-to-device copy or a read to the host, which a
+    capture refuses (tests/test_torch_fused.py holds the reads on ten
+    queries; this, every guard on all 22)."""
+    _rs, carried, _want = env
+    bad, _ran = _guard_host_reads(monkeypatch)
     s = _session(carried)
     for q in [str(i) for i in range(1, 23)]:
         s.sql(_sql(q))
@@ -476,3 +487,108 @@ def test_fused_programs_copy_nothing_from_the_host(env, monkeypatch):
     for q in sql_battery.QUERIES:
         b.sql(q)
     assert not bad, sorted(set(bad))
+
+
+# every function of ops/scalar.py::eval_call that takes a constant argument
+# (and CASE and CAST), as an expression over a decimal {n}, a double {x}, a
+# string {s} and a date {d}, with the kind of value it gives
+CONST_ARG_EXPRS = {
+    "round_decimal": ("round({n}, 1)", "num"),
+    "round_double": ("round({x}, 2)", "num"),
+    "round_negative_digits": ("round({n}, -1)", "num"),
+    "compare": ("{n} > 1.5", "bool"),
+    "and_or": ("({n} > 1.5 AND {x} < 2) OR {n} IS NULL", "bool"),
+    "arithmetic": ("{n} * 2 + 1", "num"),
+    "divide_mod": ("{n} / 3 + {n} % 7", "num"),
+    "coalesce": ("coalesce({n}, 0)", "num"),
+    "nullif": ("nullif({n}, 0)", "num"),
+    "in_list": ("{n} IN (1.00, 2.50)", "bool"),
+    "like": ("{s} LIKE 'a%'", "bool"),
+    "ilike": ("{s} ILIKE '%A%'", "bool"),
+    "date_add": ("{d} + INTERVAL '1' MONTH", "date"),
+    "date_sub": ("{d} - INTERVAL '3' DAY", "date"),
+    "datediff": ("datediff('day', {d}, DATE '2021-01-01')", "num"),
+    "date_trunc": ("date_trunc('month', {d})", "date"),
+    "extract": ("extract(month FROM {d})", "num"),
+    "regexp_replace": ("regexp_replace({s}, 'a+', 'b')", "str"),
+    "substring": ("substring({s}, 2, 3)", "str"),
+    "concat": ("{s} || '_x'", "str"),
+    "concat_function": ("concat({s}, '-')", "str"),
+    "replace": ("replace({s}, 'a', 'b')", "str"),
+    "starts_with": ("starts_with({s}, 'a')", "bool"),
+    "ends_with": ("ends_with({s}, 'e')", "bool"),
+    "pow": ("pow({x}, 2)", "num"),
+    "case": ("CASE WHEN {n} > 0 THEN 1 ELSE 2 END", "num"),
+    "cast": ("CAST({n} AS INT)", "num"),
+}
+_AS_NUMBER = {"num": "{}", "bool": "CASE WHEN {} THEN 1 ELSE 0 END",
+              "str": "length({})", "date": "extract(day FROM {})"}
+# (the program, the operands, the statement): the fused aggregate, the
+# fused chain (a join to a dimension) and the TopK epilogue of the general
+# mode's aggregate, evaluated over the aggregates' lanes (ordered by the
+# group key: ties at the cutoff would decline the epilogue for the plan)
+CONST_ARG_CONTEXTS = {
+    "aggregate": ("_fused_program",
+                  dict(n="m", x="x", s="s", d="dt"),
+                  "SELECT g, sum({num}) FROM w WHERE id > 10 GROUP BY g"),
+    "chain": ("_fused_chain_program",
+              dict(n="w.m", x="w.x", s="w.s", d="w.dt"),
+              "SELECT w.id, {expr} FROM w JOIN u ON w.g = u.g "
+              "WHERE w.id > 10"),
+    "topk_epilogue": ("_fused_program",
+                      dict(n="sum(m)", x="sum(x)", s="min(s)", d="max(dt)"),
+                      "SELECT x, {expr} AS r FROM w GROUP BY x "
+                      "ORDER BY x LIMIT 3"),
+}
+
+
+@pytest.fixture(scope="module")
+def const_arg_session():
+    """A session over tools/sqlite_battery.py's table w at 5,000 rows (NULLs
+    in every column but the keys) and a seven-row dimension u, all on the
+    tensor tier."""
+    from lingodb_tpu_torch.tools import sqlite_battery as sb
+
+    old = dv.SMALL_ROWS
+    dv.SMALL_ROWS = 64  # read when a column is first uploaded
+    s = ldb.create_in_memory(device="cpu")
+    for st in sb.semantics_setup(5000):
+        s.sql_stmt(st)
+    s.sql_stmt("CREATE TABLE u(g INT, label VARCHAR(8))")
+    s.sql_stmt("INSERT INTO u VALUES "
+               + ", ".join(f"({i}, 'l{i}')" for i in range(7)))
+    yield s
+    dv.SMALL_ROWS = old
+
+
+@pytest.mark.parametrize("fn", list(CONST_ARG_EXPRS))
+def test_constant_arguments_copy_nothing_from_the_host(const_arg_session, fn,
+                                                       monkeypatch):
+    """A function's constant argument (round's digits, a LIKE pattern, a
+    substring's start, an interval ...) is read from the plan on the host,
+    never from its evaluated copy beside the columns: inside the fused
+    aggregate, the fused chain and the TopK epilogue, the guards of
+    test_fused_programs_copy_nothing_from_the_host see no copy from the host
+    and no read to it. On the card such a read is a sync on every run, and
+    a CUDA graph's capture refuses it (round's digits were one)."""
+    monkeypatch.setattr(dv, "SMALL_ROWS", 64)
+    expr, kind = CONST_ARG_EXPRS[fn]
+    epilogues = []
+    apply_epi = F.apply_topk_epi
+
+    def spy(*a, **k):
+        epilogues.append(1)
+        return apply_epi(*a, **k)
+
+    monkeypatch.setattr(F, "apply_topk_epi", spy)
+    bad, ran = _guard_host_reads(monkeypatch)
+    for ctx, (program, operands, template) in CONST_ARG_CONTEXTS.items():
+        e = expr.format(**operands)
+        sql = template.format(expr=e, num=_AS_NUMBER[kind].format(e))
+        ran.clear()
+        epilogues.clear()
+        const_arg_session.sql(sql)
+        assert program in ran, f"{ctx}: no fused program ran: {sql}"
+        if ctx == "topk_epilogue":
+            assert epilogues, f"no TopK epilogue ran in the program: {sql}"
+        assert not bad, (ctx, sql, sorted(set(bad)))
