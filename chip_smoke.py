@@ -73,11 +73,17 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               under string functions, set operations, ROLLUP and CUBE;
               lag / lead, ntile, nth_value, substring, replace, concat and
               NULL literal arguments at their edges, two of them raising
-              PostgreSQL's errors) on
+              PostgreSQL's errors; errors the data raises: INT and BIGINT
+              arithmetic beyond the range, casts of strings, decimals and
+              doubles to integers) on
               the tensor tier, and CUBE over two keys with NULLs at 30,000
               rows at the default tier, each card row equal to the CPU
-              session's and to sqlite3's, every K1-K3 call checked against
-              its plain version and counted
+              session's and to sqlite3's, or raising PostgreSQL's words as
+              the CPU session does, every K1-K3 call checked against its
+              plain version and counted; then INT arithmetic beyond INT's
+              range in the fused aggregate over the SF1 lineitem, which
+              must raise after the program's packed fetch on its captured
+              run and on two replays
   7. kbench   `python -m lingodb_tpu_torch.tools.kbench --quick` as a
               subprocess, the entry point that runs segscan (no engine
               caller): every kernel at 6M rows, held against its plain
@@ -1610,6 +1616,15 @@ def same_rows(got, want) -> bool:
 
 
 SQLITE_BIG_ROWS = 30_000  # phase 6 (b)'s CUBE table, at the default tier
+# phase 6 (b): INT arithmetic beyond INT's range inside the fused aggregate
+# over the SF1 lineitem (l_linenumber 3 to 7), and the same kept in range
+# by its restriction
+FUSED_ERROR_SQL = ("SELECT l_returnflag, sum(l_linenumber * 1000000000) "
+                   "FROM lineitem {}GROUP BY l_returnflag "
+                   "ORDER BY l_returnflag")
+# host syncs and launches of the main path's queries, by phase (4 and 10),
+# printed together before the report
+SYNCS: dict = {}
 
 
 def sqlite_phase(torch, pg, ldb, launches):
@@ -1647,6 +1662,8 @@ def sqlite_phase(torch, pg, ldb, launches):
         ("cube_big", dv.SMALL_ROWS,
          sb.null_key_setup(SQLITE_BIG_ROWS, table="big"), big, False),
         ("semantics", 2, sb.semantics_setup(), sb.SEMANTICS_STATEMENTS, True),
+        ("errors", 2, sb.semantics_setup() + sb.errors_setup(),
+         sb.ERROR_STATEMENTS, True),
     ]
 
     def raised(session, sql):
@@ -1722,6 +1739,55 @@ def sqlite_phase(torch, pg, ldb, launches):
         f"the CPU session and sqlite3 in {time.perf_counter() - t0:.1f}s; "
         f"launches (K1, K2, K3, each call checked: {n_checked}): "
         f"{json.dumps(total)}")
+
+
+def fused_error_part(torch, gpu, cpu):
+    """Phase 6 (b): FUSED_ERROR_SQL in the fused aggregate over the SF1
+    tables. Its first run captures the program and replays it, the next two
+    replay it; each must raise PostgreSQL's "integer out of range" after
+    the program's packed fetch (the finish raises it, not a read inside
+    the program), as the CPU session raises it; the statement kept in range
+    gives the CPU session's rows."""
+    import traceback
+
+    from lingodb_tpu_torch.ops import scalar as sc
+    from lingodb_tpu_torch.runtime.executor import FETCH_FINISHES
+    from lingodb_tpu_torch.utils import compilestats
+
+    raising = FUSED_ERROR_SQL.format("")
+    kept = FUSED_ERROR_SQL.format("WHERE l_linenumber < 3 ")
+    runs = []
+    for session in (gpu, gpu, gpu, cpu):
+        cs0 = compilestats.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            session.sql(raising)
+        except sc.EvalError as exc:
+            where = traceback.extract_tb(exc.__traceback__)[-2].name
+            if str(exc) != "integer out of range" or where not in (
+                    FETCH_FINISHES):
+                fail(f"phase 6 (b) fused: {raising} raised {exc!r} in "
+                     f"{where}")
+        else:
+            fail(f"phase 6 (b) fused: {raising} must raise")
+        ms = (time.perf_counter() - t0) * 1e3
+        d = compilestats.delta(cs0)
+        runs.append((ms, d["captures"], d["replays"], d["calibrations"]))
+    card = runs[:3]
+    if (card[0][1] != 1 or any(r[1] or r[3] for r in card[1:])
+            or any(r[2] != 1 for r in card)):
+        fail(f"phase 6 (b) fused: captures / replays / calibrations by run "
+             f"{[r[1:] for r in card]}: want one capture, then replays")
+    for _run in range(2):
+        if gpu.sql(kept).to_pylist() != cpu.sql(kept).to_pylist():
+            fail(f"phase 6 (b) fused: card rows differ from the CPU "
+                 f"session's: {kept}")
+    log(f"# sqlite statements (6 b) fused: {raising} raised 'integer out of "
+        f"range' after the packed fetch on its captured run and two replays "
+        f"(ms {', '.join(f'{r[0]:.2f}' for r in card)}; captures / replays /"
+        f" calibrations by run {[r[1:] for r in card]}) and on the CPU "
+        f"session; kept in range by l_linenumber < 3, rows equal")
 
 
 def card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, label, sql, slice_launches,
@@ -2138,6 +2204,8 @@ def graphs_phase(torch, pg, ldb, gpu_profile, gpu, cpu, tables, cpu_rows,
             "capture_ms": runs[0][1]["capture_secs"] * 1e3,
             "pool_mib": pool_mib}
         t = table[q]
+        SYNCS[f"p10 q{q}"] = {"syncs": syncs, "uncaptured_syncs": un_syncs,
+                              "launches": runs[2][1]["launches"]}
         by_run = [(d["captures"], d["replays"], d["calibrations"])
                   for _m, d in runs]
         log(f"# graphs q{q}: captures/replays/calibrations by run {by_run}; "
@@ -3317,6 +3385,8 @@ def main() -> int:
                     torch, lambda: gpu.sql(sqls[q]).format_rows())
                 if rows != results[q]:
                     fail(f"q{q} [{path}]: second run differs from the first")
+                SYNCS[f"p4 {path} q{q}"] = {"syncs": syncs,
+                                            "launches": counts}
                 log(f"# query q{q} [{path}]: rows={len(rows)} wall_ms={ms:.2f} "
                     f"(second run) launches={json.dumps(counts)} syncs={syncs} "
                     f"peak_mib={peak / 2**20:.1f} resident_mib="
@@ -3383,6 +3453,7 @@ def main() -> int:
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 6 (b)")
     # ---- phase 6 (b): statements held against sqlite3 as well
     sqlite_phase(torch, pg, ldb, launches)
+    fused_error_part(torch, gpu, cpu)
 
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 7")
     # ---- phase 7: the kernel bench, the entry point that runs segscan
@@ -3520,6 +3591,9 @@ def main() -> int:
             "shape": head["shape"],
             "cases": mine,
         })
+    log("# main path syncs and launches (phase 4 second runs, phase 10 "
+        "replays): " + json.dumps({k: v for k, v in SYNCS.items()
+                                   if k.split()[-1][1:] in QUERIES}))
     log(f"# total {time.perf_counter() - t_start:.1f}s")
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,7 +17,13 @@ a constant never mixes a tensor with a numpy array."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
+import re
+
 import numpy as np
+import torch
 
 from . import backend as be
 from .backend import xnp as jnp
@@ -36,6 +42,232 @@ US_PER_DAY = 86_400_000_000
 
 class EvalError(Exception):
     pass
+
+
+# ----------------------------------------------------------------- data errors
+# An error the data raises (PostgreSQL's "integer out of range", "invalid
+# input syntax for type integer: ..."): each row's code in SCol.err, an
+# int64, 0 for none. The code's low _KIND_BITS bits are its kind, the form
+# of its message (_KINDS, fixed); a kind that names a value (a string that
+# does not parse) also holds where the value is: the dictionary the cast
+# parsed, by its number among the sources of the scope that evaluates it
+# (error_scope: a statement, a fused program, a constant), and the entry's
+# position in it. So a code built into a captured program means the same at
+# every replay, and nothing outlives the scope's sources. An expression
+# that cannot fail carries None and costs nothing. Operators combine their
+# arguments' codes, the first argument's first (PostgreSQL evaluates
+# arguments left to right); CASE, COALESCE, AND and OR take the code of
+# what they evaluate for the row. The operator that consumes a value (a
+# Map, a Select, join keys: runtime/executor.py, runtime/fused.py) raises
+# the first code among its live rows: at once in the eager operators (one
+# reduction and one read), or, inside a fused program, into the program's
+# one scalar (deferred_errors), raised after its packed fetch. NULL rows
+# never raise; division by zero stays NULL.
+_KIND_BITS, _SOURCE_BITS = 6, 20
+# (the message, the value it shows: "" none, "s" the text, "strip" the text
+# without its blanks)
+_KINDS = [("", ""), ("integer out of range", ""),
+          ("bigint out of range", ""), ("numeric field overflow", ""),
+          ('date/time field value out of range: "{}"', "s")]
+# PostgreSQL's text input, per type: its name in the messages
+_TEXT_TYPE = {K.INT: "integer", K.BIGINT: "bigint", K.DECIMAL: "numeric",
+              K.FLOAT: "real", K.DOUBLE: "double precision", K.DATE: "date",
+              K.TIMESTAMP: "timestamp", K.BOOL: "boolean"}
+for _name in _TEXT_TYPE.values():
+    _KINDS += [(f'invalid input syntax for type {_name}: "{{}}"', "s"),
+               (f'value "{{}}" is out of range for type {_name}', "s"),
+               (f'"{{}}" is out of range for type {_name}', "strip")]
+_KIND_OF = {form: k for k, (form, _shown) in enumerate(_KINDS)}
+assert len(_KINDS) <= 1 << _KIND_BITS
+ERR_INT = _KIND_OF["integer out of range"]
+ERR_BIGINT = _KIND_OF["bigint out of range"]
+_ERR_SINK: contextvars.ContextVar = contextvars.ContextVar(
+    "lingodb_data_errors", default=None)
+_ERR_SOURCES: contextvars.ContextVar = contextvars.ContextVar(
+    "lingodb_error_sources", default=None)
+
+
+@contextlib.contextmanager
+def error_scope(sources: list | None = None):
+    """Inside the block a cast from strings numbers its dictionary among
+    `sources` (a new list by default), which the block yields: the list a
+    code's message is read from (raise_data_error)."""
+    sources = [] if sources is None else sources
+    tok = _ERR_SOURCES.set(sources)
+    try:
+        yield sources
+    finally:
+        _ERR_SOURCES.reset(tok)
+
+
+def _source_number(dictionary) -> int:
+    """The number of `dictionary` among the scope's sources, from 1 (0
+    outside a scope, or past the code's room: its messages then show "?"
+    for the value)."""
+    sources = _ERR_SOURCES.get()
+    if sources is None:
+        return 0
+    for i, d in enumerate(sources):
+        if d is dictionary:
+            return i + 1
+    if len(sources) + 1 >= 1 << _SOURCE_BITS:
+        return 0
+    sources.append(dictionary)
+    return len(sources)
+
+
+def error_message(code: int, sources: list | None = None) -> str:
+    """The message of the nonzero `code`, its value read from `sources`
+    (the current scope's by default)."""
+    form, shown = _KINDS[code & ((1 << _KIND_BITS) - 1)]
+    if not shown:
+        return form
+    src = (code >> _KIND_BITS) & ((1 << _SOURCE_BITS) - 1)
+    entry = code >> (_KIND_BITS + _SOURCE_BITS)
+    sources = _ERR_SOURCES.get() if sources is None else sources
+    if not src or sources is None or src > len(sources):
+        return form.format("?")
+    text = str(sources[src - 1][entry])
+    return form.format(text.strip() if shown == "strip" else text)
+
+
+def raise_data_error(code, sources: list | None = None) -> None:
+    """Raise the error of `code` (a host int, 0 for none); `sources` as in
+    error_message."""
+    code = int(code)
+    if code:
+        raise EvalError(error_message(code, sources))
+
+
+def _err_where(cond, valid, code: int):
+    """Per-row codes: `code` where `cond` holds on a row that is not NULL."""
+    if valid is not None:
+        ref = _first_torch(cond, valid)
+        if ref is not None:
+            cond, valid = be.like(cond, ref), be.like(valid, ref)
+        cond = cond & valid
+    return be.astype(cond, np.int32) * code  # a fixed kind: below 2^31
+
+
+def _first_err(*errs):
+    """Per-row codes: each row's first nonzero code among `errs` (None where
+    every one is None)."""
+    out = None
+    for e in errs:
+        if e is None:
+            continue
+        if out is None:
+            out = e
+            continue
+        ref = _first_torch(out, e)
+        if ref is not None:
+            out, e = be.like(out, ref), be.like(e, ref)
+        out = jnp.where(out != 0, out, e)
+    return out
+
+
+def _with_err(c: SCol, err) -> SCol:
+    """`c` with the codes `err` ahead of its own (an argument's error is
+    raised before the function's)."""
+    if err is None:
+        return c
+    return dataclasses.replace(c, err=_first_err(err, c.err))
+
+
+def first_error(err, live, n: int):
+    """The code of the first of the n rows that is live (`live` None: every
+    row) and has a nonzero code, 0 if none, as a (1,) int64 array beside
+    `err`: a pass over bytes, an argmax and a gather, nothing read."""
+    ref = _first_torch(err, live)
+    if ref is not None:
+        err = be.like(err, ref)
+        live = None if live is None else be.like(live, ref)
+    bad = err != 0
+    if live is not None:
+        bad = bad & live
+    if bad.ndim == 0:
+        bad = jnp.broadcast_to(bad, (n,))
+    m = bad.shape[0]
+    if err.ndim == 0:
+        err = jnp.broadcast_to(err, (m,))
+    if m == 0:
+        return be.full(1, 0, np.int64, ref)
+    if ref is None:
+        at = np.flatnonzero(bad)
+        return np.array([err[at[0]] if len(at) else 0], np.int64)
+    # the first True: argmax gives the first of the maxima
+    at = torch.argmax(bad.contiguous().view(torch.uint8)).reshape(1)
+    code = err.gather(0, at).to(torch.int64)
+    return torch.where(bad.gather(0, at), code, 0)
+
+
+class _Deferred:
+    """The data errors of one fused program: the first nonzero code of the
+    consumers in program order, a (1,) int64 tensor, or None where no
+    consumer could fail; and the sources its codes' messages read, which
+    the program keeps for its replays."""
+
+    def __init__(self):
+        self.code = None
+        self.sources: list = []
+
+    def add(self, code) -> None:
+        self.code = code if self.code is None else jnp.where(
+            self.code != 0, self.code, code)
+
+
+@contextlib.contextmanager
+def deferred_errors():
+    """Inside the block a consumer's data errors are not read but kept:
+    the block's object holds their code (`.code`), which the fused program
+    returns beside its outputs, for its packed fetch, and the block is an
+    error_scope over its `.sources`."""
+    d = _Deferred()
+    tok = _ERR_SINK.set(d)
+    try:
+        with error_scope(d.sources):
+            yield d
+    finally:
+        _ERR_SINK.reset(tok)
+
+
+def raise_data_errors(errs, live=None, n: int = 1) -> None:
+    """Raise the first error among the live rows of the codes `errs` (in
+    the order PostgreSQL evaluates them; None entries can fail on no row),
+    or, inside deferred_errors, keep its code for the program's fetch."""
+    err = _first_err(*errs)
+    if err is None:
+        return
+    code = first_error(err, live, n)
+    sink = _ERR_SINK.get()
+    if sink is not None:
+        sink.add(code)
+        return
+    raise_data_error(be.to_host(code)[0])
+
+
+def without_err(c: SCol) -> SCol:
+    return c if c.err is None else dataclasses.replace(c, err=None)
+
+
+def checked(c: SCol, live=None, n: int = 1) -> SCol:
+    """`c` once the errors of its live rows are raised (or deferred): the
+    same column without its codes."""
+    if c.err is None:
+        return c
+    raise_data_errors([c.err], live, n)
+    return without_err(c)
+
+
+def checked_all(cols: dict, cids, live=None, n: int = 1) -> None:
+    """checked() for the columns `cids` of `cols` together (a Map's
+    outputs: one reduction, one read), in place."""
+    errs = [cols[cid].err for cid in cids]
+    if all(e is None for e in errs):
+        return
+    raise_data_errors(errs, live, n)
+    for cid in cids:
+        cols[cid] = without_err(cols[cid])
 
 
 def const_scol(value, t: Type) -> SCol:
@@ -82,7 +314,8 @@ def eval_expr(e: BExpr, env: dict[int, SCol]) -> SCol:
     if isinstance(e, Const):
         return _place(const_scol(e.value, e.type), env)
     if isinstance(e, Cast):
-        return eval_cast(eval_expr(e.arg, env), e.type)
+        a = eval_expr(e.arg, env)
+        return _with_err(eval_cast(a, e.type), a.err)
     if isinstance(e, CaseExpr):
         return eval_case(e, env)
     if isinstance(e, Call):
@@ -148,14 +381,19 @@ def _and_valid(*cols: SCol):
 
 
 def _bcast(c: SCol, n: int) -> SCol:
-    """Broadcast scalar SCol (or scalar validity) to n rows."""
-    if c.data.ndim != 0 and (c.valid is None or c.valid.ndim != 0):
+    """Broadcast scalar SCol (or scalar validity, or scalar codes) to n
+    rows."""
+    if c.data.ndim != 0 and (c.valid is None or c.valid.ndim != 0) and (
+            c.err is None or c.err.ndim != 0):
         return c
     data = c.data if c.data.ndim != 0 else jnp.broadcast_to(c.data, (n,))
     valid = c.valid
     if valid is not None and valid.ndim == 0:
         valid = jnp.broadcast_to(valid, (n,))
-    return SCol(c.type, data, valid, c.dictionary)
+    err = c.err
+    if err is not None and err.ndim == 0:
+        err = jnp.broadcast_to(err, (n,))
+    return SCol(c.type, data, valid, c.dictionary, err)
 
 
 def _is_const_string(c: SCol) -> bool:
@@ -186,8 +424,9 @@ def eval_cast(a: SCol, t: Type) -> SCol:
                          np.dtype(np_dtype(d))).reshape(data.shape)
             return SCol(d, f / (10.0**s.s), valid)
         if d.kind in (K.INT, K.BIGINT):
-            q = decwide.div_trunc(data, 10**s.s) if s.s else data
-            return SCol(d, be.astype(q, np.dtype(np_dtype(d))), valid)
+            # numeric to integer rounds half away from zero (PostgreSQL)
+            q = decwide.div_round(data, 10**s.s) if s.s else data
+            return _exact_int(d, q, valid, None)
         if d.kind == K.BOOL:
             return SCol(d, be.astype((data != 0), np.bool_), valid)
     if s.kind == K.DECIMAL and not dec_is_float(s):
@@ -211,15 +450,16 @@ def eval_cast(a: SCol, t: Type) -> SCol:
                 return SCol(d, f / (10.0**s.s), valid)
             return SCol(d, be.astype(be.fdiv(data, 10.0**s.s), np_dtype(d)), valid)
         if d.kind in (K.INT, K.BIGINT):
+            # numeric to integer rounds half away from zero (PostgreSQL)
             if s.s and (is_obj(data) or s.s > 18):
                 # divisor 10^s exceeds int64 (or data already object): exact
-                r = _exact_result(
-                    d, decwide.div_trunc(decwide.to_obj(data), 10**s.s), valid,
+                return _exact_int(
+                    d, decwide.div_round(decwide.to_obj(data), 10**s.s), valid,
                     _first_torch(data, valid))
-                if not is_obj(r.data):
-                    r.data = be.astype(r.data, np_dtype(d))
-                return r
-            q = _div_trunc(data, 10**s.s) if s.s else data
+            q = _div_round(data, 10**s.s) if s.s else data
+            if d.kind == K.INT and s.p - s.s > 9:
+                # (below 10^9 even once rounded, a value fits: no code)
+                return _narrowed(d, q, valid)
             return SCol(d, be.astype(q, np_dtype(d)), valid)
         if d.kind == K.BOOL:
             return SCol(d, data != 0, valid)
@@ -238,7 +478,9 @@ def eval_cast(a: SCol, t: Type) -> SCol:
             return SCol(d, be.astype(data, jnp.int64) * (10**d.s), valid)
         if d.kind in (K.INT, K.BIGINT):
             if is_obj(data):
-                return SCol(d, data, valid)  # stays exact on the host
+                return _exact_int(d, data, valid, None)
+            if d.kind == K.INT and s.kind == K.BIGINT:
+                return _narrowed(d, data, valid)
             return SCol(d, be.astype(data, np_dtype(d)), valid)
         if d.kind in (K.FLOAT, K.DOUBLE):
             if is_obj(data):
@@ -255,7 +497,15 @@ def eval_cast(a: SCol, t: Type) -> SCol:
             scaled = be.astype(data, jnp.float64) * (10.0**d.s)
             return SCol(d, be.astype(_round_half_away_f(scaled), jnp.int64), valid)
         if d.kind in (K.INT, K.BIGINT):
-            return SCol(d, be.astype(jnp.trunc(data), np_dtype(d)), valid)
+            # rounded to the nearest, half to even (PostgreSQL's rint); NaN
+            # and values beyond the type are out of range
+            f = be.astype(data, np.float64)
+            r = torch.round(f) if be.is_torch(f) else np.rint(f)
+            lo, hi = _int_range(d)
+            ok = (r >= float(lo)) & ((r <= float(hi)) if d.kind == K.INT
+                                     else (r < 2.0**63))
+            return SCol(d, be.astype(jnp.where(ok, r, 0.0), np_dtype(d)),
+                        valid, None, _err_where(~ok, valid, _range_code(d)))
         if d.kind in (K.FLOAT, K.DOUBLE):
             return SCol(d, be.astype(data, np_dtype(d)), valid)
         if d.kind == K.BOOL:
@@ -267,6 +517,30 @@ def eval_cast(a: SCol, t: Type) -> SCol:
     raise EvalError(f"cast {s} -> {t} not supported")
 
 
+def _narrowed(d: Type, q, valid) -> SCol:
+    """The int64 values `q` as an INT column: a row they do not fit raises
+    "integer out of range"."""
+    r = be.astype(q, np.int32)
+    return SCol(d, r, valid, None, _err_where(q != r, valid, ERR_INT))
+
+
+def _exact_int(d: Type, q, valid, ref) -> SCol:
+    """An exact (Python-int) result cast to INT or BIGINT: a row beyond the
+    type's range is an error (and 0); the rest go beside `ref`."""
+    lo, hi = _int_range(d)
+    q = decwide.to_obj(q)
+    bad = (q < lo) | (q > hi)
+    hvalid = None if valid is None else be.to_host(valid)
+    err = _err_where(bad, hvalid, _range_code(d)) if bad.any() else None
+    out = be.astype(decwide.demote_if_possible(np.where(bad, 0, q)),
+                    np_dtype(d))
+    if ref is None:
+        return SCol(d, out, valid, None, err)
+    return SCol(d, be.like(out, ref),
+                None if valid is None else be.like(valid, ref), None,
+                None if err is None else be.like(err, ref))
+
+
 def _rescale_int(data, s_from: int, s_to: int, to_float=False):
     if to_float:
         return be.astype(be.fdiv(data, 10.0**s_from), jnp.float64)
@@ -275,13 +549,6 @@ def _rescale_int(data, s_from: int, s_to: int, to_float=False):
     if s_to > s_from:
         return data * (10 ** (s_to - s_from))
     return _div_round(data, 10 ** (s_from - s_to))
-
-
-def _div_trunc(a, b):
-    """Integer division truncating toward zero (SQL semantics)."""
-    q = jnp.floor_divide(jnp.abs(a), abs(b) if isinstance(b, int) else jnp.abs(b))
-    sign = jnp.sign(a) * (1 if isinstance(b, int) and b > 0 else jnp.sign(b))
-    return be.astype((q * sign), be.dt(a))
 
 
 def _div_round(a, b):
@@ -338,37 +605,116 @@ def _div_shift_exact(a, b, shift: int):
 
 
 def _cast_from_string(a: SCol, d: Type) -> SCol:
+    """A string column cast to `d`: each dictionary entry parsed once on the
+    host by PostgreSQL's input rules for `d` (parse_text) into two tables,
+    its value and its error code; the codes gather both, and a row whose
+    entry is bad raises where it is live and not NULL."""
     assert a.dictionary is not None
-
-    def lut(fn, dtype):
-        table = strings.value_lut(a.dictionary, fn, dtype)
-        return be.lut_take(table, a.data)
-
-    valid = a.valid
-    if d.kind in (K.INT, K.BIGINT):
-        return SCol(d, lut(lambda s: int(float(s)) if s.strip() else 0, np.dtype(np_dtype(d))), valid)
-    if d.kind in (K.FLOAT, K.DOUBLE):
-        return SCol(d, lut(lambda s: float(s) if s.strip() else 0.0, np.dtype(np_dtype(d))), valid)
-    if d.kind == K.DECIMAL:
-        if dec_is_wide(d):
-            vals = [decimal_str_to_int(s, d.s) if s.strip() else 0
-                    for s in a.dictionary]
-            if not all(INT64_MIN <= v <= INT64_MAX for v in vals):
-                table = np.array(vals, dtype=np.object_)
-                codes = be.to_host(a.data)
-                if valid is not None:
-                    valid = be.to_host(valid)
-                return SCol(d, table[codes], valid)
-        return SCol(d, lut(lambda s: decimal_str_to_int(s, d.s) if s.strip() else 0, np.int64), valid)
-    if d.kind == K.DATE:
-        return SCol(d, lut(lambda s: int(be.astype((np.datetime64(_norm_date_str(s), "D") - EPOCH), np.int64)) if s.strip() else 0, np.int32), valid)
-    if d.kind == K.TIMESTAMP:
-        return SCol(d, lut(lambda s: int(be.astype(np.datetime64(_norm_date_str(s), "us"), np.int64)) if s.strip() else 0, np.int64), valid)
-    if d.kind == K.BOOL:
-        return SCol(d, lut(lambda s: s.strip().lower() in ("t", "true", "1", "yes"), np.bool_), valid)
     if d.is_string:
-        return SCol(d, a.data, valid, a.dictionary)
-    raise EvalError(f"cast string -> {d}")
+        return SCol(d, a.data, a.valid, a.dictionary)
+    if d.kind not in _TEXT_TYPE:
+        raise EvalError(f"cast string -> {d}")
+    vals, codes = [], []
+    src = None
+    for i, s in enumerate(a.dictionary):
+        v, kind = parse_text(str(s), d)
+        vals.append(0 if kind else v)
+        if kind and _KINDS[kind][1]:  # the message shows the entry
+            src = _source_number(a.dictionary) if src is None else src
+            if src:
+                kind |= (src << _KIND_BITS) | (i << (_KIND_BITS + _SOURCE_BITS))
+        codes.append(kind)
+    valid = a.valid
+    if (d.kind == K.DECIMAL and dec_is_wide(d)
+            and not all(INT64_MIN <= v <= INT64_MAX for v in vals)):
+        # a value beyond int64: an exact column on the host (a NULL row's
+        # code may lie past the dictionary: clamped, as lut_take does)
+        host = be.to_host(a.data)
+        data = np.take(np.array(vals, dtype=np.object_), host, mode="clip")
+        if valid is not None:
+            valid = be.to_host(valid)
+        codes_at = (np.take(np.asarray(codes, np.int64), host, mode="clip")
+                    if any(codes) else None)
+    else:
+        dtype = np.dtype(np_dtype(d))
+        data = be.lut_take(np.array(vals, dtype=dtype), a.data)
+        codes_at = (be.lut_take(np.asarray(codes, np.int64), a.data)
+                    if any(codes) else None)
+    err = None
+    if codes_at is not None:
+        err = codes_at if valid is None else jnp.where(valid, codes_at, 0)
+    return SCol(d, data, valid, None, err)
+
+
+# PostgreSQL's text input grammar of integers (int4in, int8in: blanks
+# around an optional sign and decimal digits), numerics (numeric_in: digits
+# with one point and an exponent) and doubles (float8in: those, or infinity
+# and NaN)
+_INT_TEXT = re.compile(r"\s*[+-]?[0-9]+\s*\Z")
+_NUM_TEXT = re.compile(
+    r"\s*[+-]?([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?\s*\Z")
+_FLOAT_TEXT = re.compile(
+    r"\s*[+-]?(([0-9]+\.?[0-9]*|\.[0-9]+)([eE][+-]?[0-9]+)?|inf|infinity"
+    r"|nan)\s*\Z", re.IGNORECASE)
+# the engine's dates and timestamps: ISO year-month-day, then a time (a
+# date drops it)
+_DATETIME_TEXT = re.compile(
+    r"\s*([0-9]{4}-[0-9]{1,2}-[0-9]{1,2})([ T][0-9:.]*)?\s*\Z")
+_BOOL_WORDS = (("true", True, 1), ("false", False, 1), ("yes", True, 1),
+               ("no", False, 1), ("on", True, 2), ("off", False, 2))
+
+
+def parse_text(s: str, d: Type):
+    """PostgreSQL's input of the text `s` as a value of type `d`: (the value
+    in d's physical form, 0), or (None, the kind of PostgreSQL's error,
+    _KINDS)."""
+    name = _TEXT_TYPE[d.kind]
+    bad = (None, _KIND_OF[f'invalid input syntax for type {name}: "{{}}"'])
+    if d.kind in (K.INT, K.BIGINT):
+        if not _INT_TEXT.match(s):
+            return bad
+        v = int(s)
+        lo, hi = _int_range(d)
+        if not lo <= v <= hi:
+            return None, _KIND_OF[
+                f'value "{{}}" is out of range for type {name}']
+        return v, 0
+    if d.kind == K.DECIMAL:
+        if not _NUM_TEXT.match(s):
+            return bad
+        v = decimal_str_to_int(s, d.s)
+        if abs(v) >= 10**d.p:  # more digits than the type's precision
+            return None, _KIND_OF["numeric field overflow"]
+        return v, 0
+    if d.kind in (K.FLOAT, K.DOUBLE):
+        if not _FLOAT_TEXT.match(s):
+            return bad
+        v = float(s)
+        big = 3.4028234663852886e38 if d.kind == K.FLOAT else float("inf")
+        if abs(v) >= big and "inf" not in s.lower():
+            return None, _KIND_OF[f'"{{}}" is out of range for type {name}']
+        return v, 0
+    if d.kind == K.BOOL:
+        w = s.strip().lower()
+        if w in ("1", "0"):
+            return w == "1", 0
+        for word, value, least in _BOOL_WORDS:
+            if len(w) >= least and word.startswith(w):
+                return value, 0
+        return bad
+    m = _DATETIME_TEXT.match(s)
+    if m is None:
+        return bad
+    try:
+        if d.kind == K.DATE:
+            v = np.datetime64(_norm_date_str(m.group(1)), "D")
+        else:
+            v = np.datetime64(_norm_date_str(s), "us")
+    except ValueError:  # a month or day past its end
+        return None, _KIND_OF['date/time field value out of range: "{}"']
+    v = be.astype(v - EPOCH, np.int64) if d.kind == K.DATE else be.astype(
+        v, np.int64)
+    return int(v), 0
 
 
 def _format_value(v, t: Type) -> str:
@@ -419,7 +765,9 @@ def eval_case(e: CaseExpr, env: dict[int, SCol]) -> SCol:
                             decwide.to_obj(y) if not is_obj(y) else y)
         return jnp.where(m, x, y)
 
-    # apply WHENs in reverse so the first match wins
+    # apply WHENs in reverse so the first match wins; a row raises what
+    # it evaluates: the conditions up to the one that holds, then its value
+    err = else_c.err
     for cond_c, val_c in reversed(branches):
         m = truth_mask(cond_c)
         data = where_mixed(m, val_c.data, data)
@@ -428,7 +776,22 @@ def eval_case(e: CaseExpr, env: dict[int, SCol]) -> SCol:
             va = jnp.ones_like(m) if vvalid is None else (jnp.broadcast_to(vvalid, m.shape) if vvalid.ndim == 0 else vvalid)
             vb = jnp.ones_like(m) if valid is None else (jnp.broadcast_to(valid, m.shape) if valid.ndim == 0 else valid)
             valid = jnp.where(m, va, vb)
-    return SCol(t, data, valid, rdict)
+        if val_c.err is not None or err is not None:
+            err = _pick_err(m, val_c.err, err)
+        err = _first_err(cond_c.err, err)
+    return SCol(t, data, valid, rdict, err)
+
+
+def _pick_err(m, a, b):
+    """Per-row codes: a's where m holds, else b's (None: no code)."""
+    ref = _first_torch(m, a, b)
+    a = 0 if a is None else (be.like(a, ref) if ref is not None else a)
+    b = 0 if b is None else (be.like(b, ref) if ref is not None else b)
+    if isinstance(a, int) and isinstance(b, int):
+        return None
+    if ref is not None:
+        m = be.like(m, ref)
+    return jnp.where(m, a, b)
 
 
 def _unify_string_dicts(vals: list[SCol], else_c: SCol, branches):
@@ -448,9 +811,9 @@ def _unify_string_dicts(vals: list[SCol], else_c: SCol, branches):
 
 def _remap_string(c: SCol, merged: np.ndarray) -> SCol:
     if c.dictionary is None:
-        return SCol(c.type, c.data, c.valid, merged)
+        return SCol(c.type, c.data, c.valid, merged, c.err)
     remap = be.astype(np.searchsorted(merged, c.dictionary), np.int32)
-    return SCol(c.type, be.lut_take(remap, c.data), c.valid, merged)
+    return SCol(c.type, be.lut_take(remap, c.data), c.valid, merged, c.err)
 
 
 # --------------------------------------------------------------------- calls
@@ -461,6 +824,15 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
     if op == "or":
         return _eval_or([eval_expr(a, env) for a in e.args], e.type)
     args = [eval_expr(a, env) for a in e.args]
+    if op == "coalesce":
+        return _eval_coalesce(args, e.type)
+    return _with_err(_apply_call(e, args), _first_err(*(a.err for a in args)))
+
+
+def _apply_call(e: Call, args: list[SCol]) -> SCol:
+    """A function over its evaluated arguments (their codes are the
+    caller's; the result carries only the function's own)."""
+    op = e.op
     if op in _STRICT and any(_plan_null(a) for a in e.args):
         return _null_result(e.type, args)
     if op == "not":
@@ -483,7 +855,7 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
         return eval_arith(op, args[0], args[1], e.type)
     if op == "neg":
         a = args[0]
-        return SCol(e.type, -a.data, a.valid)
+        return SCol(e.type, -a.data, a.valid, None, _int_min_err(a, e.type))
     if op == "isnull":
         a = args[0]
         v = jnp.zeros_like(a.data, dtype=jnp.bool_) if a.valid is None else ~a.valid
@@ -492,8 +864,6 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
         a = args[0]
         v = jnp.ones_like(a.data, dtype=jnp.bool_) if a.valid is None else a.valid
         return SCol(e.type, v, None)
-    if op == "coalesce":
-        return _eval_coalesce(args, e.type)
     if op == "nullif":
         a, b = args
         eqc = eval_compare("eq", a, b, Type.bool_(True))
@@ -646,11 +1016,17 @@ def udfmod_registry_get(name: str):
 
 
 def _eval_and(cols: list[SCol], t: Type) -> SCol:
-    # Kleene: FALSE dominates NULL
+    # Kleene: FALSE dominates NULL. A row evaluates its conjuncts left to
+    # right up to the first FALSE one (as PostgreSQL does): it raises only
+    # what it evaluates
     val = None
     known_false = None
     all_valid = None
+    err = None
     for c in cols:
+        if c.err is not None:
+            err = _first_err(err, c.err if known_false is None
+                             else _pick_err(known_false, None, c.err))
         d = be.astype(c.data, jnp.bool_)
         val = d if val is None else (val & d)
         v = c.valid
@@ -662,9 +1038,9 @@ def _eval_and(cols: list[SCol], t: Type) -> SCol:
             kf = ~d
             known_false = kf if known_false is None else (known_false | kf)
     if all_valid is None:
-        return SCol(t, val, None)
+        return SCol(t, val, None, None, err)
     valid = all_valid | known_false
-    return SCol(t, val & valid, valid)
+    return SCol(t, val & valid, valid, None, err)
 
 
 def _eval_or(cols: list[SCol], t: Type) -> SCol:
@@ -672,7 +1048,11 @@ def _eval_or(cols: list[SCol], t: Type) -> SCol:
     known_true = None
     all_valid = None
     any_invalid = None
+    err = None
     for c in cols:
+        if c.err is not None:  # up to the first TRUE disjunct
+            err = _first_err(err, c.err if known_true is None
+                             else _pick_err(known_true, None, c.err))
         d = be.astype(c.data, jnp.bool_)
         val = d if val is None else (val | d)
         v = c.valid
@@ -683,9 +1063,9 @@ def _eval_or(cols: list[SCol], t: Type) -> SCol:
             kt = d
         known_true = kt if known_true is None else (known_true | kt)
     if any_invalid is None:
-        return SCol(t, val, None)
+        return SCol(t, val, None, None, err)
     valid = known_true | ~any_invalid
-    return SCol(t, known_true | (val & valid), valid)
+    return SCol(t, known_true | (val & valid), valid, None, err)
 
 
 def _eval_coalesce(cols: list[SCol], t: Type) -> SCol:
@@ -700,18 +1080,22 @@ def _eval_coalesce(cols: list[SCol], t: Type) -> SCol:
         rdict = None
     data = cols[-1].data
     valid = cols[-1].valid_mask() if cols[-1].valid is not None else None
+    # a row evaluates its arguments up to the first that is not NULL
+    err = cols[-1].err
     for c in reversed(cols[:-1]):
         if c.valid is None:
             # non-nullable argument: everything to its left still wins, but the
             # result is definitely non-null from here down
             data, valid = c.data, None
+            err = c.err
         else:
             m = c.valid
             data = jnp.where(m, c.data, data)
             if valid is not None:
                 valid = m | valid
             # valid None means "all rows valid already": m | all-true stays all-true
-    return SCol(t, data, valid, rdict)
+            err = _first_err(c.err, _pick_err(m, None, err))
+    return SCol(t, data, valid, rdict, err)
 
 
 def _eval_in(args: list[SCol], t: Type) -> SCol:
@@ -856,7 +1240,7 @@ def _eval_concat(args: list[SCol], t: Type) -> SCol:
 def _eval_math1(op: str, a: SCol, t: Type) -> SCol:
     d = a.data
     if op == "abs":
-        return SCol(t, jnp.abs(d), a.valid)
+        return SCol(t, jnp.abs(d), a.valid, None, _int_min_err(a, t))
     if op == "floor":
         if t.kind == K.DECIMAL and not dec_is_float(t):
             f = 10**t.s
@@ -986,6 +1370,9 @@ def eval_arith(op: str, a: SCol, b: SCol, t: Type) -> SCol:
         return SCol(t, be.astype((be.astype(a.data, jnp.int64) - be.astype(b.data, jnp.int64)), jnp.int32), valid)
     if t.kind == K.DECIMAL:
         return _decimal_arith(op, a, b, t, valid)
+    if t.kind in (K.INT, K.BIGINT) and op in ("add", "sub", "mul") and not (
+            is_obj(a.data) or is_obj(b.data)):
+        return _int_arith(op, a.data, b.data, t, valid)
     x = be.astype(a.data, np_dtype(t)) if be.dt(a.data) != np_dtype(t) else a.data
     y = be.astype(b.data, np_dtype(t)) if be.dt(b.data) != np_dtype(t) else b.data
     if op == "add":
@@ -998,8 +1385,13 @@ def eval_arith(op: str, a: SCol, b: SCol, t: Type) -> SCol:
         if t.is_integer:
             zero = y == 0
             q = _div_trunc_arr(x, jnp.where(zero, 1, y))
+            err = None
+            if t.kind in (K.INT, K.BIGINT):
+                # the one quotient beyond the range: MIN / -1
+                err = _err_where((x == _int_range(t)[0]) & (y == -1), valid,
+                                 _range_code(t))
             valid = _mask_and(valid, ~zero)
-            return SCol(t, q, valid)
+            return SCol(t, q, valid, None, err)
         zero = y == 0
         out = x / jnp.where(zero, 1, y)
         valid = _mask_and(valid, ~zero)
@@ -1013,9 +1405,52 @@ def eval_arith(op: str, a: SCol, b: SCol, t: Type) -> SCol:
     raise EvalError(op)
 
 
+def _int_range(t: Type) -> tuple[int, int]:
+    bits = 32 if t.kind == K.INT else 64
+    return -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+
+
+def _range_code(t: Type) -> int:
+    return ERR_INT if t.kind == K.INT else ERR_BIGINT
+
+
+def _int_min_err(a: SCol, t: Type):
+    """The codes of -x and abs(x) of an INT or BIGINT: the type's least
+    value has no opposite (None for other types)."""
+    if t.kind not in (K.INT, K.BIGINT) or is_obj(a.data):
+        return None
+    return _err_where(a.data == _int_range(t)[0], a.valid, _range_code(t))
+
+
+def _int_arith(op: str, x, y, t: Type, valid) -> SCol:
+    """INT / BIGINT +, -, * with PostgreSQL's overflow errors: an INT in
+    int64, checked against the range; a BIGINT by sign tests (+, -) and,
+    for *, by dividing the wrapped product back: it is exact iff
+    product // x == y (x not 0 or -1; x == -1 overflows only at y == MIN)."""
+    if t.kind == K.INT:
+        x64, y64 = be.astype(x, np.int64), be.astype(y, np.int64)
+        return _narrowed(t, x64 + y64 if op == "add" else (
+            x64 - y64 if op == "sub" else x64 * y64), valid)
+    x, y = be.astype(x, np.int64), be.astype(y, np.int64)
+    with np.errstate(over="ignore"):
+        if op == "add":
+            r = x + y
+            bad = ((x ^ r) & (y ^ r)) < 0
+        elif op == "sub":
+            r = x - y
+            bad = ((x ^ y) & (x ^ r)) < 0
+        else:
+            r = x * y
+            unit = (x == 0) | (x == -1)
+            q = jnp.floor_divide(r, jnp.where(unit, 1, x))
+            bad = jnp.where(unit, (x == -1) & (y == INT64_MIN), q != y)
+    return SCol(t, r, valid, None, _err_where(bad, valid, ERR_BIGINT))
+
+
 def _div_trunc_arr(x, y):
-    q = jnp.floor_divide(jnp.abs(x), jnp.abs(y))
-    return be.astype((q * jnp.sign(x) * jnp.sign(y)), be.dt(x))
+    with np.errstate(over="ignore"):  # MIN / -1 wraps (an error, above)
+        q = jnp.floor_divide(jnp.abs(x), jnp.abs(y))
+        return be.astype((q * jnp.sign(x) * jnp.sign(y)), be.dt(x))
 
 
 def _mask_and(valid, extra):

@@ -214,6 +214,44 @@ def _wrap(op: L.LogicalOp, preds: list[BExpr]) -> L.LogicalOp:
     return L.Select(op, E.make_and(preds))
 
 
+# ------------------------------------------------------- constant folding
+def fold_constants(plan: L.LogicalOp) -> None:
+    """Replace, in place, every column-free Call, Cast and CASE of the
+    plan's expressions by its value, computed once on the host by the scalar
+    operators (ops/consteval.py::fold); an error a constant raises ("integer
+    out of range") is raised here, whatever the rows, as PostgreSQL raises
+    it when it folds the constant. The executor folds the plan it is given
+    (Executor.execute), so EXPLAIN and the plan's JSON show the optimized
+    plan as written; in place, so the operators keep their identity
+    (EXPLAIN ANALYZE's row counts)."""
+    from ..ops.consteval import fold
+
+    todo, seen = [plan], set()
+    while todo:
+        node = todo.pop()
+        todo.extend(node.children())
+        if isinstance(node, L.Tmp) and node.holder.plan is not None and id(
+                node.holder) not in seen:
+            seen.add(id(node.holder))
+            todo.append(node.holder.plan)
+        elif isinstance(node, L.Scan):
+            node.restrictions = [fold(r) for r in node.restrictions]
+        elif isinstance(node, L.Select):
+            node.predicate = fold(node.predicate)
+        elif isinstance(node, L.Map):
+            node.computed = [(c, fold(e)) for c, e in node.computed]
+        elif isinstance(node, L.Join):
+            if node.predicate is not None:
+                node.predicate = fold(node.predicate)
+            if node.null_aware is not None:
+                na = node.null_aware
+                node.null_aware = (fold(na[0]),) + tuple(na[1:])
+        elif isinstance(node, L.Window):
+            for f in node.funcs:
+                if f.default is not None:
+                    f.default = fold(f.default)
+
+
 # -------------------------------------------------- scan restriction folding
 def fold_scan_restrictions(plan: L.LogicalOp) -> L.LogicalOp:
     """Move simple single-column predicates directly above scans into the scan

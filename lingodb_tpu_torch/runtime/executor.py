@@ -135,9 +135,17 @@ class Executor:
 
     # ------------------------------------------------------------- dispatch
     def execute(self, plan: L.Materialize) -> ResultTable:
+        with sc.error_scope():  # the sources of the data errors' messages
+            return self._execute(plan)
+
+    def _execute(self, plan: L.Materialize) -> ResultTable:
         from . import device as dv
+        from ..opt.optimizer import fold_constants
         from ..utils.settings import EXECUTION_MODE
 
+        # each constant expression computed once, on the host, before any
+        # operator runs (its data error raised here)
+        fold_constants(plan)
         self._tmp_results.clear()
         self._materialized_bases.clear()
         # execution modes (reference: ExecutionMode + CPULLVMDebugBackend /
@@ -406,6 +414,11 @@ class Executor:
                 raise ExecError(
                     f"DEBUG {type(op).__name__}: column {cid} validity "
                     f"length mismatch")
+            if c.err is not None:
+                # the consumer of an expression raises its errors and drops
+                # them (ops/scalar.py, "data errors")
+                raise ExecError(f"DEBUG {type(op).__name__}: column {cid} "
+                                f"carries unraised data errors")
             d = c.dictionary
             if d is not None and len(d) > 1:
                 if not all(d[i] <= d[i + 1] for i in range(len(d) - 1)):
@@ -483,16 +496,21 @@ class Executor:
             env[cid] = SCol(t, data, valid, d)
         ref = arrs[0]
         mask = be.iota(m, jnp.int64, ref) < nvalid
-        for r in scan.restrictions:
-            mask = mask & sc.truth_mask(sc.eval_expr(r, env))
-        for st in steps:
-            node = st[1]
-            if isinstance(node, L.Select):
-                mask = mask & sc.truth_mask(
-                    sc.eval_expr(node.predicate, env))
-            else:
-                for info, e in node.computed:
-                    env[info.cid] = sc.eval_expr(e, env)
+        # the chunk's data errors ride its lanes (lane "err")
+        with sc.deferred_errors() as errs:
+            for r in scan.restrictions:
+                mask = mask & sc.truth_mask(sc.checked(
+                    sc.eval_expr(r, env), mask, m))
+            for st in steps:
+                node = st[1]
+                if isinstance(node, L.Select):
+                    mask = mask & sc.truth_mask(sc.checked(
+                        sc.eval_expr(node.predicate, env), mask, m))
+                else:
+                    for info, e in node.computed:
+                        env[info.cid] = sc.eval_expr(e, env)
+                    sc.checked_all(
+                        env, [info.cid for info, _e in node.computed], mask, m)
         if op.group_by:
             key_cols = [sc._bcast(env[c], m) for c in op.group_by]
             gid, _dom2 = gb.dense_gid(key_cols)
@@ -566,7 +584,8 @@ class Executor:
             meta["agg_dicts"][spec.out.cid] = arg.dictionary
             outs.append(red)
             outs.append(cnt)
-        return {i: o for i, o in enumerate(outs)}, meta
+        meta["err_sources"] = errs.sources
+        return _with_err_out({i: o for i, o in enumerate(outs)}, errs), meta
 
     def _try_chunked_agg(self, op, steps, scan) -> Optional[VTable]:
         """Out-of-core streaming scan+aggregate: when the scan columns
@@ -727,7 +746,11 @@ class Executor:
                     # read before the next replay: a graph's outputs hold
                     # until then
                     got = dv.fetch_arrays_np(res)
-                    host = _norm([got[i] for i in range(len(res))],
+                    # the statement raises at the first chunk whose live
+                    # rows raise
+                    sc.raise_data_error(got.pop("err", [0])[0],
+                                        meta["err_sources"])
+                    host = _norm([got[i] for i in range(len(got))],
                                  meta["host_lanes"])
                     del arrs, res
                     if acc is None:
@@ -875,14 +898,21 @@ class Executor:
         # share the NULL hash)
         side_p = {"h": [], "ko": [], "arrs": [], "valid": []}
         side_b = {"h": [], "arrs": [], "valid": []}
+        codes = []  # the keys' data errors, by position
         try:
             for i, (lv, rv) in enumerate(zip(lviews, rviews)):
                 pref = _view_ref(lv, mesh, i)
                 bref = _view_ref(rv, mesh, i)
                 lk, rk = [], []
                 for le, re_ in zip(lkeys, rkeys):
-                    a, b = _unify_string_keys(sc.eval_expr(le, lv.cols),
-                                              sc.eval_expr(re_, rv.cols))
+                    a = sc._bcast(sc.eval_expr(le, lv.cols), lp_len)
+                    b = sc._bcast(sc.eval_expr(re_, rv.cols), lb_len)
+                    for c, v, ln, ref in ((a, lv, lp_len, pref),
+                                          (b, rv, lb_len, bref)):
+                        if c.err is not None:
+                            codes.append(_shard_of(
+                                sc.first_error(c.err, v.row_valid, ln), ref, 1))
+                    a, b = _unify_string_keys(a, b)
                     lk.append(sc._bcast(a, lp_len))
                     rk.append(sc._bcast(b, lb_len))
                 hp = _shard_of(hashing.hash_columns(lk), pref, lp_len)
@@ -911,6 +941,7 @@ class Executor:
                 side_b["valid"].append(rv.row_valid)
         except _WideShip:
             return None
+        _raise_mesh_errors(mesh, codes)
         n_ax = mesh.size
         lt, rt = lviews[0], rviews[0]  # column templates of each side
 
@@ -991,7 +1022,9 @@ class Executor:
         # the full predicate over the (padded) pairs is elementwise
         if op.predicate is not None and total > 0:
             env = {**build_pair.cols, **probe_pair.cols}
-            m = sc.truth_mask(sc.eval_expr(op.predicate, env))
+            # raised on the pairs (a join filter)
+            m = sc.truth_mask(sc.checked(sc.eval_expr(op.predicate, env),
+                                         pair_valid, glen))
             pair_ok = pair_valid & be.like(jnp.broadcast_to(m, (glen,)),
                                            pair_valid)
         else:
@@ -1244,8 +1277,9 @@ class Executor:
         # (excluded rows' predicate garbage is masked by the conjunction)
         mask = None
         for r in op.restrictions:
-            m = jnp.broadcast_to(
-                sc.truth_mask(sc.eval_expr(r, vt.cols)), (n,))
+            # a row raises only in the restrictions it reaches
+            m = jnp.broadcast_to(sc.truth_mask(sc.checked(
+                sc.eval_expr(r, vt.cols), mask, n)), (n,))
             mask = m if mask is None else mask & m
         if mask is not None:
             # on a mesh, compaction is deferred to a selection vector: the
@@ -1277,16 +1311,19 @@ class Executor:
 
         mesh = _mesh_of(vt)
         L = _local_len(vt)
-        masks = []
+        masks, codes = [], []
         for i, v in enumerate(_views(vt)):
             ref = _view_ref(v, mesh, i)
-            m = None
+            m = v.row_valid
             for r in preds:
-                t = _shard_of(sc.truth_mask(sc.eval_expr(r, v.cols)), ref, L)
+                c = sc._bcast(sc.eval_expr(r, v.cols), L)
+                if c.err is not None:
+                    codes.append(_shard_of(
+                        sc.first_error(c.err, m, L), ref, 1))
+                t = _shard_of(sc.truth_mask(c), ref, L)
                 m = t if m is None else m & t
-            if v.row_valid is not None:
-                m = m & v.row_valid
             masks.append(m)
+        _raise_mesh_errors(mesh, codes)
         return VTable(vt.cols, vt.num_rows, row_valid=Sharded(mesh, masks, L))
 
     def _run_constrel(self, op: L.ConstRel) -> VTable:
@@ -1311,7 +1348,8 @@ class Executor:
                 self._gather_input(out)
         if vt.num_rows == 0:
             return vt
-        mask = sc.truth_mask(sc.eval_expr(op.predicate, vt.cols))
+        mask = sc.truth_mask(sc.checked(sc.eval_expr(op.predicate, vt.cols),
+                                        vt.row_valid, vt.num_rows))
         mask = jnp.broadcast_to(mask, (vt.num_rows,))
         if vt.row_valid is not None:
             # dead rows' predicate garbage is masked by the conjunction
@@ -1331,6 +1369,8 @@ class Executor:
         for info, expr in op.computed:
             c = sc._bcast(sc.eval_expr(expr, cols), vt.num_rows)
             cols[info.cid] = c
+        sc.checked_all(cols, [info.cid for info, _e in op.computed],
+                       vt.row_valid, vt.num_rows)
         return VTable(cols, vt.num_rows, row_valid=vt.row_valid)
 
     def _map_on_mesh(self, op: L.Map, vt: VTable) -> Optional[VTable]:
@@ -1342,7 +1382,7 @@ class Executor:
 
         mesh = _mesh_of(vt)
         L = _local_len(vt)
-        outs = []
+        outs, codes = [], []
         for i, v in enumerate(_views(vt)):
             ref = _view_ref(v, mesh, i)
             cols = dict(v.cols)
@@ -1351,11 +1391,15 @@ class Executor:
                 c = sc._bcast(sc.eval_expr(expr, cols), L)
                 if is_obj(c.data):
                     return None
+                if c.err is not None:
+                    codes.append(_shard_of(
+                        sc.first_error(c.err, v.row_valid, L), ref, 1))
                 c = SCol(c.type, _shard_of(c.data, ref, L),
                          None if c.valid is None
                          else _shard_of(c.valid, ref, L), c.dictionary)
                 cols[info.cid] = made[info.cid] = c
             outs.append(made)
+        _raise_mesh_errors(mesh, codes)
         cols = dict(vt.cols)
         for info, _expr in op.computed:
             cs = [o[info.cid] for o in outs]
@@ -1447,6 +1491,8 @@ class Executor:
                 for info, expr in m.computed:
                     cols[info.cid] = sc._bcast(
                         sc.eval_expr(expr, cols), vt.num_rows)
+                sc.checked_all(cols, [info.cid for info, _e in m.computed],
+                               None, vt.num_rows)
                 vt = VTable(cols, vt.num_rows)
         return _topk_rows(op, dv.demote_small(vt))
 
@@ -1701,12 +1747,16 @@ class Executor:
 
         bvt = self.run(build_plan).dense()
         bk = sc._bcast(sc.eval_expr(build_expr, bvt.cols), bvt.num_rows)
+        bk2 = (None if build_expr2 is None else sc._bcast(
+            sc.eval_expr(build_expr2, bvt.cols), bvt.num_rows))
+        # the build keys are consumed here, on every build row
+        sc.raise_data_errors([bk.err, None if bk2 is None else bk2.err],
+                             None, bvt.num_rows)
         if is_obj(bk.data):
             return None
         kdata = to_np(bk.data).astype(np.int64)
         kvalid = None if bk.valid is None else to_np(bk.valid)
         if build_expr2 is not None:
-            bk2 = sc._bcast(sc.eval_expr(build_expr2, bvt.cols), bvt.num_rows)
             kd1, kv1 = kdata, kvalid
             kdata = (kd1 << 32) | (to_np(bk2.data).astype(np.int64) & 0xFFFFFFFF)
             if bk2.valid is not None:
@@ -2081,12 +2131,13 @@ class Executor:
                 cols = (_rebind_cols(base_cols, static) if static
                         else base_cols)
             m = {"base_rows": n}
-            with be.no_host_reads():
+            with be.no_host_reads(), sc.deferred_errors() as errs:
                 r = self._fused_program(
                     op, steps, preps, cols, base_restrictions, n, dev_p,
                     m, spine=spine, kbounds=kbounds, presorted=presorted_group,
                     kg=kg_learned, epi=epi, pad_mask=pad)
-            return r, m
+            m["err_sources"] = errs.sources
+            return _with_err_out(r, errs), m
 
         from . import exestore
 
@@ -2316,6 +2367,9 @@ class Executor:
                       for j in range(len(runs[0][0][k]))]
         oob = [r["oob"] for r, _m in runs]
         res["oob"] = None if oob[0] is None else msh.preduce(mesh, oob, "sum")
+        errs = [r["err"] for r, _m in runs if "err" in r]
+        if errs:
+            res["err"] = msh.preduce(mesh, errs, "max")
         return res, meta
 
     def _preps_on(self, basekey, join_preps, dev):
@@ -2560,12 +2614,16 @@ class Executor:
             fetch[f"sc{j}"] = c.reshape(1)
         for j, c in enumerate(res["extras"]):
             fetch[f"x{j}"] = c.reshape(1)
+        if "err" in res:
+            fetch["err"] = res["err"]
         host = {k: int(v[0]) for k, v in dv.fetch_arrays_np(fetch).items()}
         # a compaction that overflowed truncated what the run counted: learn
         # nothing from it (the reference learns from the truncated run and
-        # then overflows on every learned value in turn)
+        # then overflows on every learned value in turn); nor from a run
+        # whose data raised
         self._check_fused_extras(meta, [host[f"x{j}"]
                                         for j in range(len(res["extras"]))])
+        sc.raise_data_error(host.get("err", 0), meta.get("err_sources"))
         g = host["g"]
         tight = 1 << (max(4 * g, dv.SMALL_ROWS) - 1).bit_length()
         self._learn(basekey, meta["base_rows"], "kg",
@@ -2722,11 +2780,14 @@ class Executor:
             fetch[("s", j)] = c.reshape(1)
         if res["oob"] is not None:
             fetch[("o", 0)] = res["oob"].reshape(1)
+        if "err" in res:
+            fetch["err"] = res["err"]
         host = dv.fetch_arrays_np(fetch)
         self._check_fused_extras(meta, [
             int(host[("x", j)][0]) for j in range(len(res["extras"]))])
         if res["oob"] is not None and int(host[("o", 0)][0]) > 0:
             raise F.KBoundsOverflow(int(host[("o", 0)][0]))
+        sc.raise_data_error(host.get("err", [0])[0], meta.get("err_sources"))
         if meta["join_sis"]:
             meta["last_stepcounts"] = {
                 si: int(host[("s", j)][0])
@@ -2829,6 +2890,7 @@ class Executor:
         g = scalars["g"]
         if g > meta["kg"]:
             raise F.CapacityOverflow(g)
+        sc.raise_data_error(scalars["err"], meta.get("err_sources"))
         if g == 0:
             return VTable({c.cid: _empty_scol(c.type, lanes[0] if lanes else None)
                            for c in op.output_cols()}, 0)
@@ -2895,6 +2957,8 @@ class Executor:
             fetch[("x", j)] = c.reshape(1)
         for j, c in enumerate(res["step_counts"]):
             fetch[("s", j)] = c.reshape(1)
+        if "err" in res:
+            fetch["err"] = res["err"]
         host = dv.fetch_arrays_np(fetch)
         self._check_fused_extras(meta, [
             int(host[("x", j)][0]) for j in range(len(res["extras"]))])
@@ -2902,7 +2966,9 @@ class Executor:
             meta["last_stepcounts"] = {
                 si: int(host[("s", j)][0])
                 for j, si in enumerate(meta["join_sis"])}
-        return {k: int(host[k][0]) for k in scalars}
+        out = {k: int(host[k][0]) for k in scalars}
+        out["err"] = int(host["err"][0]) if "err" in res else 0
+        return out
 
     def _finish_fused_epi(self, op, res, meta) -> VTable:
         """The TopK epilogue's finish: ONE fetch of the scalars (compaction
@@ -2929,6 +2995,8 @@ class Executor:
             raise F.EpiOverflow("wide-sum limb overflow")
         if g > kk and scalars["tie"] > kk:
             raise F.EpiOverflow(f"tie overflow at cutoff ({scalars['tie']} > {kk})")
+        # after the overflows: a rerun sees every group
+        sc.raise_data_error(scalars["err"], meta.get("err_sources"))
         return _candidate_vtable(e["templates"], res["lanes"], min(g, kk),
                                  bool(meta.get("from_graph")))
 
@@ -3059,11 +3127,12 @@ class Executor:
 
         def program(_static):
             m = dict(meta, base_rows=n)
-            with be.no_host_reads():
+            with be.no_host_reads(), sc.deferred_errors() as errs:
                 r = self._fused_chain_program(
                     steps, join_preps, base_cols, cur.restrictions, n, dev, m,
                     spine=spine, out_cids=out_cids, epi=epi)
-            return r, m
+            m["err_sources"] = errs.sources
+            return _with_err_out(r, errs), m
 
         from . import exestore
 
@@ -3132,6 +3201,8 @@ class Executor:
             for m in epi["maps"]:
                 for info, e in m.computed:
                     env[info.cid] = sc._bcast(sc.eval_expr(e, env), cur_n)
+                sc.checked_all(env, [info.cid for info, _e in m.computed],
+                               mask, cur_n)
             k0 = epi["node"].keys[0]
             prio = keymod.topk_priority(env[k0.cid], k0.ascending,
                                         k0.nulls_first, mask)
@@ -3181,6 +3252,8 @@ class Executor:
             named["tie"] = res["tie"]
         scalars = self._fetch_fused_scalars(res, meta, named)
         survivors = scalars["survivors"]
+        # before anything is learned
+        sc.raise_data_error(scalars["err"], meta.get("err_sources"))
         if meta["calibrating"]:
             from ..utils import compilestats
 
@@ -3349,13 +3422,18 @@ class Executor:
             pidx, bidx, total = _all_pairs(nl, nr, _first_tensor(lvt, rvt))
         else:
             def _eval_keys():
-                lk, rk = [], []
+                lk, rk, codes = [], [], []
                 for le, re_ in zip(lkeys, rkeys):
-                    a = sc.eval_expr(le, lvt.cols)
-                    b = sc.eval_expr(re_, rvt.cols)
-                    a, b = _unify_string_keys(a, b)
-                    lk.append(sc._bcast(a, nl))
-                    rk.append(sc._bcast(b, nr))
+                    a = sc._bcast(sc.eval_expr(le, lvt.cols), nl)
+                    b = sc._bcast(sc.eval_expr(re_, rvt.cols), nr)
+                    codes += [sc.first_error(c.err, None, len(c))
+                              for c in (a, b) if c.err is not None]
+                    a, b = _unify_string_keys(sc.without_err(a),
+                                              sc.without_err(b))
+                    lk.append(a)
+                    rk.append(b)
+                # every key of both sides: one reduction each, one read
+                sc.raise_data_errors(codes, None, 1)
                 return lk, rk
 
             if (kind in ("inner", "semi", "anti", "left", "mark", "single",
@@ -3566,8 +3644,8 @@ class Executor:
             pidx, bidx, total = _all_pairs(hi - lo, nr, ref)
             if kind == "full":
                 env = _pair_env(lch, rvt, pidx, bidx, op.predicate)
-                mask = jnp.broadcast_to(
-                    sc.truth_mask(sc.eval_expr(op.predicate, env)), (total,))
+                mask = jnp.broadcast_to(sc.truth_mask(sc.checked(
+                    sc.eval_expr(op.predicate, env), None, total)), (total,))
                 matched_r = matched_r | joinops.matched_flags(bidx, mask, nr)
             parts.append(self._finish_pairs_join(
                 op, chunk_kind, lch, rvt, pidx, bidx, total))
@@ -3593,7 +3671,9 @@ class Executor:
         ref = _first_tensor(lvt, rvt)
         if total > 0 and op.predicate is not None:
             env = _pair_env(lvt, rvt, pidx, bidx, op.predicate)
-            mask = sc.truth_mask(sc.eval_expr(op.predicate, env))
+            # raised on the candidate pairs only (a join filter)
+            mask = sc.truth_mask(sc.checked(
+                sc.eval_expr(op.predicate, env), None, total))
             mask = jnp.broadcast_to(mask, (total,))
         else:
             mask = be.full(total, True, jnp.bool_, ref)
@@ -3681,7 +3761,8 @@ class Executor:
         if not rvt.num_rows:
             return keep_mask
         outer_e, inner_ref = null_aware
-        outer_c = sc.eval_expr(outer_e, lvt.cols)
+        outer_c = sc.checked(sc.eval_expr(outer_e, lvt.cols), None,
+                             lvt.num_rows)
         if outer_c.valid is not None:
             keep_mask = keep_mask & outer_c.valid
         inner_c = rvt.cols.get(inner_ref.cid)
@@ -3748,6 +3829,21 @@ def _topk_rows(op: L.TopK, vt: VTable) -> VTable:
     lo = min(op.offset, vt.num_rows)
     hi = min(op.offset + op.n, vt.num_rows)
     return vt.take(perm[lo:hi], hi - lo)
+
+
+# the methods that raise a fused program's data error, after its packed
+# fetch (and before anything is learned from the run)
+FETCH_FINISHES = ("_finish_fused_dense", "_finish_fused_general",
+                  "_finish_fused_epi", "_finish_fused_chain",
+                  "_learn_calibration")
+
+
+def _with_err_out(out: dict, errs) -> dict:
+    """A fused program's outputs with its data errors' code (sc.
+    deferred_errors) as the scalar "err", where a consumer could fail."""
+    if errs.code is not None:
+        out["err"] = errs.code
+    return out
 
 
 def _rebind_cols(base_cols, tensors):
@@ -4007,6 +4103,16 @@ def _views(vt: VTable) -> list:
                           c.dictionary) for cid, c in vt.cols.items()}
         out.append(VTable(cols, L, row_valid=piece(vt.row_valid, i, s)))
     return out
+
+
+def _raise_mesh_errors(mesh, codes: list) -> None:
+    """Raise the data error of the per-position codes (sc.first_error's,
+    beside their positions): reduced over the mesh with one read, the same
+    on every process."""
+    if codes:
+        from ..parallel import mesh as msh
+
+        sc.raise_data_error(be.to_host(msh.preduce(mesh, codes, "max"))[0])
 
 
 def _shard_of(x, ref: torch.Tensor, n: int) -> torch.Tensor:

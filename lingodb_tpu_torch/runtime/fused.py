@@ -162,6 +162,7 @@ def sorted_semi_compact(prep, env, mask, n: int, capv: int, used_cols, dev):
     c = sc._bcast(sc.eval_expr(prep["probe_expr"], env), n)
     if c.valid is not None:
         return None
+    c = sc.checked(c, mask, n)
     pimg = on_device(c.data, n, dev).to(torch.int64).contiguous()
     skeys = prep["arrays"][0]
     lo = torch.searchsorted(pimg, skeys, side="left")
@@ -207,11 +208,13 @@ def join_step(prep, env, mask, n: int, dev):
             env[cid] = SCol(t.as_nullable() if valid is not None else t,
                             data, valid, d)
         return mask
-    c = sc._bcast(sc.eval_expr(prep["probe_expr"], env), n)
+    c = sc.checked(sc._bcast(sc.eval_expr(prep["probe_expr"], env), n),
+                   mask, n)
     pimg = on_device(c.data, n, dev).to(torch.int64)
     pvalid = None if c.valid is None else on_device(c.valid, n, dev)
     if prep.get("probe_expr2") is not None:
-        c2 = sc._bcast(sc.eval_expr(prep["probe_expr2"], env), n)
+        c2 = sc.checked(
+            sc._bcast(sc.eval_expr(prep["probe_expr2"], env), n), mask, n)
         pimg = (pimg << 32) | (on_device(c2.data, n, dev).to(torch.int64) & LOW32)
         if c2.valid is not None:
             v2 = on_device(c2.valid, n, dev)
@@ -263,7 +266,9 @@ def join_step(prep, env, mask, n: int, dev):
                 env[cid] = SCol(t.as_nullable(), pdata[idxc], v, d)
             ok = cand
             for r in prep["residual"]:
-                ok = ok & sc.truth_mask(sc.eval_expr(r, env))
+                # raised on the candidates that reach it (a join filter)
+                ok = ok & sc.truth_mask(sc.checked(
+                    sc.eval_expr(r, env), _and_mask(ok, mask), n))
             found = found | ok
         if pvalid is not None:
             found = found & pvalid
@@ -316,7 +321,8 @@ def join_step(prep, env, mask, n: int, dev):
                 gi += 1
         env[cid] = SCol(t.as_nullable(), data, valid, d)
     for r in prep["residual"]:
-        found = found & sc.truth_mask(sc.eval_expr(r, env))
+        found = found & sc.truth_mask(sc.checked(
+            sc.eval_expr(r, env), _and_mask(found, mask), n))
     if prep["residual"]:
         for cid, _t, _hv, d in prep["payloads"]:
             old = env[cid]
@@ -343,7 +349,8 @@ def run_spine(steps, join_preps, base_cols, base_restrictions, n: int, dev,
            for cid, t in base_cols}
     mask = pad_mask
     for r in base_restrictions:
-        m = sc.truth_mask(sc.eval_expr(r, env))
+        # a row raises only in the restrictions it reaches
+        m = sc.truth_mask(sc.checked(sc.eval_expr(r, env), mask, n))
         mask = m if mask is None else mask & m
     cur_n = n
     extras = []       # (descriptor, survivor count) per compaction
@@ -356,11 +363,14 @@ def run_spine(steps, join_preps, base_cols, base_restrictions, n: int, dev,
             cur_n = compact_k
             extras.append((("lead", compact_k), sel_count))
         if step[0] == "sm" and isinstance(step[1], L.Select):
-            m = sc.truth_mask(sc.eval_expr(step[1].predicate, env))
+            m = sc.truth_mask(sc.checked(
+                sc.eval_expr(step[1].predicate, env), mask, cur_n))
             mask = m if mask is None else mask & m
         elif step[0] == "sm":
             for info, e in step[1].computed:
                 env[info.cid] = sc.eval_expr(e, env)
+            sc.checked_all(env, [info.cid for info, _e in step[1].computed],
+                           mask, cur_n)
         else:
             prep = join_preps[si]
             rsc = None
@@ -395,6 +405,10 @@ def run_spine(steps, join_preps, base_cols, base_restrictions, n: int, dev,
     meta["join_sis"] = tuple(join_sis)
     out = {"extras": [c for _d, c in extras], "step_counts": step_counts}
     return env, mask, cur_n, out
+
+
+def _and_mask(m, mask):
+    return m if mask is None else m & mask
 
 
 def dev_lane(x, n: int, dev):
@@ -472,6 +486,8 @@ def apply_topk_epi(op, epi, grp, meta, dev):
     for m in epi["maps"]:
         for info, e in m.computed:
             env[info.cid] = sc._bcast(sc.eval_expr(e, env), kg)
+        sc.checked_all(env, [info.cid for info, _e in m.computed], rows_ok,
+                       kg)
     k0 = epi["node"].keys[0]
     prio = keymod.topk_priority(env[k0.cid], k0.ascending, k0.nulls_first,
                                 rows_ok)

@@ -99,12 +99,16 @@ def _host_idx(idx) -> np.ndarray:
 @dataclass
 class SCol:
     """One column: data tensor (or host array) + optional validity + host
-    dictionary."""
+    dictionary. An expression's value also carries `err`, the error each
+    row raises (ops/scalar.py, "data errors"): None where nothing can fail;
+    the operator that consumes the value raises it on its live rows and
+    drops it, so no table's column holds one."""
 
     type: Type
     data: object
     valid: Optional[object] = None  # bool tensor/array, True = present
     dictionary: Optional[np.ndarray] = None  # host np object array (strings)
+    err: Optional[object] = None  # int32 tensor/array of error codes, 0 = none
 
     def __len__(self):
         return int(self.data.shape[0])

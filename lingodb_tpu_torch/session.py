@@ -323,26 +323,20 @@ class Session:
         plan = binder.bind_query(stmt.query)
         plan = optimize(plan, self.catalog)
         res = self.executor.execute(plan)
-        # column-order mapping + type coercion to the table schema
-        rows = res.to_pylist()
-        from .ops.consteval import coerce_py
+        # column-order mapping + type coercion to the table schema: each
+        # column cast as CAST casts it (PostgreSQL's assignment casts round
+        # and raise as CAST does)
+        from .ops.consteval import coerce_values
 
-        out_rows = []
         cmap = {c: i for i, c in enumerate(target_cols)}
-        for r in rows:
-            full = []
-            for name, t in zip(entry.column_names, entry.column_types):
-                if name in cmap:
-                    v = r[cmap[name]]
-                    src_t = res.types[cmap[name]]
-                    full.append(None if v is None else coerce_py(v, src_t, t))
-                else:
-                    full.append(None)
-            out_rows.append(full)
-        # values arrive in physical representation already for decimals/dates
         cols = []
-        for i, t in enumerate(entry.column_types):
-            vals = [r[i] for r in out_rows]
+        for name, t in zip(entry.column_names, entry.column_types):
+            if name in cmap:
+                i = cmap[name]
+                vals = coerce_values(res.columns[i], res.valids[i],
+                                     res.dictionaries[i], res.types[i], t)
+            else:
+                vals = [None] * res.num_rows
             cols.append(_column_from_physical(t, vals))
         entry.storage.append_columns(cols)
         self._device_cache.pop(entry.name, None)
@@ -610,7 +604,8 @@ class _LazyDeviceTable:
 
 
 def _column_from_physical(t, vals):
-    """Build a storage Column from already-physical values (post coerce_py)."""
+    """Build a storage Column from already-physical values (consteval.
+    coerce_values')."""
     n = len(vals)
     valid = np.array([v is not None for v in vals], dtype=np.bool_)
     all_valid = bool(valid.all())

@@ -291,3 +291,212 @@ SEMANTICS_STATEMENTS = {
         _w("nth_value(v, 0) OVER (ORDER BY id)"),
         Raises("argument of nth_value must be greater than zero")),
 }
+
+
+def errors_setup() -> list[str]:
+    """z(i, k): five rows whose strings are integers but one ('abc'), and
+    one NULL."""
+    return ["CREATE TABLE z(i INT, k VARCHAR(10))",
+            "INSERT INTO z VALUES (1, '12'), (2, 'abc'), (3, '-7'), "
+            "(4, NULL), (5, '30')"]
+
+
+def _z(expr: str, where: str = "") -> str:
+    return f"SELECT i, {expr} FROM z {where}ORDER BY i"
+
+
+# PostgreSQL rounds a double to an integer half to even (rint), spelled for
+# sqlite3, which has no rint
+_RINT_X = ("CAST(CASE WHEN x - floor(x) = 0.5 THEN (CASE WHEN "
+           "CAST(floor(x) AS INT) % 2 = 0 THEN floor(x) ELSE floor(x) + 1 "
+           "END) ELSE round(x) END AS INT)")
+
+# Errors the data raises, as PostgreSQL raises them, over semantics_setup()'s
+# w and errors_setup()'s z: INT and BIGINT arithmetic out of the type's range
+# (C21), a cast from a string that parses only the rows that are live (C22),
+# a cast of a decimal or a double to an integer that rounds (C23). The
+# second entry is as in SEMANTICS_STATEMENTS: sqlite3's spelling of
+# PostgreSQL's result, or Raises(PostgreSQL's words). A row that a filter,
+# an earlier conjunct, a join or a CASE branch not taken removes never
+# raises; a NULL row never does.
+ERROR_STATEMENTS = {
+    # C21: INT and BIGINT arithmetic
+    "int_mul_chain": (_w("v * 100000 * 100000"),
+                      Raises("integer out of range")),
+    "int_sum_of_products": (
+        "SELECT g, sum(v * 100000000) FROM w GROUP BY g ORDER BY g",
+        Raises("integer out of range")),
+    "int_mul_by_int_max": (_w("id * 2147483647"),
+                           Raises("integer out of range")),
+    "int_max_plus_column": (_w("2147483647 + v"),
+                            Raises("integer out of range")),
+    "int_min_minus_column": (_w("-2147483647 - v"),
+                             Raises("integer out of range")),
+    "int_max_plus_one": ("SELECT 2147483647 + 1",
+                         Raises("integer out of range")),
+    "int_negate_min": ("SELECT -CAST(-2147483648 AS INT)",
+                       Raises("integer out of range")),
+    "int_abs_min": ("SELECT abs(CAST(-2147483648 AS INT))",
+                    Raises("integer out of range")),
+    "int_min_div_minus_one": ("SELECT CAST(-2147483648 AS INT) / -1",
+                              Raises("integer out of range")),
+    "bigint_max_plus_column": (_w("9223372036854775807 + v"),
+                               Raises("bigint out of range")),
+    "bigint_min_minus_column": (_w("-9223372036854775807 - v"),
+                                Raises("bigint out of range")),
+    "bigint_mul_column": (_w("CAST(v AS BIGINT) * 4000000000000000000"),
+                          Raises("bigint out of range")),
+    "bigint_mul_past_range": (
+        "SELECT CAST(-3037000500 AS BIGINT) * 3037000500",
+        Raises("bigint out of range")),
+    "bigint_mul_within_range": (
+        "SELECT CAST(3037000499 AS BIGINT) * 3037000499", None),
+    "int_edges_within_range": (
+        "SELECT 2147483646 + 1, -2147483647 - 1, "
+        "CAST(-2147483648 AS INT) / 1", None),
+    "int_mul_within_range": (_w("v * 21474836"), None),
+    "int_overflow_after_false_conjunct": (
+        "SELECT id FROM w WHERE v < 22 AND v * 100000000 > 0 ORDER BY id",
+        None),
+    "int_overflow_in_case_not_taken": (
+        _w("CASE WHEN v < 22 THEN v * 100000000 ELSE 0 END"), None),
+    "int_sum_of_products_filtered": (
+        "SELECT g, sum(v * 100000000) FROM w WHERE v < 22 GROUP BY g "
+        "ORDER BY g", None),
+    "int_overflow_on_null_rows": (
+        _w("v * 100000000", "WHERE v IS NULL OR v < 22 "), None),
+    # C22: a cast from a string parses the rows that are live
+    "cast_live_rows_only": (_z("CAST(k AS INT)", "WHERE i <> 2 "), None),
+    "cast_after_string_filter": (_z("CAST(k AS INT)", "WHERE k <> 'abc' "),
+                                 None),
+    "cast_in_case_not_taken": (
+        _z("CASE WHEN k = 'abc' THEN 0 ELSE CAST(k AS INT) END"), None),
+    "cast_after_false_conjunct": (
+        "SELECT i FROM z WHERE i <> 2 AND CAST(k AS INT) > 0 ORDER BY i",
+        None),
+    "cast_after_join": (
+        "SELECT z.i, CAST(z.k AS INT) FROM z JOIN (SELECT id FROM w "
+        "WHERE id IN (1, 3, 5)) q ON z.i = q.id ORDER BY z.i", None),
+    "cast_in_join_filter": (
+        "SELECT z.i, w.v FROM z JOIN w ON z.i = w.id WHERE w.id <> 2 "
+        "AND CAST(z.k AS INT) + w.v > 0 ORDER BY z.i", None),
+    "int_overflow_in_join_filter": (
+        "SELECT z.i, w.v FROM z JOIN w ON z.i = w.id AND w.v * 100000000 > "
+        "z.i ORDER BY z.i", Raises("integer out of range")),
+    "int_overflow_in_join_filter_removed": (
+        "SELECT z.i, w.v FROM z JOIN w ON z.i = w.id AND w.v * 100000000 > "
+        "z.i WHERE z.i = 3 ORDER BY z.i", None),
+    "cast_in_coalesce": (
+        _z("COALESCE(CAST(NULLIF(k, 'abc') AS INT), -1)"), None),
+    "cast_null_rows": (_z("CAST(k AS INT)", "WHERE k IS NULL OR i > 2 "),
+                       None),
+    "cast_every_row": (_z("CAST(k AS INT)"),
+                       Raises('invalid input syntax for type integer: "abc"')),
+    "cast_every_row_bigint": (
+        _z("CAST(k AS BIGINT)"),
+        Raises('invalid input syntax for type bigint: "abc"')),
+    "cast_every_row_numeric": (
+        _z("CAST(k AS DECIMAL(10,2))"),
+        Raises('invalid input syntax for type numeric: "abc"')),
+    "cast_every_row_double": (
+        _z("CAST(k AS DOUBLE)"),
+        Raises('invalid input syntax for type double precision: "abc"')),
+    "cast_every_row_date": (
+        _z("CAST(k AS DATE)"),
+        Raises('invalid input syntax for type date: "12"')),
+    "cast_in_predicate": (
+        "SELECT i FROM z WHERE CAST(k AS INT) > 0 ORDER BY i",
+        Raises('invalid input syntax for type integer: "abc"')),
+    "cast_fraction": ("SELECT CAST('12.7' AS INT)",
+                      Raises('invalid input syntax for type integer: "12.7"')),
+    "cast_exponent": ("SELECT CAST('1e3' AS INT)",
+                      Raises('invalid input syntax for type integer: "1e3"')),
+    "cast_blanks": ("SELECT CAST(' 42 ' AS INT), CAST(' -7' AS BIGINT)",
+                    None),
+    "cast_empty": ("SELECT CAST('' AS INT)",
+                   Raises('invalid input syntax for type integer: ""')),
+    "cast_past_int": (
+        "SELECT CAST('2147483648' AS INT)",
+        Raises('value "2147483648" is out of range for type integer')),
+    "cast_int_edges": (
+        "SELECT CAST('-2147483648' AS INT), CAST('2147483648' AS BIGINT)",
+        None),
+    "cast_numeric_text": (
+        "SELECT CAST(' 12.5 ' AS DECIMAL(10,2)), CAST('1e3' AS DOUBLE), "
+        "CAST('-.5' AS DOUBLE)", None),
+    # C23: a decimal or a double to an integer rounds
+    "decimal_to_int": (_w("CAST(m AS INT)"),
+                       _w("CAST(round(m) AS INT)")),
+    "decimal_to_bigint": (_w("CAST(m AS BIGINT)"),
+                          _w("CAST(round(m) AS INT)")),
+    "decimal_halves_to_int": (
+        "SELECT CAST(2.5 AS INT), CAST(-2.5 AS INT), CAST(3.5 AS INT), "
+        "CAST(-0.5 AS INT)", "SELECT 3, -3, 4, -1"),
+    "double_halves_to_int": (
+        "SELECT CAST(CAST(2.5 AS DOUBLE) AS INT), "
+        "CAST(CAST(-2.5 AS DOUBLE) AS INT), CAST(CAST(3.5 AS DOUBLE) AS INT), "
+        "CAST(CAST(-0.5 AS DOUBLE) AS BIGINT)", "SELECT 2, -2, 4, 0"),
+    "double_to_int": (_w("CAST(x AS INT)"), _w(_RINT_X)),
+    "double_to_bigint": (_w("CAST(x AS BIGINT)"), _w(_RINT_X)),
+    "decimal_edge_to_int": (
+        "SELECT CAST(2147483646.5 AS INT), CAST(-2147483647.5 AS INT), "
+        "CAST(CAST(-2147483648.5 AS DOUBLE) AS INT)",
+        "SELECT 2147483647, -2147483648, -2147483648"),
+    "decimal_past_int": ("SELECT CAST(2147483647.5 AS INT)",
+                         Raises("integer out of range")),
+    "double_past_int": ("SELECT CAST(CAST(2147483647.5 AS DOUBLE) AS INT)",
+                        Raises("integer out of range")),
+    "double_past_bigint": (
+        "SELECT CAST(CAST(10000000000000000000.0 AS DOUBLE) AS BIGINT)",
+        Raises("bigint out of range")),
+    "bigint_past_int": ("SELECT CAST(CAST(3000000000 AS BIGINT) AS INT)",
+                        Raises("integer out of range")),
+    "bigint_column_past_int": (
+        _w("CAST(CAST(v AS BIGINT) * 100000000 AS INT)"),
+        Raises("integer out of range")),
+    "wide_decimal_past_bigint": (
+        "SELECT CAST(CAST(99999999999999999999 AS DECIMAL(20,0)) AS BIGINT)",
+        Raises("bigint out of range")),
+    "decimal_column_past_int": (
+        _w("CAST(m * 100000000 AS INT)"), Raises("integer out of range")),
+    # the same constants in VALUES: evaluated as in a select list
+    "values_decimal_to_int": (
+        "SELECT * FROM (VALUES (CAST(2.5 AS INT)), (CAST(-2.5 AS INT))) v(a)",
+        "SELECT 3 UNION ALL SELECT -3"),
+    "values_double_to_int": (
+        "SELECT * FROM (VALUES (CAST(CAST(2.5 AS DOUBLE) AS INT)), "
+        "(CAST(CAST(3.5 AS DOUBLE) AS INT))) v(a)",
+        "SELECT 2 UNION ALL SELECT 4"),
+    "values_int_overflow": ("SELECT * FROM (VALUES (2147483647 + 1)) v(a)",
+                            Raises("integer out of range")),
+    "values_string_to_int": (
+        "SELECT * FROM (VALUES (CAST('12.7' AS INT))) v(a)",
+        Raises('invalid input syntax for type integer: "12.7"')),
+}
+
+# INSERT's coercion to the table's types, as PostgreSQL's assignment casts
+# coerce (rounding and raising as CAST does): each statement inserts into a
+# fresh table {t}(a INT, b BIGINT), then `SELECT a, b FROM {t} ORDER BY a`
+# gives the rows of the second entry's sqlite3 statement, or the insert
+# raises Raises(PostgreSQL's words)
+INSERT_STATEMENTS = {
+    "insert_decimal_rounds": (
+        "INSERT INTO {t}(a, b) SELECT m, m FROM w WHERE m IS NOT NULL",
+        "SELECT CAST(round(m) AS INT) AS a, CAST(round(m) AS INT) FROM w "
+        "WHERE m IS NOT NULL ORDER BY a"),
+    "insert_double_rounds": (
+        "INSERT INTO {t}(a) SELECT x FROM w WHERE x IS NOT NULL",
+        f"SELECT {_RINT_X} AS a, NULL FROM w WHERE x IS NOT NULL ORDER BY a"),
+    "insert_strings": ("INSERT INTO {t}(a, b) VALUES (' 42 ', '-7')",
+                       "SELECT 42, -7"),
+    "insert_int_overflow": ("INSERT INTO {t}(a) VALUES (2147483647 + 1)",
+                            Raises("integer out of range")),
+    "insert_bigint_into_int": ("INSERT INTO {t}(a) VALUES (3000000000)",
+                               Raises("integer out of range")),
+    "insert_string_fraction": (
+        "INSERT INTO {t}(a) VALUES ('12.7')",
+        Raises('invalid input syntax for type integer: "12.7"')),
+    "insert_column_past_int": (
+        "INSERT INTO {t}(a) SELECT CAST(v AS BIGINT) * 100000000 FROM w",
+        Raises("integer out of range")),
+}

@@ -32,6 +32,7 @@ from lingodb_tpu.tools import tpchbig as ref_tpchbig
 from lingodb_tpu.utils import settings as ref_settings
 
 import lingodb_tpu_torch as ldb
+from lingodb_tpu_torch.ops import scalar as sc
 from lingodb_tpu_torch.runtime import executor as ex
 from lingodb_tpu_torch.runtime import exestore
 from lingodb_tpu_torch.tools import sqlite_oracle as so
@@ -268,6 +269,46 @@ def test_chunk_program_that_reads_the_host_streams_uncaptured(
         assert any(k[0] == "chunked_eager" for k in ps.stage_cache
                    if isinstance(k, tuple))
         assert (d["captures"], d["replays"]) == (0, 0)
+    _forget_plans(ps)
+
+
+# INT arithmetic beyond INT's range (quantities of 22 and more), and the
+# same where the restriction keeps it in range: PostgreSQL's error, or rows
+OVERFLOW_SQL = ("SELECT l_returnflag, sum(CAST(l_quantity AS INT) * 100000000)"
+                " FROM lineitem {}GROUP BY l_returnflag ORDER BY l_returnflag")
+
+
+def test_streamed_aggregate_raises_where_the_resident_run_raises(
+        sessions, budget, monkeypatch):
+    """A data error in the chunk program rides its lanes as one more lane
+    (no read inside it): the stream raises PostgreSQL's error at the first
+    chunk whose live rows raise, as the resident run (the fused aggregate)
+    raises it, and where the restriction drops those rows both give the
+    same rows."""
+    _rs, ps = sessions
+    chunks = []
+    orig = ex.Executor._chunk_program
+
+    def spy(self, *a, **k):
+        chunks.append(1)
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(ex.Executor, "_chunk_program", spy)
+    raising, kept = (OVERFLOW_SQL.format(""),
+                     OVERFLOW_SQL.format("WHERE l_quantity < 22 "))
+    _forget_plans(ps)
+    with pytest.raises(sc.EvalError, match="^integer out of range$"):
+        ps.sql(raising)
+    assert len(chunks) == 1  # the first chunk raised
+    streamed = ps.sql(kept).format_rows()
+    assert ps.executor.last_chunked["chunks"] == 3
+    settings.DEVICE_BYTE_BUDGET.set(str(10 << 30))
+    ps.executor.last_chunked = None
+    chunks.clear()
+    with pytest.raises(sc.EvalError, match="^integer out of range$"):
+        ps.sql(raising)
+    assert ps.sql(kept).format_rows() == streamed
+    assert ps.executor.last_chunked is None and not chunks
     _forget_plans(ps)
 
 

@@ -12,6 +12,7 @@ called, not captured) and the kernel wrappers run their plain versions.
 """
 
 import os
+import re
 
 import pytest
 import torch
@@ -23,6 +24,7 @@ from lingodb_tpu.utils import settings as ref_settings
 
 import lingodb_tpu_torch as ldb
 from lingodb_tpu_torch.ops import pgather
+from lingodb_tpu_torch.ops import scalar as sc
 import lingodb_tpu_torch.runtime.executor as ex
 from lingodb_tpu_torch.runtime import device as dv
 from lingodb_tpu_torch.runtime import fused as F
@@ -463,6 +465,20 @@ def _guard_host_reads(monkeypatch):
     return bad, ran
 
 
+def _spy_error_codes(monkeypatch) -> list:
+    """Whether each fused program that ran built a data-error code (its
+    scalar "err"): one flag a run."""
+    built = []
+    orig = ex._with_err_out
+
+    def spy(out, errs):
+        built.append(errs.code is not None)
+        return orig(out, errs)
+
+    monkeypatch.setattr(ex, "_with_err_out", spy)
+    return built
+
+
 def test_fused_programs_copy_nothing_from_the_host(env, monkeypatch):
     """Inside the fused programs no tensor is made from host data except
     through backend.to_device (which a CUDA graph's capture serves from a
@@ -476,9 +492,12 @@ def test_fused_programs_copy_nothing_from_the_host(env, monkeypatch):
     queries; this, every guard on all 22)."""
     _rs, carried, _want = env
     bad, _ran = _guard_host_reads(monkeypatch)
+    built = _spy_error_codes(monkeypatch)
     s = _session(carried)
     for q in [str(i) for i in range(1, 23)]:
         s.sql(_sql(q))
+    # their expressions cannot fail: no program builds a data-error code
+    assert built and not any(built)
     # the SQL battery with every table on the tensor tier
     monkeypatch.setattr(dv, "SMALL_ROWS", 2)
     b = ldb.create_in_memory(device="cpu")
@@ -520,7 +539,14 @@ CONST_ARG_EXPRS = {
     "pow": ("pow({x}, 2)", "num"),
     "case": ("CASE WHEN {n} > 0 THEN 1 ELSE 2 END", "num"),
     "cast": ("CAST({n} AS INT)", "num"),
+    "cast_double": ("CAST({x} AS INT)", "num"),
 }
+# those that can fail, by the programs that build their code (the chain's
+# select list is an eager Map): a double beyond INT's range, and the TopK
+# epilogue's sum(m), a DECIMAL(20,2); the others build no data-error code
+# (m, a DECIMAL(10,2), fits INT even rounded)
+CONST_ARG_CAN_FAIL = {"cast": {"topk_epilogue"},
+                      "cast_double": {"aggregate", "topk_epilogue"}}
 _AS_NUMBER = {"num": "{}", "bool": "CASE WHEN {} THEN 1 ELSE 0 END",
               "str": "length({})", "date": "extract(day FROM {})"}
 # (the program, the operands, the statement): the fused aggregate, the
@@ -582,13 +608,79 @@ def test_constant_arguments_copy_nothing_from_the_host(const_arg_session, fn,
 
     monkeypatch.setattr(F, "apply_topk_epi", spy)
     bad, ran = _guard_host_reads(monkeypatch)
+    built = _spy_error_codes(monkeypatch)
     for ctx, (program, operands, template) in CONST_ARG_CONTEXTS.items():
         e = expr.format(**operands)
         sql = template.format(expr=e, num=_AS_NUMBER[kind].format(e))
         ran.clear()
         epilogues.clear()
+        built.clear()
         const_arg_session.sql(sql)
         assert program in ran, f"{ctx}: no fused program ran: {sql}"
         if ctx == "topk_epilogue":
             assert epilogues, f"no TopK epilogue ran in the program: {sql}"
         assert not bad, (ctx, sql, sorted(set(bad)))
+        # (the chain's select list is a Map over the chain, which the eager
+        # operator evaluates after it)
+        assert any(built) == (ctx in CONST_ARG_CAN_FAIL.get(fn, ())), (
+            ctx, sql, built)
+
+
+# a data error of each kind inside each fused program: INT arithmetic
+# beyond the range (C21) and a cast of strings to INT (C22), over an INT
+# operand {v} and a string {s}; the aggregate groups by a string, whose
+# dictionary gives the program its groups without a calibration run, and
+# the chain has it in a restriction of its scan
+DATA_ERROR_EXPRS = {
+    "int_overflow": ("{v} * 100000000", "integer out of range"),
+    "string_cast": ("CAST({s} AS INT)",
+                    'invalid input syntax for type integer: "'),
+}
+DATA_ERROR_CONTEXTS = {
+    "aggregate": ("_fused_program", dict(v="v", s="s"),
+                  "SELECT s, sum({expr}) FROM w WHERE id > 10 GROUP BY s"),
+    "chain": ("_fused_chain_program", dict(v="w.v", s="w.s"),
+              "SELECT w.id, u.label FROM w JOIN u ON w.g = u.g "
+              "WHERE w.id > 10 AND {expr} > 0"),
+    "topk_epilogue": ("_fused_program", dict(v="max(v)", s="min(s)"),
+                      "SELECT x, {expr} AS r FROM w GROUP BY x "
+                      "ORDER BY x LIMIT 3"),
+}
+
+
+@pytest.mark.parametrize("ctx", list(DATA_ERROR_CONTEXTS))
+@pytest.mark.parametrize("fn", list(DATA_ERROR_EXPRS))
+def test_data_errors_raise_from_the_packed_fetch(const_arg_session, fn, ctx,
+                                                 monkeypatch):
+    """A data error inside the fused aggregate, the fused chain and the
+    TopK epilogue is no read to the host: the program keeps its code as one
+    more scalar, and the finish raises PostgreSQL's message after the one
+    packed fetch, on the first run and on the next (a replay where the
+    program was captured), with none of the guards' reads and no HostRead
+    (which would decline the program to the eager operators)."""
+    monkeypatch.setattr(dv, "SMALL_ROWS", 64)
+    program, operands, template = DATA_ERROR_CONTEXTS[ctx]
+    expr, words = DATA_ERROR_EXPRS[fn]
+    sql = template.format(expr=expr.format(**operands))
+    epilogues = []
+    apply_epi = F.apply_topk_epi
+
+    def spy(*a, **k):
+        epilogues.append(1)
+        return apply_epi(*a, **k)
+
+    monkeypatch.setattr(F, "apply_topk_epi", spy)
+    bad, ran = _guard_host_reads(monkeypatch)
+    built = _spy_error_codes(monkeypatch)
+    for _run in range(2):
+        ran.clear()
+        epilogues.clear()
+        with pytest.raises(sc.EvalError, match=re.escape(words)) as got:
+            const_arg_session.sql(sql)
+        assert program in ran, f"{ctx}: no fused program ran: {sql}"
+        if ctx == "topk_epilogue":
+            assert epilogues, f"no TopK epilogue ran in the program: {sql}"
+        raised_in = got.traceback[-2].name
+        assert raised_in in ex.FETCH_FINISHES, (sql, raised_in)
+        assert not bad, (ctx, sql, sorted(set(bad)))
+    assert any(built)
