@@ -261,6 +261,27 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               sf 0.05 tables, rows equal to the one-process mesh's and the
               one-card session's on both processes. NCCL takes one card a
               rank, so on one card this phase says that it did not run
+  15. wide    arithmetic past int64 (C24-C26): (a) (run within phase 3,
+              before any other profiling) the checked kernel
+              (csrc/checked_arith.cu) at lineitem's length against its plain
+              version bit for bit, value and code, for each operator form
+              (decimal products past int64, a product that rounds across the
+              bound, a sum that rescales, INT and BIGINT arithmetic, a cast
+              past a precision), its first rows the edges (INT64_MIN,
+              +-(2^63 - 1), products exactly at the bound and one past it,
+              rescales that round to the bound and across it), timed beside
+              the plain version, the int64 PyTorch passes and the bytes
+              bound; then captured in a CUDA graph and replayed over new
+              inputs, bit for bit; (b) four statements over the SF1
+              lineitem (WIDE_SQL: a grouped hand-written variance that needs
+              the exact path on live rows, the same restricted to rows that
+              fit, sum and avg of BIGINTs near 2^62, q1), three runs each:
+              rows equal the CPU session's; per run the wall ms, captures,
+              replays, the statement's runs again on the exact path and the
+              checked kernel's launches; host syncs of the third run.
+              Phase 6 (b) also runs tools/sqlite_battery.py's
+              WIDE_STATEMENTS on the card, against the CPU session and the
+              exact oracle
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -343,6 +364,14 @@ KERNEL_META = {
         "source": "lingodb_tpu_torch/csrc/onehot_compact.cu",
         "replaces": "benchtools/tools_kbench.py:209",
     },
+    # no Pallas counterpart: in the JAX package XLA fuses an operator's
+    # value and its checks into one loop (the decimal operators' int64 path)
+    "checked_arith": {
+        "route": "cuda",
+        "source": "lingodb_tpu_torch/csrc/checked_arith.cu",
+        "replaces": "none (no Pallas counterpart: XLA's fusion of "
+                    "lingodb_tpu/ops/scalar.py:943)",
+    },
 }
 # each substrate row: its row in the substrate bench, its kernel there, and
 # the bench case that heads its entry in the kernels line
@@ -360,7 +389,8 @@ SUBSTRATE_ROWS = {
 # for T1-T7 (none of them has an engine caller)
 MAIN_PATH = {"compact_positions": "fused", "gather_sorted": "fused",
              "gather_chunked": "fused", "segscan": "kbench",
-             **{name: "substrate" for name in SUBSTRATE_ROWS}}
+             **{name: "substrate" for name in SUBSTRATE_ROWS},
+             "checked_arith": "wide"}
 # the kernels of the fused chain's tail (phase 4b, path "topk_chain"): the
 # compacted tail and the full-width tail's select_mask both take the
 # survivors' positions (compact_positions) and gather the output columns at
@@ -1664,6 +1694,7 @@ def sqlite_phase(torch, pg, ldb, launches):
         ("semantics", 2, sb.semantics_setup(), sb.SEMANTICS_STATEMENTS, True),
         ("errors", 2, sb.semantics_setup() + sb.errors_setup(),
          sb.ERROR_STATEMENTS, True),
+        ("wide", 2, sb.wide_setup(), sb.WIDE_STATEMENTS, True),
     ]
 
     def raised(session, sql):
@@ -1675,23 +1706,28 @@ def sqlite_phase(torch, pg, ldb, launches):
 
     t0 = time.perf_counter()
     small_rows = dv.SMALL_ROWS
-    total = {"K1": 0, "K2": 0, "K3": 0}
+    total = {"K1": 0, "K2": 0, "K3": 0, "C": 0}  # C: checked_arith
     n_stmts = n_checked = 0
     for label, tier, setup, stmts, ordered in groups:
         t_group = time.perf_counter()
-        group = {"K1": 0, "K2": 0, "K3": 0}
+        group = {"K1": 0, "K2": 0, "K3": 0, "C": 0}
         dv.SMALL_ROWS = tier  # read when a column is first uploaded
         gpu = ldb.create_in_memory()
         cpu = ldb.create_in_memory(device="cpu")
         with closing(sqlite3.connect(":memory:")) as conn:
+            exact = label == "wide"  # the exact oracle: decimals as text
+            if exact:
+                sb.exact_functions(conn)
             for st in setup:
                 gpu.sql_stmt(st)
                 cpu.sql_stmt(st)
+            for st in (sb.wide_setup(sqlite=True) if exact else setup):
                 conn.execute(st)
             for name, (sql, sqlite_sql) in stmts.items():
                 if isinstance(sqlite_sql, sb.Raises):
                     exc, counts, nchk = run_checked(
                         torch, pg, lambda: raised(gpu, sql))
+                    counts["C"] = pg.LAUNCHES["checked_arith"]
                     want_exc = raised(cpu, sql)
                     if (exc is None or want_exc is None
                             or str(sqlite_sql) not in str(exc)
@@ -1707,6 +1743,7 @@ def sqlite_phase(torch, pg, ldb, launches):
                     continue
                 res, counts, nchk = run_checked(torch, pg,
                                                 lambda: gpu.sql(sql))
+                counts["C"] = pg.LAUNCHES["checked_arith"]
                 got, want = res.to_pylist(), cpu.sql(sql).to_pylist()
                 if not ordered:
                     got = sorted(got, key=row_key)
@@ -1715,9 +1752,15 @@ def sqlite_phase(torch, pg, ldb, launches):
                     fail(f"phase 6 (b) {name}: card rows differ from the "
                          f"CPU session's: {sql}\ncard={got[:4]}\n"
                          f"cpu={want[:4]}")
-                ok, msg = so.rows_equal(
-                    so.our_rows(res), so.run_sqlite(conn, sqlite_sql or sql),
-                    ordered=ordered)
+                if exact:
+                    ok, msg = sb.exact_equal(
+                        sb.exact_rows(res),
+                        conn.execute(sqlite_sql).fetchall())
+                else:
+                    ok, msg = so.rows_equal(
+                        so.our_rows(res),
+                        so.run_sqlite(conn, sqlite_sql or sql),
+                        ordered=ordered)
                 if not ok:
                     fail(f"phase 6 (b) {name}: card rows differ from "
                          f"sqlite3's: {sql}: {msg}")
@@ -1728,17 +1771,18 @@ def sqlite_phase(torch, pg, ldb, launches):
                 n_checked += nchk
         dv.SMALL_ROWS = small_rows
         log(f"# sqlite statements (6 b) {label}: {len(stmts)} statements in "
-            f"{time.perf_counter() - t_group:.1f}s, launches (K1, K2, K3) "
-            f"{json.dumps(group)}")
+            f"{time.perf_counter() - t_group:.1f}s, launches (K1, K2, K3, "
+            f"C the checked kernel) {json.dumps(group)}")
     if not any(total.values()):
         fail("phase 6 (b): no engine kernel launched")
     launches["p6b"] = {"gather_chunked": total["K1"],
                        "gather_sorted": total["K2"],
-                       "compact_positions": total["K3"]}
+                       "compact_positions": total["K3"],
+                       "checked_arith": total["C"]}
     log(f"# sqlite statements (6 b): {n_stmts} statements equal on the card, "
         f"the CPU session and sqlite3 in {time.perf_counter() - t0:.1f}s; "
-        f"launches (K1, K2, K3, each call checked: {n_checked}): "
-        f"{json.dumps(total)}")
+        f"launches (K1, K2, K3, each call checked: {n_checked}; C the "
+        f"checked kernel): {json.dumps(total)}")
 
 
 def fused_error_part(torch, gpu, cpu):
@@ -1788,6 +1832,218 @@ def fused_error_part(torch, gpu, cpu):
         f"(ms {', '.join(f'{r[0]:.2f}' for r in card)}; captures / replays /"
         f" calibrations by run {[r[1:] for r in card]}) and on the CPU "
         f"session; kept in range by l_linenumber < 3, rows equal")
+
+
+# phase 15 (b): (the statement, whether its first run must run again on
+# the exact path); the variance passes int64 where |l_extendedprice -
+# 38000.123456| > 3037 (its square at scale 12)
+_VARIANCE = ("SELECT l_returnflag, l_linestatus, sum((l_extendedprice - "
+             "38000.123456) * (l_extendedprice - 38000.123456)), count(*) "
+             "FROM lineitem {}GROUP BY l_returnflag, l_linestatus "
+             "ORDER BY l_returnflag, l_linestatus")
+WIDE_SQL = {
+    "variance_needs_exact": (_VARIANCE.format(""), True),
+    "variance_that_fits": (_VARIANCE.format(
+        "WHERE l_extendedprice BETWEEN 36000 AND 40000 "), False),
+    "bigint_near_2_62": (
+        "SELECT l_returnflag, sum(CAST(l_orderkey AS BIGINT) + "
+        "4611686018427387904), avg(CAST(l_orderkey AS BIGINT) + "
+        "4611686018427387904), count(*) FROM lineitem GROUP BY l_returnflag "
+        "ORDER BY l_returnflag", False),
+    "q1": (None, False),  # queries/tpch/1.sql
+}
+INT64_MIN, INT64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _edge_pairs():
+    """(x, y) rows at the kernel's edges: INT64_MIN and +-(2^63 - 1) with
+    small and large partners, products exactly at the bound and one past
+    it, and products whose tenth (a rescale by one digit) rounds to the
+    bound and across it."""
+    b = INT64_MAX
+    pairs = [(INT64_MIN, 1), (INT64_MIN, -1), (INT64_MIN, 0), (b, 1),
+             (b, -1), (-b, 1), (b, 2), (INT64_MIN, INT64_MIN), (b, b),
+             (3037000499, 3037000499), (3037000500, 3037000500),
+             (-3037000500, 3037000500), (0, INT64_MIN), (1, b)]
+    f = next(d for d in range(2, 100) if b % d == 0)  # 7
+    pairs += [(b // f, f), (-(b // f), f), (b // f + 1, f)]
+    for tenth in (10 * b + 4, 10 * b + 5, -10 * b - 5, -10 * b - 6):
+        y = next(d for d in range(11, 100000)
+                 if tenth % d == 0 and abs(tenth // d) <= b)
+        pairs.append((tenth // y, y))
+    return pairs
+
+
+def check_checked_arith(torch, n, cases):
+    """Phase 15 (a), see the module docstring: the checked kernel against
+    its plain version at n rows; appends the timed cases to `cases`."""
+    from lingodb_tpu_torch.ops import checked as ck
+    from lingodb_tpu_torch.ops import pgather as pg
+    from lingodb_tpu_torch.ops import scalar as sc
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+
+    def col(top, dtype=torch.int64, big=None):
+        """n values in (-top, top); with `big`, one row in a hundred in
+        (-big, big) instead (the plain version evaluates the rows near a
+        limit in Python ints: few of them keep it quick)."""
+        x = torch.randint(-top, top, (n,), generator=gen, device="cuda",
+                          dtype=torch.int64)
+        if big is not None:
+            far = torch.randint(-big, big, (n,), generator=gen,
+                                device="cuda", dtype=torch.int64)
+            x = torch.where(torch.rand(n, generator=gen, device="cuda")
+                            < 0.01, far, x)
+        return x.to(dtype)
+
+    edges = _edge_pairs()
+    i32 = (-(1 << 31), (1 << 31) - 1)
+    i64 = (INT64_MIN, INT64_MAX)
+    exact = sc.ERR_EXACT
+    # (label, op, sx, sy, s, (lo, hi), code, prec, code_prec, dtype, x, y)
+    big = 8 * 10**9
+    specs = [
+        ("variance (p - a)^2: DECIMAL scale 6 x 6 -> 12 past int64", "mul",
+         6, 6, 12, i64, exact, 0, 0, torch.int64, col(10**9, big=big),
+         col(10**9, big=big)),
+        ("price^3 step: scale 4 x 2 -> 6 past int64", "mul", 4, 2, 6, i64,
+         exact, 0, 0, torch.int64, col(10**11, big=10**15),
+         col(10**7, big=10**9)),
+        ("product rounded one digit: scale 3 x 3 -> 5", "mul", 3, 3, 5, i64,
+         exact, 0, 0, torch.int64, col(1 << 50, big=1 << 62),
+         col(1 << 8)),
+        ("sum rescaled: scale 2 + 6 -> 6", "add", 2, 6, 6, i64, exact, 0, 0,
+         torch.int64, col(10**12, big=10**15), col(1 << 58, big=1 << 62)),
+        ("INT * INT", "mul", 0, 0, 0, i32, sc.ERR_INT, 0, 0, torch.int32,
+         col(1 << 15, torch.int32, big=1 << 20), col(1 << 14, torch.int32)),
+        ("BIGINT - BIGINT", "sub", 0, 0, 0, i64, sc.ERR_BIGINT, 0, 0,
+         torch.int64, col(1 << 58, big=INT64_MAX),
+         col(1 << 58, big=INT64_MAX)),
+        ("cast scale 6 -> DECIMAL(12,2)", "cast", 6, 0, 2, i64, exact, 12,
+         sc.ERR_NUMERIC, torch.int64, col(10**14, big=10**15), None),
+    ]
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.05
+    head_done = False
+    for label, op, sx, sy, s, (lo, hi), code, prec, code_prec, dt, x, y in specs:
+        if dt == torch.int64:  # the edges in the first rows
+            x[:len(edges)] = torch.tensor([e[0] for e in edges],
+                                          dtype=torch.int64, device="cuda")
+            if y is not None:
+                y[:len(edges)] = torch.tensor([e[1] for e in edges],
+                                              dtype=torch.int64, device="cuda")
+
+        def kernel():
+            return ck.checked_arith(op, x, y, valid, sx, sy, s, lo, hi, code,
+                                    prec, code_prec, dt)
+
+        def plain():
+            return ck.checked_arith_plain(op, x, y, valid, sx, sy, s, lo, hi,
+                                          code, prec, code_prec, dt)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            bad = int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+            fail(f"checked_arith {label}: {bad} rows differ from the plain "
+                 "version")
+        marked = int((got[1] != 0).sum())
+        nbytes = (x.element_size() + (0 if y is None else y.element_size())
+                  + 1 + torch.empty((), dtype=dt).element_size() + 4) * n
+        case = {"name": "checked_arith", "shape": f"{label} n={n}",
+                "max_abs_err": 0, "marked_rows": marked,
+                "ms": time_ms(torch, kernel),
+                "device_ms": device_ms(torch, kernel) or None,
+                "plain_ms": time_ms(torch, plain, reps=2),
+                "library_ms": time_ms(torch, lambda: ck.int64_passes(
+                    op, x, y, sx, sy, s)),
+                "library_device_ms": device_ms(torch, lambda: ck.int64_passes(
+                    op, x, y, sx, sy, s)) or None,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": nbytes}
+        cases.append(case)
+        log(f"# checked_arith {label} n={n}: {case['ms']:.4f} ms (on the card "
+            f"{fmt_ms(case['device_ms'])} ms), plain {case['plain_ms']:.4f} ms, "
+            f"int64 passes {case['library_ms']:.4f} ms (on the card "
+            f"{fmt_ms(case['library_device_ms'])} ms), bound "
+            f"{case['bound_ms']:.4f} ms; {marked} rows marked; bit-equal")
+        if not head_done:  # the head case, captured and replayed
+            head_done = True
+            g, out, _scratch = capture(torch, kernel)
+            g.replay()
+            torch.cuda.synchronize()
+            if not (torch.equal(out[0], want[0])
+                    and torch.equal(out[1], want[1])):
+                fail(f"checked_arith {label}: the graph's replay differs")
+            x.copy_(col(10**9, big=big))  # new inputs: the replay reads them
+            g.replay()
+            want = plain()
+            torch.cuda.synchronize()
+            if not (torch.equal(out[0], want[0])
+                    and torch.equal(out[1], want[1])):
+                fail(f"checked_arith {label}: the replay over new inputs "
+                     "differs")
+            del g
+    pg.reset_counters()  # launches made to compare do not count
+    log(f"# checked_arith: {len(specs)} forms bit-equal to the plain version "
+        f"at n={n}, {len(edges)} edge rows each, the first captured and "
+        f"replayed twice ({time.perf_counter() - t0:.1f}s)")
+
+
+def wide_phase(torch, pg, gpu, cpu, launches, smi_line):
+    """Phase 15 (b), see the module docstring."""
+    from lingodb_tpu_torch.tools import gpu_profile
+    from lingodb_tpu_torch.utils import compilestats
+
+    t_phase = time.perf_counter()
+    report = {}
+    pg.reset_counters()
+    for name, (sql, reruns) in WIDE_SQL.items():
+        sql = sql or open("queries/tpch/1.sql").read()
+        t0 = time.perf_counter()
+        want = cpu.sql(sql).to_pylist()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        runs = []
+        for i in range(3):
+            cs0 = compilestats.snapshot()
+            k0 = pg.LAUNCHES["checked_arith"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = gpu.sql(sql).to_pylist()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            d = compilestats.delta(cs0)
+            runs.append({"ms": ms, "captures": d["captures"],
+                         "replays": d["replays"],
+                         "exact_reruns": gpu.executor.last_exact_reruns,
+                         "checked_launches": pg.LAUNCHES["checked_arith"] - k0})
+            if not same_rows(got, want):
+                fail(f"phase 15 {name} run {i + 1}: card rows differ from the "
+                     f"CPU session's\ncard={got[:3]}\ncpu={want[:3]}")
+        if [r["exact_reruns"] for r in runs] != ([1, 0, 0] if reruns
+                                                 else [0, 0, 0]):
+            fail(f"phase 15 {name}: exact runs by run "
+                 f"{[r['exact_reruns'] for r in runs]}")
+        syncs, peak, _res = gpu_profile.syncs_and_peak(
+            torch, lambda: gpu.sql(sql).to_pylist())
+        report[name] = {"runs": runs, "syncs_third": syncs,
+                        "cpu_session_ms": cpu_ms, "rows": len(want)}
+        log(f"# wide (15) {name}: rows={len(want)} equal to the CPU session's; "
+            f"by run (ms, captures, replays, exact reruns, checked launches) "
+            + "; ".join(f"{r['ms']:.2f}, {r['captures']}, {r['replays']}, "
+                        f"{r['exact_reruns']}, {r['checked_launches']}"
+                        for r in runs)
+            + f"; syncs {syncs}; CPU session {cpu_ms:.1f} ms")
+    launches["wide"] = dict(pg.LAUNCHES)
+    if not launches["wide"]["checked_arith"]:
+        fail("phase 15: the checked kernel never launched")
+    report["seconds"] = time.perf_counter() - t_phase
+    report["device"] = smi_line
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "wide_phase.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"# wide (15): launches {json.dumps(launches['wide'])}; "
+        f"{report['seconds']:.1f}s ({smi_line})")
 
 
 def card_vs_cpu(torch, pg, gpu_profile, gpu, cpu, label, sql, slice_launches,
@@ -3331,6 +3587,9 @@ def main() -> int:
                else "") + f", max_abs_err {c['max_abs_err']}")
     del mask
     torch.cuda.empty_cache()
+    # the checked kernel (phase 15 (a)), timed here while the profiler has
+    # traced nothing else
+    check_checked_arith(torch, n_li, cases)
 
     log(f"# at {time.perf_counter() - t_start:.1f}s: phase 4")
     # ---- phase 4: main path, on the fused program and on the eager operators
@@ -3568,11 +3827,16 @@ def main() -> int:
     # ---- phase 14: the mesh across processes (two or more cards)
     processes_phase(torch, smi_line)
 
+    log(f"# at {time.perf_counter() - t_start:.1f}s: phase 15")
+    # ---- phase 15: arithmetic past int64 ((a), the kernel, ran in phase 3)
+    wide_phase(torch, pg, gpu, cpu, launches, smi_line)
+
     # ---- report
     headline = {"compact_positions": "sel=0.5", "gather_sorted": "C=2",
                 "gather_chunked": "s=10000 n=%d C=1" % n_li,
                 "segscan": "kernel bench",
-                **{name: head for name, (_r, _k, head) in SUBSTRATE_ROWS.items()}}
+                **{name: head for name, (_r, _k, head) in SUBSTRATE_ROWS.items()},
+                "checked_arith": "variance"}
     kernels = []
     for name, meta in KERNEL_META.items():
         mine = [c for c in cases if c["name"] == name]
@@ -3585,7 +3849,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": head["ms"], "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "bound_ms": head["bound_ms"], "bound_by": head.get("bound_by",
+                                                                "bytes"),
             "library_ms": head["library_ms"],
             "library_device_ms": head["library_device_ms"],
             "shape": head["shape"],

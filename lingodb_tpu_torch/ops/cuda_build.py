@@ -26,7 +26,8 @@ from ..utils import compilestats
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("compact_positions", "gather_sorted", "gather_chunked", "segscan",
-           "table_gather", "tile_gather", "lane_rotsum", "onehot_compact")
+           "table_gather", "tile_gather", "lane_rotsum", "onehot_compact",
+           "checked_arith")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -133,7 +134,11 @@ def _declare(libs) -> None:
             ("tile_gather", "ldb_sublane_band_edges",
              [ctypes.POINTER(i64), i32]),
             ("lane_rotsum", "ldb_lane_rotsum", [vp, i64, vp, i32, vp]),
-            ("onehot_compact", "ldb_onehot_compact", [vp, vp, i64, vp, vp])):
+            ("onehot_compact", "ldb_onehot_compact", [vp, vp, i64, vp, vp]),
+            # the checked operators (ops/checked.py)
+            ("checked_arith", "ldb_checked_arith",
+             [i32, i64, vp, i32, i64, vp, i32, i64, vp, i64, i32, i32, i32,
+              i64, i64, i32, i32, i32, vp, i32, vp, i32, vp])):
         f = getattr(libs[lib_name], fn_name)
         f.argtypes = args
         f.restype = i32

@@ -124,6 +124,19 @@ def order_images(a: np.ndarray) -> list[np.ndarray]:
     return [hi.astype(np.int64), mid.astype(np.int64), lo.astype(np.int64)]
 
 
+def combine_limb_sums(hi, lo):
+    """hi * 2^32 + lo exactly, for sums of int64 values split into their
+    high (signed) and low (unsigned 32-bit) limbs over fewer than 2^30
+    rows: int64 beside `hi` where every total fits (one read of one flag),
+    else a host object array (both limbs read)."""
+    from . import backend as be
+
+    if not bool(be.to_host((abs(hi) < (1 << 30)).all())):
+        return demote_if_possible(combine_limbs(be.to_host(hi),
+                                                be.to_host(lo)))
+    return hi * (1 << 32) + lo
+
+
 def combine_limbs(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     """Exact recombination of device 32-bit-split sum accumulators:
     total = sum(v >> 32) * 2^32 + sum(v & 0xFFFFFFFF), both in int64 lanes

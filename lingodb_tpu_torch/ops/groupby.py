@@ -340,7 +340,11 @@ def distinct_reduce(fn: str, key_cols: list[SCol], arg: SCol, grp: dict,
         if be.dt(data) == jnp.int32:
             data = be.astype(data, jnp.int64)
         vals = jnp.where(first, data, jnp.zeros_like(data))
+    wide = fn == "sum" and _wide_out(out_t, vals)
     if not key_cols:
+        if wide:
+            return _limb_total(out_t, vals, lambda x: jnp.sum(x)[None],
+                               jnp.sum(be.astype(first, jnp.int64))[None] > 0)
         s = jnp.sum(vals)[None]
         if fn == "count":
             return SCol(out_t, s, None)
@@ -350,13 +354,39 @@ def distinct_reduce(fn: str, key_cols: list[SCol], arg: SCol, grp: dict,
         boundary = boundary | jnp.concatenate([jnp.ones((1,), jnp.bool_), s[1:] != s[:-1]])
     seg = jnp.cumsum(be.astype(boundary, jnp.int32)) - 1
     g = grp["num_groups"]
-    red = be.segment_sum(vals, seg, num_segments=g, indices_are_sorted=True)
     nonempty = be.segment_sum(be.astype(first, jnp.int64), seg, num_segments=g,
                                    indices_are_sorted=True) > 0
+    gid_of_group = None
     if grp["order"] is None:
         # dense-gid path numbered groups differently: align via representatives
         rep_sorted_pos = be.set_at(be.full(n, 0, jnp.int32, perm), perm, seg)
         gid_of_group = rep_sorted_pos[grp["rep_rows"]]
-        red = red[gid_of_group]
         nonempty = nonempty[gid_of_group]
-    return SCol(out_t, red, None if fn == "count" else nonempty)
+
+    def reduce(x):
+        r = be.segment_sum(x, seg, num_segments=g, indices_are_sorted=True)
+        return r if gid_of_group is None else r[gid_of_group]
+
+    if wide:
+        return _limb_total(out_t, vals, reduce, nonempty)
+    return SCol(out_t, reduce(vals), None if fn == "count" else nonempty)
+
+
+def _wide_out(out_t: Type, vals) -> bool:
+    from ..runtime.vtable import dec_is_wide
+
+    return (out_t.kind == K.DECIMAL and dec_is_wide(out_t)
+            and not is_obj(vals) and jnp.issubdtype(be.dt(vals), jnp.integer))
+
+
+def _limb_total(out_t: Type, vals, reduce, nonempty) -> SCol:
+    """reduce() of int64 `vals` exactly past int64: the two 32-bit limbs
+    reduced apart and recombined (a column on the host where a total
+    passes int64)."""
+    from . import decwide
+
+    v64 = be.astype(vals, jnp.int64)
+    s = decwide.combine_limb_sums(reduce(v64 >> 32), reduce(v64 & 0xFFFFFFFF))
+    if is_obj(s):
+        return SCol(out_t, s, be.to_host(nonempty))
+    return SCol(out_t, be.like(s, nonempty), nonempty)

@@ -58,7 +58,7 @@ _KERNEL_FN: dict = {}  # kernel name -> its bound C entry point
 
 # launches per kernel since the last reset_counters()
 LAUNCHES = {"compact_positions": 0, "gather_sorted": 0, "gather_chunked": 0,
-            "segscan": 0}
+            "segscan": 0, "checked_arith": 0}
 
 
 def reset_counters() -> None:

@@ -32,7 +32,8 @@ from ..plan.exprs import BExpr, Call, CaseExpr, Cast, ColRef, Const
 from ..runtime.vtable import SCol, dec_is_float, dec_is_wide, is_obj, np_dtype
 from ..sql.types import IntervalUnit, K, Type
 from ..storage.column import EPOCH, decimal_str_to_int
-from . import bytestr, dates, decwide, strings
+from . import bounds, bytestr, dates, decwide, strings
+from . import checked as ckd
 
 INT64_MAX = (1 << 63) - 1
 INT64_MIN = -(1 << 63)
@@ -77,10 +78,17 @@ for _name in _TEXT_TYPE.values():
     _KINDS += [(f'invalid input syntax for type {_name}: "{{}}"', "s"),
                (f'value "{{}}" is out of range for type {_name}', "s"),
                (f'"{{}}" is out of range for type {_name}', "strip")]
+# not an error: a checked operator's result that int64 cannot hold (a
+# DECIMAL + - * or cast) marks its row so, with the expression among the
+# scope's sources; its consumer raises NeedsExact, and the statement runs
+# again with that expression on the exact host path
+_KINDS += [("the exact path is needed", "")]
 _KIND_OF = {form: k for k, (form, _shown) in enumerate(_KINDS)}
 assert len(_KINDS) <= 1 << _KIND_BITS
 ERR_INT = _KIND_OF["integer out of range"]
 ERR_BIGINT = _KIND_OF["bigint out of range"]
+ERR_NUMERIC = _KIND_OF["numeric field overflow"]
+ERR_EXACT = _KIND_OF["the exact path is needed"]
 _ERR_SINK: contextvars.ContextVar = contextvars.ContextVar(
     "lingodb_data_errors", default=None)
 _ERR_SOURCES: contextvars.ContextVar = contextvars.ContextVar(
@@ -131,12 +139,67 @@ def error_message(code: int, sources: list | None = None) -> str:
     return form.format(text.strip() if shown == "strip" else text)
 
 
+class NeedsExact(Exception):
+    """A live row of a checked operator's result passed int64: the
+    statement runs again with the operator on the exact host path. `key` is
+    the expression's plan key (plan/serial.py expr_key), None for every
+    checked operator of the statement."""
+
+    def __init__(self, key):
+        super().__init__(f"the exact path is needed for {key}")
+        self.key = key
+
+
+_EXACT: contextvars.ContextVar = contextvars.ContextVar(
+    "lingodb_exact_exprs", default=frozenset())
+
+
+@contextlib.contextmanager
+def exact_exprs(keys):
+    """Inside the block the checked operators whose plan keys are in `keys`
+    (None among them: every one) compute on the exact host path."""
+    tok = _EXACT.set(frozenset(keys))
+    try:
+        yield
+    finally:
+        _EXACT.reset(tok)
+
+
+def goes_exact(e) -> bool:
+    """Whether expression `e` computes on the exact host path here."""
+    keys = _EXACT.get()
+    if not keys or e is None:
+        return False
+    if None in keys:
+        return True
+    from ..plan.serial import expr_key
+
+    return expr_key(e) in keys
+
+
+def _exact_code(e) -> int:
+    """The code that marks a row of expression `e` as needing the exact
+    path: e's number among the scope's sources beside the kind."""
+    src = 0 if e is None else _source_number(e)
+    return ERR_EXACT | (src << _KIND_BITS)
+
+
 def raise_data_error(code, sources: list | None = None) -> None:
     """Raise the error of `code` (a host int, 0 for none); `sources` as in
-    error_message."""
+    error_message. A row that needs the exact path raises NeedsExact."""
     code = int(code)
-    if code:
-        raise EvalError(error_message(code, sources))
+    if not code:
+        return
+    if code & ((1 << _KIND_BITS) - 1) == ERR_EXACT:
+        src = (code >> _KIND_BITS) & ((1 << _SOURCE_BITS) - 1)
+        sources = _ERR_SOURCES.get() if sources is None else sources
+        key = None
+        if src and sources is not None and src <= len(sources):
+            from ..plan.serial import expr_key
+
+            key = expr_key(sources[src - 1])
+        raise NeedsExact(key)
+    raise EvalError(error_message(code, sources))
 
 
 def _err_where(cond, valid, code: int):
@@ -315,7 +378,8 @@ def eval_expr(e: BExpr, env: dict[int, SCol]) -> SCol:
         return _place(const_scol(e.value, e.type), env)
     if isinstance(e, Cast):
         a = eval_expr(e.arg, env)
-        return _with_err(eval_cast(a, e.type), a.err)
+        out = _with_err(eval_cast(a, e.type, e), a.err)
+        return _beside(out, env) if is_obj(a.data) else out
     if isinstance(e, CaseExpr):
         return eval_case(e, env)
     if isinstance(e, Call):
@@ -361,7 +425,9 @@ def truth_mask(c: SCol) -> jnp.ndarray:
     (reference: db.derive_truth, DBOps.td:322)"""
     m = be.astype(c.data, jnp.bool_)
     if c.valid is not None:
-        m = m & c.valid
+        # (an exact host column's validity beside a tensor's: its tier)
+        m = m & be.like(c.valid, m) if be.is_torch(m) else m & be.to_host(
+            c.valid)
     return m
 
 
@@ -401,7 +467,10 @@ def _is_const_string(c: SCol) -> bool:
 
 
 # --------------------------------------------------------------------- casts
-def eval_cast(a: SCol, t: Type) -> SCol:
+def eval_cast(a: SCol, t: Type, e=None) -> SCol:
+    """`a` cast to `t`; `e`, the cast's expression where there is one, gives
+    the operand's bound (ops/bounds.py) and marks rows that need the exact
+    path."""
     s, d = a.type, t
     valid = a.valid
     if s.base_eq(d):
@@ -412,75 +481,41 @@ def eval_cast(a: SCol, t: Type) -> SCol:
         return _cast_from_string(a, d)
     if d.is_string:
         return _cast_to_string(a, d)
-    data = a.data
-    # logical numeric value extraction
-    if s.kind == K.DECIMAL and is_obj(data):
-        # wide (Python-int) source: exact host casts
-        if d.kind == K.DECIMAL:
-            out = decwide.demote_if_possible(decwide.rescale(data, s.s, d.s))
-            return SCol(d, out, valid)
-        if d.kind in (K.FLOAT, K.DOUBLE):
-            f = np.array([float(v) for v in data.reshape(-1)],
-                         np.dtype(np_dtype(d))).reshape(data.shape)
-            return SCol(d, f / (10.0**s.s), valid)
-        if d.kind in (K.INT, K.BIGINT):
+    data = _int_scalar(a.data)
+    if data is not a.data:
+        a = dataclasses.replace(a, data=data)
+    arg = None if e is None else e.arg
+    if s.kind in (K.DECIMAL, K.INT, K.BIGINT, K.BOOL) and d.kind == K.DECIMAL:
+        return _cast_to_decimal(a, d, e)
+    if s.kind in (K.DECIMAL, K.INT, K.BIGINT) and d.kind in (K.INT, K.BIGINT):
+        if is_obj(data):
             # numeric to integer rounds half away from zero (PostgreSQL)
-            q = decwide.div_round(data, 10**s.s) if s.s else data
+            q = decwide.div_round(data, 10**s.s) if (
+                s.kind == K.DECIMAL and s.s) else data
             return _exact_int(d, q, valid, None)
-        if d.kind == K.BOOL:
-            return SCol(d, be.astype((data != 0), np.bool_), valid)
-    if s.kind == K.DECIMAL and not dec_is_float(s):
-        if d.kind == K.DECIMAL:
-            from .backend import is_torch
-
-            # exact host rescale when int64 cannot hold the computation:
-            # object input, rescale factor beyond 18 digits, or a
-            # host-resident wide upscale (value may exceed int64)
-            need_exact = (is_obj(data) or abs(d.s - s.s) > 18
-                          or (dec_is_wide(d) and d.s > s.s and not is_torch(data)))
-            if need_exact:
-                return _exact_result(
-                    d, decwide.rescale(decwide.to_obj(data), s.s, d.s), valid,
-                    _first_torch(data, valid))
-            return SCol(d, _rescale_int(data, s.s, d.s, to_float=dec_is_float(d)), valid)
+        ss = s.s if s.kind == K.DECIMAL else 0
+        if ss > ckd.MAX_SHIFT:
+            # divisor 10^s exceeds int64: exact
+            return _exact_int(
+                d, decwide.div_round(decwide.to_obj(data), 10**ss), valid,
+                _first_torch(data, valid))
+        lo, hi = _int_range(d)
+        if bounds.fits("cast", _bound(arg, a), None, ss, 0, 0, lo, hi):
+            q = _div_round(data, 10**ss) if ss else data
+            return SCol(d, be.astype(q, np_dtype(d)), valid)
+        return _checked(d, "cast", data, None, valid, ss, 0, 0, lo, hi,
+                        _range_code(d))
+    if s.kind == K.DECIMAL:
         if d.kind in (K.FLOAT, K.DOUBLE):
             if is_obj(data):
                 f = np.array([float(v) for v in data.reshape(-1)],
                              np.dtype(np_dtype(d))).reshape(data.shape)
                 return SCol(d, f / (10.0**s.s), valid)
             return SCol(d, be.astype(be.fdiv(data, 10.0**s.s), np_dtype(d)), valid)
-        if d.kind in (K.INT, K.BIGINT):
-            # numeric to integer rounds half away from zero (PostgreSQL)
-            if s.s and (is_obj(data) or s.s > 18):
-                # divisor 10^s exceeds int64 (or data already object): exact
-                return _exact_int(
-                    d, decwide.div_round(decwide.to_obj(data), 10**s.s), valid,
-                    _first_torch(data, valid))
-            q = _div_round(data, 10**s.s) if s.s else data
-            if d.kind == K.INT and s.p - s.s > 9:
-                # (below 10^9 even once rounded, a value fits: no code)
-                return _narrowed(d, q, valid)
-            return SCol(d, be.astype(q, np_dtype(d)), valid)
         if d.kind == K.BOOL:
-            return SCol(d, data != 0, valid)
-    if s.kind == K.DECIMAL and dec_is_float(s):
-        data = data  # already float logical value
-        s = Type.double(s.nullable)
+            return SCol(d, be.astype((data != 0), np.bool_), valid)
     if s.kind in (K.INT, K.BIGINT, K.BOOL):
-        if d.kind == K.DECIMAL:
-            from .backend import is_torch
-
-            if is_obj(data) or (
-                    dec_is_wide(d) and d.s > 0
-                    and (d.s > 18 or not is_torch(data))):
-                return _exact_result(d, decwide.to_obj(data) * (10**d.s), valid,
-                                     _first_torch(data, valid))
-            return SCol(d, be.astype(data, jnp.int64) * (10**d.s), valid)
-        if d.kind in (K.INT, K.BIGINT):
-            if is_obj(data):
-                return _exact_int(d, data, valid, None)
-            if d.kind == K.INT and s.kind == K.BIGINT:
-                return _narrowed(d, data, valid)
+        if d.kind in (K.INT, K.BIGINT):  # from a BOOL
             return SCol(d, be.astype(data, np_dtype(d)), valid)
         if d.kind in (K.FLOAT, K.DOUBLE):
             if is_obj(data):
@@ -492,10 +527,7 @@ def eval_cast(a: SCol, t: Type) -> SCol:
             return SCol(d, data != 0, valid)
     if s.kind in (K.FLOAT, K.DOUBLE):
         if d.kind == K.DECIMAL:
-            if dec_is_float(d):
-                return SCol(d, be.astype(data, jnp.float64), valid)
-            scaled = be.astype(data, jnp.float64) * (10.0**d.s)
-            return SCol(d, be.astype(_round_half_away_f(scaled), jnp.int64), valid)
+            return _cast_double_to_decimal(a, d, e)
         if d.kind in (K.INT, K.BIGINT):
             # rounded to the nearest, half to even (PostgreSQL's rint); NaN
             # and values beyond the type are out of range
@@ -517,11 +549,109 @@ def eval_cast(a: SCol, t: Type) -> SCol:
     raise EvalError(f"cast {s} -> {t} not supported")
 
 
-def _narrowed(d: Type, q, valid) -> SCol:
-    """The int64 values `q` as an INT column: a row they do not fit raises
-    "integer out of range"."""
-    r = be.astype(q, np.int32)
-    return SCol(d, r, valid, None, _err_where(q != r, valid, ERR_INT))
+def _int_scalar(x):
+    """A bare Python int (what arithmetic on a 0-dim object array gives) as
+    a 0-dim array: int64, or object past int64; anything else unchanged."""
+    if isinstance(x, (int, np.integer)) and not isinstance(x, (bool, np.bool_)):
+        v = int(x)
+        if INT64_MIN <= v <= INT64_MAX:
+            return np.asarray(v, np.int64)
+        return decwide.obj_scalar(v)
+    return x
+
+
+def _checked(t: Type, op: str, x, y, valid, sx: int, sy: int, s: int,
+             lo: int, hi: int, code: int, prec: int = 0,
+             code_prec: int = 0) -> SCol:
+    """A checked operator's column (ops/checked.py): its value and codes,
+    the operands placed beside each other."""
+    ref = _first_torch(x, y, valid)
+    if ref is not None:
+        x = be.like(x, ref)
+        y = None if y is None else be.like(y, ref)
+        valid = None if valid is None else be.like(valid, ref)
+    value, err = ckd.checked_arith(
+        op, x, y, valid, sx, sy, s, lo, hi, code, prec, code_prec,
+        be.tdtype(np_dtype(t)))
+    return SCol(t, value, valid, None, err)
+
+
+def _marks_exact(c: SCol) -> bool:
+    """Whether a host (numpy) checked column marks a row for the exact
+    path: the host computes it exactly at once, no statement runs again."""
+    err = c.err
+    return (err is not None and not be.is_torch(err)
+            and bool(np.any((np.asarray(err) & ((1 << _KIND_BITS) - 1))
+                            == ERR_EXACT)))
+
+
+def _exact_decimal(d: Type, vals, valid, ref) -> SCol:
+    """An exact (Python-int) DECIMAL(p, s) result: a live row with more
+    than p digits raises "numeric field overflow"; the rest as
+    _exact_result places them."""
+    vals = decwide.to_obj(vals)
+    bad = np.abs(vals) >= 10**d.p
+    err = None
+    if bool(np.any(bad)):
+        hvalid = None if valid is None else be.to_host(valid)
+        err = _err_where(bad, hvalid, ERR_NUMERIC)
+        vals = np.where(bad, 0, vals).astype(np.object_)
+    out = _exact_result(d, vals, valid, ref)
+    if err is not None and ref is not None and not is_obj(out.data):
+        err = be.like(err, ref)
+    return dataclasses.replace(out, err=err)
+
+
+def _cast_to_decimal(a: SCol, d: Type, e) -> SCol:
+    """An INT, BIGINT, BOOL or DECIMAL cast to DECIMAL(p, s): rescaled
+    (rounding half away from zero), and a live row with more than p - s
+    integer digits raises "numeric field overflow" (PostgreSQL's typmod).
+    Where int64 cannot hold a value the exact host path computes it."""
+    s, data, valid = a.type, a.data, a.valid
+    ss = s.s if s.kind == K.DECIMAL else 0
+    ref = _first_torch(data, valid)
+    if (is_obj(data) or abs(d.s - ss) > ckd.MAX_SHIFT
+            or (dec_is_wide(d) and d.s > ss and ref is None)
+            or goes_exact(e)):
+        return _exact_decimal(
+            d, decwide.rescale(decwide.to_obj(data), ss, d.s), valid, ref)
+    if s.kind == K.BOOL:
+        data = be.astype(data, np.int64)
+    arg = None if e is None else e.arg
+    if bounds.fits("cast", _bound(arg, a), None, ss, 0, d.s, INT64_MIN,
+                   INT64_MAX, d.p):
+        return SCol(d, _rescale_int(be.astype(data, np.int64), ss, d.s),
+                    valid)
+    out = _checked(d, "cast", data, None, valid, ss, 0, d.s, INT64_MIN,
+                   INT64_MAX, _exact_code(e), d.p, ERR_NUMERIC)
+    if _marks_exact(out):
+        return _exact_decimal(
+            d, decwide.rescale(decwide.to_obj(data), ss, d.s), valid, ref)
+    return out
+
+
+def _cast_double_to_decimal(a: SCol, d: Type, e) -> SCol:
+    """A double cast to DECIMAL(p, s): rounded half away from zero at scale
+    s; a live row with more than p - s integer digits (or infinite, or NaN,
+    which the engine's decimals do not hold) raises "numeric field
+    overflow", and one int64 cannot hold needs the exact path."""
+    data, valid = be.astype(a.data, jnp.float64), a.valid
+    scaled = _round_half_away_f(data * (10.0**d.s))
+    fits_p = jnp.abs(scaled) < float(10**d.p)  # False for NaN
+    fits_i = jnp.abs(scaled) < 2.0**63
+    ref = _first_torch(data, valid)
+    if goes_exact(e) or (ref is None and bool(np.any(
+            np.asarray(fits_p & ~fits_i)))):
+        host = be.to_host(data).reshape(-1)
+        vals = np.array([int(_round_half_away_f(np.float64(v) * 10.0**d.s))
+                         if np.isfinite(v) else 10**d.p for v in host],
+                        dtype=np.object_).reshape(np.shape(be.to_host(data)))
+        return _exact_decimal(d, vals, valid, ref)
+    ok = fits_p & fits_i
+    out = be.astype(jnp.where(ok, scaled, 0.0), jnp.int64)
+    err = _first_err(_err_where(~fits_p, valid, ERR_NUMERIC),
+                     _err_where(fits_p & ~fits_i, valid, _exact_code(e)))
+    return SCol(d, out, valid, None, err)
 
 
 def _exact_int(d: Type, q, valid, ref) -> SCol:
@@ -757,20 +887,12 @@ def eval_case(e: CaseExpr, env: dict[int, SCol]) -> SCol:
     data = else_c.data
     valid = else_c.valid_mask() if (else_c.valid is not None or else_c.type.kind == K.NULL) else None
 
-    def where_mixed(m, x, y):
-        # wide (Python-int object) decimal branches select on the host
-        if is_obj(x) or is_obj(y):
-            mh = be.to_host(m)
-            return np.where(mh, decwide.to_obj(x) if not is_obj(x) else x,
-                            decwide.to_obj(y) if not is_obj(y) else y)
-        return jnp.where(m, x, y)
-
     # apply WHENs in reverse so the first match wins; a row raises what
     # it evaluates: the conditions up to the one that holds, then its value
     err = else_c.err
     for cond_c, val_c in reversed(branches):
         m = truth_mask(cond_c)
-        data = where_mixed(m, val_c.data, data)
+        data = _where_mixed(m, val_c.data, data)
         vvalid = val_c.valid
         if valid is not None or vvalid is not None:
             va = jnp.ones_like(m) if vvalid is None else (jnp.broadcast_to(vvalid, m.shape) if vvalid.ndim == 0 else vvalid)
@@ -780,6 +902,16 @@ def eval_case(e: CaseExpr, env: dict[int, SCol]) -> SCol:
             err = _pick_err(m, val_c.err, err)
         err = _first_err(cond_c.err, err)
     return SCol(t, data, valid, rdict, err)
+
+
+def _where_mixed(m, x, y):
+    """jnp.where, where a wide (Python-int object) decimal side selects on
+    the host."""
+    if is_obj(x) or is_obj(y):
+        mh = be.to_host(m)
+        return np.where(mh, decwide.to_obj(x) if not is_obj(x) else x,
+                        decwide.to_obj(y) if not is_obj(y) else y)
+    return jnp.where(m, x, y)
 
 
 def _pick_err(m, a, b):
@@ -826,7 +958,21 @@ def eval_call(e: Call, env: dict[int, SCol]) -> SCol:
     args = [eval_expr(a, env) for a in e.args]
     if op == "coalesce":
         return _eval_coalesce(args, e.type)
-    return _with_err(_apply_call(e, args), _first_err(*(a.err for a in args)))
+    out = _with_err(_apply_call(e, args), _first_err(*(a.err for a in args)))
+    return _beside(out, env) if any(is_obj(a.data) for a in args) else out
+
+
+def _beside(c: SCol, env) -> SCol:
+    """A host result of exact wide arithmetic (a comparison's flags, a value
+    int64 holds again) moved beside the environment's tensors: the tensor
+    tier's operators combine it with their masks. An object column stays
+    on the host."""
+    ref = next((x.data for x in env.values() if be.is_torch(x.data)), None)
+    if ref is None or is_obj(c.data) or be.is_torch(c.data):
+        return c
+    return SCol(c.type, be.like(c.data, ref),
+                None if c.valid is None else be.like(c.valid, ref),
+                c.dictionary, None if c.err is None else be.like(c.err, ref))
 
 
 def _apply_call(e: Call, args: list[SCol]) -> SCol:
@@ -852,7 +998,7 @@ def _apply_call(e: Call, args: list[SCol]) -> SCol:
         both_null = (~va & ~vb) if (va is not None and vb is not None) else False
         return SCol(e.type, eq_and_valid | both_null, None)
     if op in ("add", "sub", "mul", "div", "mod"):
-        return eval_arith(op, args[0], args[1], e.type)
+        return eval_arith(op, args[0], args[1], e.type, e)
     if op == "neg":
         a = args[0]
         return SCol(e.type, -a.data, a.valid, None, _int_min_err(a, e.type))
@@ -1090,7 +1236,10 @@ def _eval_coalesce(cols: list[SCol], t: Type) -> SCol:
             err = c.err
         else:
             m = c.valid
-            data = jnp.where(m, c.data, data)
+            data = _where_mixed(m, c.data, data)
+            if is_obj(data) and be.is_torch(m):  # on the host, beside data
+                m = be.to_host(m)
+                valid = None if valid is None else be.to_host(valid)
             if valid is not None:
                 valid = m | valid
             # valid None means "all rows valid already": m | all-true stays all-true
@@ -1282,9 +1431,12 @@ def eval_compare(op: str, a: SCol, b: SCol, t: Type) -> SCol:
     }[op]
     out = fn(x, y)
     if is_obj(out):
-        # exact comparison of wide decimals on the host; the flags go back
-        # beside the tensors of the table
-        out = be.like(out.astype(np.bool_), _first_torch(a.data, b.data, valid))
+        # exact comparison of wide decimals on the host; the flags and
+        # their validity go back beside the tensors of the table
+        ref = _first_torch(a.data, b.data, valid)
+        out = be.like(out.astype(np.bool_), ref)
+        if valid is not None and ref is not None:
+            valid = be.like(valid, ref)
     return SCol(t, out, valid)
 
 
@@ -1359,7 +1511,10 @@ def _compare_col_const(op: str, a: SCol, v: str, t: Type, valid) -> SCol:
 
 
 # ----------------------------------------------------------------- arithmetic
-def eval_arith(op: str, a: SCol, b: SCol, t: Type) -> SCol:
+def eval_arith(op: str, a: SCol, b: SCol, t: Type, e=None) -> SCol:
+    """`a` op `b` of type `t`; `e`, the call's expression where there is
+    one, gives the operands' bounds (ops/bounds.py) and marks rows that need
+    the exact path."""
     valid = _and_valid(a, b)
     ta, tb = a.type, b.type
     # interval +- interval
@@ -1368,11 +1523,13 @@ def eval_arith(op: str, a: SCol, b: SCol, t: Type) -> SCol:
         return SCol(t, f(a.data, b.data), valid)
     if ta.kind == K.DATE and tb.kind == K.DATE and op == "sub":
         return SCol(t, be.astype((be.astype(a.data, jnp.int64) - be.astype(b.data, jnp.int64)), jnp.int32), valid)
+    a = dataclasses.replace(a, data=_int_scalar(a.data))
+    b = dataclasses.replace(b, data=_int_scalar(b.data))
     if t.kind == K.DECIMAL:
-        return _decimal_arith(op, a, b, t, valid)
+        return _decimal_arith(op, a, b, t, valid, e)
     if t.kind in (K.INT, K.BIGINT) and op in ("add", "sub", "mul") and not (
             is_obj(a.data) or is_obj(b.data)):
-        return _int_arith(op, a.data, b.data, t, valid)
+        return _int_arith(op, a, b, t, valid, e)
     x = be.astype(a.data, np_dtype(t)) if be.dt(a.data) != np_dtype(t) else a.data
     y = be.astype(b.data, np_dtype(t)) if be.dt(b.data) != np_dtype(t) else b.data
     if op == "add":
@@ -1422,29 +1579,30 @@ def _int_min_err(a: SCol, t: Type):
     return _err_where(a.data == _int_range(t)[0], a.valid, _range_code(t))
 
 
-def _int_arith(op: str, x, y, t: Type, valid) -> SCol:
-    """INT / BIGINT +, -, * with PostgreSQL's overflow errors: an INT in
-    int64, checked against the range; a BIGINT by sign tests (+, -) and,
-    for *, by dividing the wrapped product back: it is exact iff
-    product // x == y (x not 0 or -1; x == -1 overflows only at y == MIN)."""
-    if t.kind == K.INT:
-        x64, y64 = be.astype(x, np.int64), be.astype(y, np.int64)
-        return _narrowed(t, x64 + y64 if op == "add" else (
-            x64 - y64 if op == "sub" else x64 * y64), valid)
-    x, y = be.astype(x, np.int64), be.astype(y, np.int64)
-    with np.errstate(over="ignore"):
-        if op == "add":
-            r = x + y
-            bad = ((x ^ r) & (y ^ r)) < 0
-        elif op == "sub":
-            r = x - y
-            bad = ((x ^ y) & (x ^ r)) < 0
-        else:
-            r = x * y
-            unit = (x == 0) | (x == -1)
-            q = jnp.floor_divide(r, jnp.where(unit, 1, x))
-            bad = jnp.where(unit, (x == -1) & (y == INT64_MIN), q != y)
-    return SCol(t, r, valid, None, _err_where(bad, valid, ERR_BIGINT))
+def _int_arith(op: str, a: SCol, b: SCol, t: Type, valid, e) -> SCol:
+    """INT / BIGINT +, -, * with PostgreSQL's overflow errors: in int64
+    where the operands' bounds prove every row fits, else through the
+    checked kernel (one pass: each row's value and its code)."""
+    lo, hi = _int_range(t)
+    ea, eb = (None, None) if e is None else e.args
+    if bounds.fits(op, _bound(ea, a), _bound(eb, b), 0, 0, 0, lo, hi):
+        x, y = be.astype(a.data, np.int64), be.astype(b.data, np.int64)
+        r = x + y if op == "add" else (x - y if op == "sub" else x * y)
+        return SCol(t, be.astype(r, np_dtype(t)), valid)
+    return _checked(t, op, a.data, b.data, valid, 0, 0, 0, lo, hi,
+                    _range_code(t))
+
+
+def _bound(expr, c: SCol):
+    """The bound of an operand (its expression's, or its type's), within
+    what its storage holds."""
+    b = bounds.bound(expr, c.type)
+    if b is None or is_obj(c.data):
+        return b
+    bits = 8 * np.dtype(be.dt(c.data)).itemsize
+    if bits > 64 or not np.issubdtype(be.dt(c.data), np.integer):
+        return b
+    return (max(b[0], -(1 << (bits - 1))), min(b[1], (1 << (bits - 1)) - 1))
 
 
 def _div_trunc_arr(x, y):
@@ -1471,7 +1629,7 @@ def _dec_logical(c: SCol):
     return be.astype(c.data, jnp.int64), 0
 
 
-def _decimal_arith(op: str, a: SCol, b: SCol, t: Type, valid) -> SCol:
+def _decimal_arith(op: str, a: SCol, b: SCol, t: Type, valid, e=None) -> SCol:
     xa, sa = _dec_logical(a)
     xb, sb = _dec_logical(b)
     from .backend import is_torch
@@ -1488,16 +1646,40 @@ def _decimal_arith(op: str, a: SCol, b: SCol, t: Type, valid) -> SCol:
              # int64 (12.51 at scale 19 wraps negative); magnitude is not
              # statically knowable, so wide result types always go exact
              or (op == "div" and dec_is_wide(t))))
-    if sa is not None and sb is not None and (
-            is_obj(xa) or is_obj(xb)
-            or (dec_is_wide(t) and not (is_torch(xa) or is_torch(xb)))
-            or big_shift):
-        # a side needs >63 bits, the host-resident result type may, or the
-        # rescale constant itself overflows int64: compute exactly in Python
-        # ints (overflow-detected by construction — the reference's i128
-        # path, LowerToStd.cpp:128-330). Device-resident narrow-typed data
-        # stays on the int64 device path (wide SUM accumulation is handled
-        # separately by limb-split reductions in the executor).
+    exact = (sa is not None and sb is not None and (
+        is_obj(xa) or is_obj(xb)
+        or (dec_is_wide(t) and not (is_torch(xa) or is_torch(xb)))
+        or big_shift))
+    checks = (sa is not None and sb is not None and op in ("add", "sub", "mul")
+              and not exact)
+    if checks:
+        ea, eb = (None, None) if e is None else e.args
+        if op == "mul" and t.s > sa + sb:
+            # a product scaled up: int64 where the bounds prove it, else
+            # exactly on the host (the checked kernel never scales up)
+            exact = not bounds.fits(op, _bound(ea, a), _bound(eb, b), sa, sb,
+                                    t.s, INT64_MIN, INT64_MAX)
+            checks = False
+        elif goes_exact(e):
+            exact, checks = True, False
+        elif bounds.fits(op, _bound(ea, a), _bound(eb, b), sa, sb, t.s,
+                         INT64_MIN, INT64_MAX):
+            checks = False  # the int64 operators below are exact
+    if checks:
+        # each row's exact result where int64 holds it, and a mark where it
+        # does not: the consumer runs the statement again with this
+        # expression on the exact host path (on the host, at once)
+        out = _checked(t, op, xa, xb, valid, sa, sb, t.s, INT64_MIN,
+                       INT64_MAX, _exact_code(e))
+        if not _marks_exact(out):
+            return out
+        exact = True
+    if exact:
+        # a side needs >63 bits, the host-resident result type may, the
+        # rescale constant itself overflows int64, or a row's result passed
+        # int64: compute exactly in Python ints (overflow-detected by
+        # construction — the reference's i128 path,
+        # LowerToStd.cpp:128-330)
         data, zero = decwide.arith(
             op, decwide.to_obj(xa), decwide.to_obj(xb), sa, sb, t.s)
         ref = _first_torch(xa, xb, valid)

@@ -27,7 +27,8 @@ from . import backend as be
 from .backend import xnp as jnp
 
 from ..plan import logical as L
-from ..runtime.vtable import SCol, VTable, dec_is_float, np_dtype
+from ..runtime.vtable import (SCol, VTable, dec_is_float, dec_is_wide, is_obj,
+                               np_dtype)
 from ..sql.types import K, Type
 from . import keys as keymod
 
@@ -107,6 +108,9 @@ def run_window(op: L.Window, vt: VTable) -> VTable:
                                  part_start, part_end, pb, ob, has_order, n,
                                  frame if explicit or f.fn == "nth_value" else None)
         # scatter back to original order
+        if is_obj(out_sorted.data):  # an exact sum past int64: on the host
+            cols[f.out.cid] = out_sorted.take(inv)
+            continue
         data = jnp.take(out_sorted.data, inv, axis=0)
         valid = (None if out_sorted.valid is None
                  else jnp.take(out_sorted.valid, inv, axis=0))
@@ -348,8 +352,14 @@ def _frame_agg(f: L.WindowFn, t: Type, arg, arg_sorted, lo, hi, n) -> SCol:
         x = vals if valid_rows is None else jnp.where(valid_rows, vals, jnp.zeros_like(vals))
         if be.dt(x) == np.int32:
             x = be.astype(x, jnp.int64)
-        p = jnp.concatenate([be.full(1, 0, be.dt(x), lo), jnp.cumsum(x)])
-        s = jnp.take(p, hi_i) - jnp.take(p, lo_i)
+
+        def frame_sums(v):
+            p = jnp.concatenate([be.full(1, 0, be.dt(v), lo), jnp.cumsum(v)])
+            return jnp.take(p, hi_i) - jnp.take(p, lo_i)
+
+        if fn == "sum" and _wide_sum(t, x):
+            return _limb_sums(t, x, frame_sums, cnt > 0)
+        s = frame_sums(x)
         if fn == "sum":
             return SCol(t, s, cnt > 0)
         arg_scale = (arg.type.s
@@ -452,18 +462,19 @@ def _compute_fn(f: L.WindowFn, op: L.Window, vt: VTable, perm, seg, num_parts,
             if be.dt(x) == np.int32:
                 x = be.astype(x, jnp.int64)
         if running:
-            s = _segmented_cumsum(x, pb)
-            cnt = _segmented_cumsum(ones_or_valid, pb)
-            s = jnp.take(s, peer_end, axis=0)
-            cnt = jnp.take(cnt, peer_end)
+            def sums(v):
+                return jnp.take(_segmented_cumsum(v, pb), peer_end, axis=0)
         else:
             s32 = be.astype(seg, jnp.int32)
-            stot = be.segment_sum(x, s32, num_segments=num_parts,
-                                  indices_are_sorted=True)
-            s = jnp.take(stot, seg, axis=0)
-            ctot = be.segment_sum(ones_or_valid, s32, num_segments=num_parts,
-                                  indices_are_sorted=True)
-            cnt = jnp.take(ctot, seg)
+
+            def sums(v):
+                tot = be.segment_sum(v, s32, num_segments=num_parts,
+                                     indices_are_sorted=True)
+                return jnp.take(tot, seg, axis=0)
+        cnt = sums(ones_or_valid)
+        if fn == "sum" and _wide_sum(t, x):
+            return _limb_sums(t, x, sums, cnt > 0)
+        s = cnt if x is ones_or_valid else sums(x)
         if fn in ("count", "count_star"):
             return SCol(t, s, None)
         if fn == "sum":
@@ -491,6 +502,26 @@ def _compute_fn(f: L.WindowFn, op: L.Window, vt: VTable, perm, seg, num_parts,
             cnt = jnp.take(ctot, seg)
         return SCol(t, out, cnt > 0, arg_sorted.dictionary)
     raise NotImplementedError(f"window function {fn}")
+
+
+def _wide_sum(t: Type, x) -> bool:
+    """A sum of int64 values whose total may pass int64 (a wide DECIMAL,
+    such as a BIGINT's sum)."""
+    return (t.kind == K.DECIMAL and dec_is_wide(t) and not is_obj(x)
+            and jnp.issubdtype(be.dt(x), jnp.integer))
+
+
+def _limb_sums(t: Type, x, sums, valid) -> SCol:
+    """sums() of int64 `x` exactly: its two 32-bit limbs summed apart (the
+    running and frame sums are linear) and recombined; a column on the host
+    where a sum passes int64."""
+    from . import decwide
+
+    x = be.astype(x, jnp.int64)
+    s = decwide.combine_limb_sums(sums(x >> 32), sums(x & 0xFFFFFFFF))
+    if is_obj(s):
+        return SCol(t, s, be.to_host(valid))
+    return SCol(t, be.like(s, valid), valid)
 
 
 def _positive(f: L.WindowFn) -> int:

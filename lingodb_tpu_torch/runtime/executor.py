@@ -43,8 +43,10 @@ import numpy as np
 import torch
 
 from ..ops import backend as be
+from ..ops import bounds
 from ..ops.backend import xnp as jnp
 
+from ..ops import decwide
 from ..ops import groupby as gb
 from ..ops import join as joinops
 from ..ops import keys as keymod
@@ -53,7 +55,7 @@ from ..ops import scalar as sc
 from ..ops import strings as strmod
 from ..plan import exprs as E
 from ..plan import logical as L
-from ..plan.exprs import Call, ColRef
+from ..plan.exprs import Call, Cast, ColRef
 from ..sql.types import K, Type
 from ..utils import tracer
 from .result import ResultTable
@@ -126,6 +128,8 @@ class Executor:
         # non-equi join
         self.last_iterate_rounds: Optional[int] = None
         self.last_nonequi_chunks: Optional[int] = None
+        # the times the last statement ran again for the exact path
+        self.last_exact_reruns = 0
         # PERF mode: (operator, self ms, rows, inclusive ms, bytes, sol) per
         # operator of the last statement, None in the other modes
         self.last_op_profile: list | None = None
@@ -135,17 +139,51 @@ class Executor:
 
     # ------------------------------------------------------------- dispatch
     def execute(self, plan: L.Materialize) -> ResultTable:
-        with sc.error_scope():  # the sources of the data errors' messages
-            return self._execute(plan)
-
-    def _execute(self, plan: L.Materialize) -> ResultTable:
-        from . import device as dv
+        """Run `plan`. A checked operator whose result passed int64 on a live
+        row (ops/scalar.py, NeedsExact) makes the statement run again with
+        that expression on the exact host path; the plan keeps the decision
+        in session.stage_cache, so a later run goes there at once."""
         from ..opt.optimizer import fold_constants
-        from ..utils.settings import EXECUTION_MODE
+        from ..plan.serial import plan_key
 
         # each constant expression computed once, on the host, before any
         # operator runs (its data error raised here)
-        fold_constants(plan)
+        with sc.error_scope():
+            fold_constants(plan)
+        key = ("exact_arith", plan_key(plan))
+        cache = self.session.stage_cache
+        self.last_exact_reruns = 0
+        while True:
+            exact = cache.get(key, frozenset())
+            try:
+                # the sources of the data errors' messages, the expressions
+                # that go exact, the bounds that prove the rest
+                with sc.error_scope(), sc.exact_exprs(exact), \
+                        bounds.scope(self._plan_bounds(plan)):
+                    return self._execute(plan)
+            except sc.NeedsExact as ne:
+                more = exact | {ne.key}
+                if more == exact:  # nothing learned: every operator exact
+                    if None in exact:
+                        raise ExecError("the exact path marked a row") from ne
+                    more = exact | {None}
+                cache[key] = more
+                self.last_exact_reruns += 1
+
+    def _plan_bounds(self, plan) -> "bounds.PlanBounds":
+        session = self.session
+
+        def rows_of(table):
+            e = session.catalog.get_table(table)
+            return None if e is None else e.storage.num_rows
+
+        return bounds.PlanBounds(plan, session.column_bounds, rows_of,
+                                 session.catalog)
+
+    def _execute(self, plan: L.Materialize) -> ResultTable:
+        from . import device as dv
+        from ..utils.settings import EXECUTION_MODE
+
         self._tmp_results.clear()
         self._materialized_bases.clear()
         # execution modes (reference: ExecutionMode + CPULLVMDebugBackend /
@@ -1154,12 +1192,24 @@ class Executor:
                                  for x in keymod.grouping_images([arg])]
                         if spec.fn == "count":
                             aggs.append(("cdist", aimgs, av))
+                        elif _wide_sum(spec):  # its limbs, as below
+                            vals = be.astype(_shard_of(arg.data, ref, L),
+                                             np.int64)
+                            aggs.append(("sdist", aimgs + [vals >> 32], av))
+                            aggs.append(("sdist", aimgs + [vals & 0xFFFFFFFF],
+                                         av))
                         else:
                             vals = be.astype(_shard_of(arg.data, ref, L), out_dt)
                             aggs.append(("sdist", aimgs + [vals], av))
                     elif spec.fn in ("count", "count_star"):
                         aggs.append(("count", [torch.ones(
                             (L,), dtype=torch.int64, device=ref.device)], av))
+                    elif spec.fn == "sum" and _wide_sum(spec):
+                        # exact past int64: the 32-bit limbs summed apart
+                        # through both rounds, recombined on the host
+                        vals = be.astype(_shard_of(arg.data, ref, L), np.int64)
+                        aggs.append(("sum", [vals >> 32], av))
+                        aggs.append(("sum", [vals & 0xFFFFFFFF], av))
                     elif spec.fn == "sum":
                         vals = be.astype(_shard_of(arg.data, ref, L), out_dt)
                         aggs.append(("sum", [vals], av))
@@ -1207,7 +1257,7 @@ class Executor:
             final = [(agg_out[i][0],
                       None if aggs_in[i][0] in ("count", "cdist")
                       else agg_out[i][1])
-                     for i in range(len(op.aggs))]
+                     for i in range(len(aggs_in))]
         else:
             # round 1: local pre-aggregation on the rows' own sharding (the
             # thread-local combiner): the exchange then moves local groups,
@@ -1244,8 +1294,20 @@ class Executor:
         glen = int(gvalid.shape[0])
         cols = dict(_rebuild_vt(vt, rep_layout, self._leave_mesh(reps_out),
                                 glen).cols)
-        for spec, (val, cnt) in zip(op.aggs, final):
+        final = iter(final)
+        for spec in op.aggs:
+            val, cnt = next(final)
             val = self._leave_mesh([val])[0]
+            if _wide_sum(spec):
+                lo, _cnt = next(final)
+                total = decwide.combine_limb_sums(
+                    val, self._leave_mesh([lo])[0])
+                cnt = self._leave_mesh([cnt])[0]
+                cols[spec.out.cid] = (
+                    SCol(spec.out.type, total, be.to_host(cnt > 0))
+                    if is_obj(total) else
+                    SCol(spec.out.type, be.like(total, cnt), cnt > 0))
+                continue
             if cnt is None:  # count / count distinct: 0 on empty, never NULL
                 cols[spec.out.cid] = SCol(spec.out.type, val, None)
                 continue
@@ -1984,17 +2046,21 @@ class Executor:
                     >= int(get_setting("system.shuffle_min_rows"))):
                 return None
         steps, cur = self._walk_spine(op.child)
-        if _udf_in_exprs(_program_exprs(
-                steps, {}, cur.restrictions if isinstance(cur, L.Scan)
-                else ())):
+        exprs = _program_exprs(steps, {}, cur.restrictions
+                               if isinstance(cur, L.Scan) else ())
+        if _udf_in_exprs(exprs):
             # a UDF runs on the host, which a program on the card cannot
             # call (nor a graph capture hold): decided here, before anything
             # runs, where the reference's trace fails on the same call
             return None
         if isinstance(cur, L.Scan) and all(st[0] == "sm" for st in steps):
+            # (a chunk program that computes on the exact host path streams
+            # uncaptured, its exact lanes on the host)
             ck = self._try_chunked_agg(op, steps, cur)  # out-of-core
             if ck is not None:
                 return _ret(ck, False)
+        if _host_only_exprs(exprs):
+            return None  # the exact host path: the eager operators
         if isinstance(cur, L.Scan):
             entry = self.session.catalog.get_table(cur.table)
             if entry.storage.num_rows == 0:
@@ -2079,7 +2145,7 @@ class Executor:
                 join_preps[si] = prep
             self._propagate_sorted_probe(join_preps, sorted_cids)
             cache[prep_key] = join_preps
-        if _udf_in_exprs(_program_exprs(steps, join_preps, ())):
+        if _host_only_exprs(_program_exprs(steps, join_preps, ())):
             cache[key] = "eager"  # a UDF in a join step's probe keys
             return None
 
@@ -2163,7 +2229,7 @@ class Executor:
                     or (bool(spine["join_sis"])
                         and ("fused_stepcaps", basekey) not in cache))
         if (epi is not None and not dense and kg_learned is not None
-                and _udf_in_exprs(_epi_exprs(epi))):
+                and _host_only_exprs(_epi_exprs(epi))):
             # the general mode evaluates a TopK epilogue's Map steps in the
             # program, and a UDF among them runs on the host: this variant
             # declines (the dense mode, and a calibration run, leave the
@@ -3042,7 +3108,7 @@ class Executor:
             return None
         if not isinstance(cur, L.Scan):
             return None  # materialized bases recurse here on their own top
-        if _udf_in_exprs(_program_exprs(steps, {}, cur.restrictions)):
+        if _host_only_exprs(_program_exprs(steps, {}, cur.restrictions)):
             return None  # a UDF runs on the host (see _try_fused_agg)
         entry = self.session.catalog.get_table(cur.table)
         if entry is None or entry.storage.num_rows == 0:
@@ -3052,7 +3118,7 @@ class Executor:
         cache = self.session.stage_cache
         if cache.get(basekey) == "eager":
             return None
-        if epi is not None and _udf_in_exprs(_epi_exprs(epi)):
+        if epi is not None and _host_only_exprs(_epi_exprs(epi)):
             # the chain's epilogue evaluates its Map steps in the program:
             # a UDF among them declines the chain for the plan and these
             # versions, as the reference's trace failure does
@@ -3104,7 +3170,7 @@ class Executor:
                 self._in_fused_chain = False
             self._propagate_sorted_probe(join_preps, sorted_cids)
             cache[prep_key] = join_preps
-        if _udf_in_exprs(_program_exprs(steps, join_preps, ())):
+        if _host_only_exprs(_program_exprs(steps, join_preps, ())):
             cache[basekey] = "eager"  # a UDF in a join step's probe keys
             return None
 
@@ -3893,6 +3959,15 @@ def _udf_in_exprs(exprs) -> bool:
                for e in exprs if e is not None for x in E.walk(e))
 
 
+def _host_only_exprs(exprs) -> bool:
+    """True when any of the expressions calls a user-defined function or
+    computes on the exact host path (sc.goes_exact): a fused program
+    declines such a plan on the host, before it runs."""
+    return any((isinstance(x, Call) and x.op.startswith("udf:"))
+               or (isinstance(x, (Call, Cast)) and sc.goes_exact(x))
+               for e in exprs if e is not None for x in E.walk(e))
+
+
 def _program_exprs(steps, join_preps, restrictions) -> list:
     """The expressions a fused program evaluates itself: the base scan's
     restrictions, the spine's Select predicates and Map expressions, and
@@ -4219,6 +4294,13 @@ def _replicate_hot(mesh, side: dict, heavy: torch.Tensor, ln: int) -> int:
 class _WideShip(Exception):
     """A wide-decimal value beyond 127 bits cannot limb-split for the mesh
     exchange; callers fall back to the single-device path."""
+
+
+def _wide_sum(spec: L.AggSpec) -> bool:
+    """A sum whose total may pass int64 (a wide DECIMAL, such as a BIGINT's
+    sum): summed as two 32-bit limbs and recombined exactly."""
+    return (spec.fn == "sum" and spec.out.type.kind == K.DECIMAL
+            and dec_is_wide(spec.out.type))
 
 
 def _obj_to_limbs(a: np.ndarray):

@@ -51,6 +51,8 @@ class Session:
         self.catalog = Catalog(db_dir)
         self.executor = Executor(self)
         self._device_cache: dict[str, tuple[int, dict]] = {}
+        # (table, column) -> (table version, (min, max)): column_bounds
+        self._bounds: dict = {}
         # the fused aggregate's per-plan state, keyed by plan and table
         # versions: join preps (uploaded LUTs + payloads), learned
         # capacities, decline markers
@@ -461,6 +463,34 @@ class Session:
             print(f"# device memory {(total - free) / 1e9:.1f}/{total / 1e9:.1f}GB:"
                   f" evicting cached buffers", file=sys.stderr)
             self._evict_device_memory()
+
+    def column_bounds(self, table: str, col: str):
+        """(min, max) of an integer, decimal or boolean column's non-NULL
+        values, or None for another type or table: the bound its arithmetic
+        is proved by (ops/bounds.py). One pass over the column's host copy
+        the first time a statement asks, kept for the table's version (a
+        streamed table is never uploaded, so it is not read from the card);
+        (0, 0) for a column with no value."""
+        entry = self.catalog.get_table(table)
+        if entry is None:
+            return None
+        storage = entry.storage
+        key = (table, col)
+        got = self._bounds.get(key)
+        if got is not None and got[0] == storage.version:
+            return got[1]
+        from .sql.types import K
+
+        c = storage.column(col)
+        b = None
+        if c.type.kind in (K.INT, K.BIGINT, K.DECIMAL, K.BOOL):
+            data = np.asarray(c.data)
+            if c.valid is not None:
+                data = data[np.asarray(c.valid, dtype=np.bool_)]
+            b = (0, 0) if data.size == 0 else (int(data.min()),
+                                               int(data.max()))
+        self._bounds[key] = (storage.version, b)
+        return b
 
     def device_table(self, name: str) -> dict:
         """Lazily upload (and cache) a table's columns as device tensors —

@@ -915,13 +915,7 @@ class Binder:
         if arg_t is None:
             raise BindError(f"aggregate {fn} requires an argument")
         if fn == "sum":
-            # widen integer sums; decimal keeps scale (reference keeps arg type;
-            # we widen to avoid i32 overflow, display is identical)
-            if arg_t.kind == K.INT:
-                return Type.bigint(True)
-            if arg_t.kind == K.DECIMAL:
-                return Type.decimal(min(arg_t.p + 10, 38), arg_t.s, True)
-            return arg_t.as_nullable()
+            return _sum_type(arg_t)
         if fn in ("min", "max", "any_value"):
             return arg_t.as_nullable()
         if fn in ("stddev_samp", "var_samp"):
@@ -1111,11 +1105,7 @@ class Binder:
         if fn == "avg":
             return Type.double(True)
         if fn == "sum":
-            if arg_t.kind == K.INT:
-                return Type.bigint(True)
-            if arg_t.kind == K.DECIMAL:
-                return Type.decimal(min(arg_t.p + 10, 38), arg_t.s, True)
-            return arg_t.as_nullable()
+            return _sum_type(arg_t)
         if fn in ("min", "max", "first_value", "last_value", "nth_value",
                   "lead", "lag"):
             return arg_t.as_nullable()
@@ -2104,6 +2094,19 @@ _CMP_OPS = {
 _NEGATED_CMP = {
     "eq": "neq", "neq": "eq", "lt": "gte", "lte": "gt", "gt": "lte", "gte": "lt",
 }
+
+
+def _sum_type(arg_t: Type) -> Type:
+    """sum's type, as PostgreSQL's: an INT sums to a BIGINT, a BIGINT to a
+    numeric (here DECIMAL(38, 0): exact past int64), a decimal keeps its
+    scale with ten more digits (the reference keeps the argument's type)."""
+    if arg_t.kind == K.INT:
+        return Type.bigint(True)
+    if arg_t.kind == K.BIGINT:
+        return Type.decimal(38, 0, True)
+    if arg_t.kind == K.DECIMAL:
+        return Type.decimal(min(arg_t.p + 10, 38), arg_t.s, True)
+    return arg_t.as_nullable()
 
 
 def _adapt_decimal(p: int, s: int) -> tuple[int, int]:

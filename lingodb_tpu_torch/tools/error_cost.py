@@ -29,7 +29,10 @@ import sys
 import time
 
 # each stays in range on TPC-H's data (l_linenumber 1..7, l_partkey and
-# l_suppkey below 2^31 / 8 up to SF 100, l_extendedprice below 10^6)
+# l_suppkey below 2^31 / 8 up to SF 100, l_extendedprice below 10^6; the
+# BIGINT product at SF 1). Where the columns' bounds prove an operator
+# fits, the port builds no code for it (ops/bounds.py); the rest go through
+# its checked kernel, one launch an operator (ops/checked.py)
 STATEMENTS = {
     "int_mul_grouped": (
         "SELECT l_returnflag, sum(l_linenumber * 1000000000) FROM lineitem "
@@ -43,6 +46,12 @@ STATEMENTS = {
     "int_arith_filter": (
         "SELECT count(*) FROM lineitem WHERE l_partkey * 4 + l_linenumber "
         "> l_suppkey * 40"),
+    # a BIGINT product the column's bounds cannot prove (l_partkey up to
+    # 200,000 at SF 1) that the rows the filter keeps hold
+    "bigint_mul_grouped": (
+        "SELECT l_returnflag, max(CAST(l_partkey AS BIGINT) * 80000000000000) "
+        "FROM lineitem WHERE l_partkey < 100000 GROUP BY l_returnflag "
+        "ORDER BY l_returnflag"),
 }
 
 

@@ -500,3 +500,323 @@ INSERT_STATEMENTS = {
         "INSERT INTO {t}(a) SELECT CAST(v AS BIGINT) * 100000000 FROM w",
         Raises("integer out of range")),
 }
+
+
+# ------------------------------------------------------------------ C24-C26
+# Arithmetic past int64 (C24: DECIMAL products and their sums, exact as
+# PostgreSQL's numeric; the JAX package wraps on its tensor tier), sum and
+# avg of a BIGINT (C25: a numeric in PostgreSQL; the JAX package sums in
+# int64 on both tiers) and casts past a DECIMAL's precision (C26: "numeric
+# field overflow"; the JAX package keeps the value). The oracle is sqlite3
+# over the same rows with its decimals held as text and computed by Python's
+# decimal module (exact_functions: dadd, dsub, dmul, dgt, dround, dsum,
+# davg), or Raises(PostgreSQL's words).
+def wide_setup(rows: int = 240, seed: int = 20261019,
+               sqlite: bool = False) -> list[str]:
+    """wide(k, g, x, e, p, d, b, n, f, s) of `rows` rows made from `seed`:
+    e a price near 123456.78 (e * e * e passes int64), p near 38000.123456
+    ((p - 38000.123456)^2 passes int64 where |p - 38000.123456| > 3037), d
+    a DECIMAL(18,2) (every tenth row small), b a BIGINT near 2^62 on three
+    rows of four (NULL on some), n a DECIMAL(12,2) that is NULL, small
+    (k % 3 = 0) or near 10^10, f a double, s the string 'g' || g; and
+    wdim(g, label). With `sqlite` the same rows in sqlite3's form: the
+    decimals as text."""
+    rng = np.random.default_rng(seed)
+
+    def dec(v: int, s: int) -> str:
+        sign = "-" if v < 0 else ""
+        ip, fp = divmod(abs(v), 10**s)
+        return f"{sign}{ip}.{fp:0{s}d}"
+
+    out = []
+    for k in range(rows):
+        g = k % 5
+        x = int(rng.integers(0, 1000))
+        e = dec(12345678 + 101 * k, 2)
+        p = (None if rng.random() < 0.1 else
+             dec(38000123456 + int(rng.integers(-5 * 10**9, 5 * 10**9)), 6))
+        d = dec(int(rng.integers(-999, 1000)) if k % 10 == 0
+                else int(rng.integers(-10**12, 10**12)), 2)
+        b = (None if rng.random() < 0.1 else
+             (1 << 62) + int(rng.integers(0, 10**6)) if k % 4
+             else -int(rng.integers(0, 10**9)))
+        n = (None if rng.random() < 0.25 else
+             dec(int(rng.integers(0, 9999)), 2) if k % 3 == 0
+             else dec(int(rng.integers(10**11, 10**12 - 1)), 2))
+        f = round(float(rng.uniform(-2e4, 2e4)), 3)
+        out.append((k, g, x, e, p, d, b, n, f, f"g{g}"))
+
+    def lit(v, j):
+        if v is None:
+            return "NULL"
+        if j == 9 or (sqlite and j in (3, 4, 5, 7)):  # strings, text
+            return f"'{v}'"
+        return str(v)
+
+    body = ", ".join(
+        "(" + ", ".join(lit(v, j) for j, v in enumerate(r)) + ")"
+        for r in out)
+    dd = "TEXT" if sqlite else None
+    cols = (f"k INT, g INT, x INT, e {dd or 'DECIMAL(12,2)'}, "
+            f"p {dd or 'DECIMAL(12,6)'}, d {dd or 'DECIMAL(18,2)'}, b BIGINT, "
+            f"n {dd or 'DECIMAL(12,2)'}, f DOUBLE, s VARCHAR(4)")
+    dim = [f"({g}, 'l{g}')" for g in range(5)]
+    return [f"CREATE TABLE wide({cols})", f"INSERT INTO wide VALUES {body}",
+            "CREATE TABLE wdim(g INT, label VARCHAR(8))",
+            f"INSERT INTO wdim VALUES {', '.join(dim)}"]
+
+
+def exact_functions(conn) -> None:
+    """Register the exact decimal functions the oracle forms call on a
+    sqlite3 connection: NULL in, NULL out; values exchanged as text."""
+    import decimal
+
+    ctx = decimal.Context(prec=200, rounding=decimal.ROUND_HALF_UP)
+
+    def num(v):
+        return None if v is None else decimal.Decimal(str(v))
+
+    def fn(op):
+        def call(*args):
+            vals = [num(a) for a in args]
+            if any(v is None for v in vals):
+                return None
+            return str(op(*vals))
+        return call
+
+    conn.create_function("dadd", 2, fn(lambda a, b: ctx.add(a, b)))
+    conn.create_function("dsub", 2, fn(lambda a, b: ctx.subtract(a, b)))
+    conn.create_function("dmul", 2, fn(lambda a, b: ctx.multiply(a, b)))
+    conn.create_function("dround", 2, fn(
+        lambda a, s: a.quantize(decimal.Decimal(1).scaleb(-int(s)), context=ctx)))
+    conn.create_function("dgt", 2, lambda a, b: None if a is None or b is None
+                         else int(num(a) > num(b)))
+
+    class Sum:
+        def __init__(self):
+            self.total, self.n = decimal.Decimal(0), 0
+
+        def step(self, v):
+            if v is not None:
+                self.total, self.n = ctx.add(self.total, num(v)), self.n + 1
+
+        def finalize(self):
+            return None if self.n == 0 else str(self.total)
+
+    class Avg(Sum):
+        def step(self, v, s):
+            self.s = int(s)
+            Sum.step(self, v)
+
+        def finalize(self):
+            if self.n == 0:
+                return None
+            q = ctx.divide(self.total, decimal.Decimal(self.n))
+            return str(q.quantize(decimal.Decimal(1).scaleb(-self.s),
+                                  context=ctx))
+
+    conn.create_aggregate("dsum", 1, Sum)
+    conn.create_aggregate("davg", 2, Avg)
+
+
+def exact_rows(res) -> list[list]:
+    """A result's rows with its decimals as exact Decimals."""
+    from decimal import Decimal
+
+    from ..sql.types import K
+
+    return [[None if v is None else
+             Decimal(f"{int(v)}E-{t.s}") if t.kind == K.DECIMAL else v
+             for v, t in zip(r, res.types)] for r in res.to_pylist()]
+
+
+def exact_equal(got: list[list], want: list) -> tuple[bool, str]:
+    """exact_rows against the oracle's rows: strings as strings, numbers as
+    exact values, the oracle's exact decimal rounded half away from zero to
+    the result's scale (the engine's decimal types keep at most 38
+    digits)."""
+    from decimal import ROUND_HALF_UP, Context, Decimal
+
+    if len(got) != len(want):
+        return False, f"{len(got)} rows against {len(want)}"
+    for i, (a, b) in enumerate(zip(got, want)):
+        if len(a) != len(b):
+            return False, f"row {i}: {a} against {b}"
+        for x, y in zip(a, b):
+            if x is None or y is None:
+                ok = x is None and y is None
+            elif isinstance(x, str):
+                ok = x == str(y)
+            elif isinstance(x, Decimal):
+                ok = x == Decimal(str(y)).quantize(
+                    x, rounding=ROUND_HALF_UP, context=Context(prec=200))
+            else:
+                ok = Decimal(str(x)) == Decimal(str(y))
+            if not ok:
+                return False, f"row {i}: {a} against {b}"
+    return True, ""
+
+
+_P = "dsub(p, '38000.123456')"
+_VAR = f"dmul({_P}, {_P})"
+_E3 = "dmul(dmul(e, e), e)"
+WIDE_STATEMENTS = {
+    # C24: products and sums past int64
+    "cube": ("SELECT k, e * e * e FROM wide ORDER BY k",
+             f"SELECT k, {_E3} FROM wide ORDER BY k"),
+    "sum_cube": ("SELECT sum(e * e * e) FROM wide",
+                 f"SELECT dsum({_E3}) FROM wide"),
+    "grouped_sum_cube": (
+        "SELECT g, sum(e * e * e), count(*) FROM wide GROUP BY g ORDER BY g",
+        f"SELECT g, dsum({_E3}), count(*) FROM wide GROUP BY g ORDER BY g"),
+    "grouped_avg_cube": (
+        "SELECT g, avg(e * e * e) FROM wide GROUP BY g ORDER BY g",
+        f"SELECT g, davg({_E3}, 8) FROM wide GROUP BY g ORDER BY g"),
+    "variance_by_hand": (
+        "SELECT sum((p - 38000.123456) * (p - 38000.123456)) FROM wide",
+        f"SELECT dsum({_VAR}) FROM wide"),
+    "grouped_variance_by_hand": (
+        "SELECT g, sum((p - 38000.123456) * (p - 38000.123456)), count(p) "
+        "FROM wide WHERE k > 3 GROUP BY g ORDER BY g",
+        f"SELECT g, dsum({_VAR}), count(p) FROM wide WHERE k > 3 GROUP BY g "
+        "ORDER BY g"),
+    "variance_rows": (
+        "SELECT k, (p - 38000.123456) * (p - 38000.123456) FROM wide "
+        "ORDER BY k", f"SELECT k, {_VAR} FROM wide ORDER BY k"),
+    "d_cube": ("SELECT k, d * d * d FROM wide ORDER BY k",
+               "SELECT k, dmul(dmul(d, d), d) FROM wide ORDER BY k"),
+    "d_square_plus_d": ("SELECT k, d * d + d FROM wide ORDER BY k",
+                        "SELECT k, dadd(dmul(d, d), d) FROM wide ORDER BY k"),
+    "price_times_d": ("SELECT k, e * d FROM wide ORDER BY k",
+                      "SELECT k, dmul(e, d) FROM wide ORDER BY k"),
+    "cube_minus_d": ("SELECT k, e * e * e - d FROM wide ORDER BY k",
+                     f"SELECT k, dsub({_E3}, d) FROM wide ORDER BY k"),
+    "bigint_times_price": ("SELECT k, b * e FROM wide ORDER BY k",
+                           "SELECT k, dmul(b, e) FROM wide ORDER BY k"),
+    "cube_in_predicate": (
+        "SELECT k FROM wide WHERE e * e * e > 1881800000000000 ORDER BY k",
+        f"SELECT k FROM wide WHERE dgt({_E3}, '1881800000000000') ORDER BY k"),
+    "cube_in_case": (
+        "SELECT k, CASE WHEN g = 0 THEN e * e * e ELSE e END FROM wide "
+        "ORDER BY k",
+        f"SELECT k, CASE WHEN g = 0 THEN {_E3} ELSE e END FROM wide "
+        "ORDER BY k"),
+    "cube_of_nullable": (
+        "SELECT k, coalesce(n * n * n, 0) FROM wide ORDER BY k",
+        "SELECT k, coalesce(dmul(dmul(n, n), n), 0) FROM wide ORDER BY k"),
+    "topk_epilogue_cube": (
+        "SELECT g, sum(e) * sum(e) * sum(e) AS c FROM wide GROUP BY g "
+        "ORDER BY g LIMIT 3",
+        "SELECT g, dmul(dmul(dsum(e), dsum(e)), dsum(e)) AS c FROM wide "
+        "GROUP BY g ORDER BY g LIMIT 3"),
+    "chain_cube": (
+        "SELECT wide.k, wdim.label FROM wide JOIN wdim ON wide.g = wdim.g "
+        "WHERE wide.k > 3 AND wide.e * wide.e * wide.e > 1881800000000000 "
+        "ORDER BY wide.k",
+        "SELECT wide.k, wdim.label FROM wide JOIN wdim ON wide.g = wdim.g "
+        f"WHERE wide.k > 3 AND dgt({_E3}, '1881800000000000') "
+        "ORDER BY wide.k"),
+    "charge_that_fits": (
+        "SELECT g, sum(e * (1 - 0.05) * (1 + 0.08)) FROM wide GROUP BY g "
+        "ORDER BY g",
+        "SELECT g, dsum(dmul(dmul(e, '0.95'), '1.08')) FROM wide GROUP BY g "
+        "ORDER BY g"),
+    # rows the statement does not read (a conjunct that is FALSE, a NULL)
+    # neither mark nor raise
+    "filtered_rows_do_not_mark": (
+        "SELECT k FROM wide WHERE n < 100 AND n * n * n >= 0 ORDER BY k",
+        "SELECT k FROM wide WHERE CAST(n AS REAL) < 100 ORDER BY k"),
+    "null_rows_do_not_mark": (
+        "SELECT k, n * n * n FROM wide WHERE n IS NULL OR k % 3 = 0 "
+        "ORDER BY k",
+        "SELECT k, dmul(dmul(n, n), n) FROM wide WHERE n IS NULL OR k % 3 = 0 "
+        "ORDER BY k"),
+    # C25: sum and avg of a BIGINT are numerics
+    "sum_bigint": ("SELECT sum(b) FROM wide", "SELECT dsum(b) FROM wide"),
+    "avg_bigint": ("SELECT avg(b) FROM wide", "SELECT davg(b, 19) FROM wide"),
+    "grouped_sum_avg_bigint": (
+        "SELECT g, sum(b), avg(b), count(b) FROM wide GROUP BY g ORDER BY g",
+        "SELECT g, dsum(b), davg(b, 19), count(b) FROM wide GROUP BY g "
+        "ORDER BY g"),
+    "grouped_sum_bigint_filtered": (
+        "SELECT g, sum(b) FROM wide WHERE k > 10 GROUP BY g ORDER BY g",
+        "SELECT g, dsum(b) FROM wide WHERE k > 10 GROUP BY g ORDER BY g"),
+    "running_sum_bigint": (
+        "SELECT k, sum(b) OVER (ORDER BY k) FROM wide ORDER BY k",
+        "SELECT k, (SELECT dsum(b) FROM wide w2 WHERE w2.k <= wide.k) "
+        "FROM wide ORDER BY k"),
+    "partition_sum_bigint": (
+        "SELECT k, sum(b) OVER (PARTITION BY g) FROM wide ORDER BY k",
+        "SELECT k, (SELECT dsum(b) FROM wide w2 WHERE w2.g = wide.g) "
+        "FROM wide ORDER BY k"),
+    "frame_sum_bigint": (
+        "SELECT k, sum(b) OVER (ORDER BY k ROWS BETWEEN 2 PRECEDING AND "
+        "CURRENT ROW) FROM wide ORDER BY k",
+        "SELECT k, (SELECT dsum(b) FROM wide w2 WHERE w2.k BETWEEN "
+        "wide.k - 2 AND wide.k) FROM wide ORDER BY k"),
+    "sum_distinct_bigint": ("SELECT sum(DISTINCT b) FROM wide",
+                            "SELECT dsum(DISTINCT b) FROM wide"),
+    "grouped_sum_distinct_bigint": (
+        "SELECT g, sum(DISTINCT b) FROM wide GROUP BY g ORDER BY g",
+        "SELECT g, dsum(DISTINCT b) FROM wide GROUP BY g ORDER BY g"),
+    "having_sum_bigint": (
+        "SELECT g FROM wide GROUP BY g HAVING sum(b) > 9223372036854775807 "
+        "ORDER BY g",
+        "SELECT g FROM wide GROUP BY g HAVING dgt(dsum(b), "
+        "'9223372036854775807') ORDER BY g"),
+    "sum_bigint_of_negatives": ("SELECT sum(b) FROM wide WHERE b < 0",
+                                "SELECT dsum(b) FROM wide WHERE b < 0"),
+    "sum_int_stays_bigint": ("SELECT sum(x) FROM wide",
+                             "SELECT sum(x) FROM wide"),
+    # C26: a cast past the precision raises
+    "cast_literal_past_precision": (
+        "SELECT CAST(12345.678 AS DECIMAL(5,2))",
+        Raises("numeric field overflow")),
+    "cast_literal_rounds_past_precision": (
+        "SELECT CAST(999.995 AS DECIMAL(5,2))",
+        Raises("numeric field overflow")),
+    "cast_literal_rounds_within": ("SELECT CAST(999.994 AS DECIMAL(5,2))",
+                                   "SELECT '999.99'"),
+    "cast_string_past_precision": (
+        "SELECT CAST('123456.7' AS DECIMAL(5,1))",
+        Raises("numeric field overflow")),
+    "cast_column_past_precision": (
+        "SELECT k, CAST(d AS DECIMAL(4,2)) FROM wide ORDER BY k",
+        Raises("numeric field overflow")),
+    "cast_price_narrower": ("SELECT k, CAST(e AS DECIMAL(7,2)) FROM wide",
+                            Raises("numeric field overflow")),
+    "cast_price_that_fits": (
+        "SELECT k, CAST(e AS DECIMAL(8,1)) FROM wide ORDER BY k",
+        "SELECT k, dround(e, 1) FROM wide ORDER BY k"),
+    "cast_int_past_precision": ("SELECT k, CAST(x AS DECIMAL(3,1)) FROM wide",
+                                Raises("numeric field overflow")),
+    "cast_double_past_precision": (
+        "SELECT k, CAST(f AS DECIMAL(6,2)) FROM wide",
+        Raises("numeric field overflow")),
+    "cast_filtered_rows_fit": (
+        "SELECT k, CAST(d AS DECIMAL(4,2)) FROM wide WHERE k % 10 = 0 "
+        "ORDER BY k",
+        "SELECT k, d FROM wide WHERE k % 10 = 0 ORDER BY k"),
+    "cast_null_rows_fit": (
+        "SELECT k, CAST(n AS DECIMAL(6,2)) FROM wide WHERE n IS NULL "
+        "OR k % 3 = 0 ORDER BY k",
+        "SELECT k, n FROM wide WHERE n IS NULL OR k % 3 = 0 ORDER BY k"),
+    "cast_bigint_to_wide": (
+        "SELECT k, CAST(b AS DECIMAL(38,10)) FROM wide ORDER BY k",
+        "SELECT k, b FROM wide ORDER BY k"),
+    "cast_price_to_wide_scale": (
+        "SELECT k, CAST(e AS DECIMAL(30,18)) FROM wide ORDER BY k",
+        "SELECT k, e FROM wide ORDER BY k"),
+}
+# the C24 statements, also held against the JAX package's host tier (exact
+# there: its device tier wraps)
+WIDE_JAX_EXACT = ("cube", "sum_cube", "grouped_sum_cube", "variance_by_hand",
+                  "grouped_variance_by_hand", "variance_rows", "d_cube",
+                  "d_square_plus_d", "price_times_d", "cube_minus_d",
+                  "bigint_times_price", "cube_in_predicate", "cube_in_case",
+                  "cube_of_nullable", "topk_epilogue_cube", "chain_cube",
+                  "charge_that_fits")
+# statements whose live rows all fit: they run once, never again exactly
+WIDE_NO_RERUN = ("charge_that_fits", "filtered_rows_do_not_mark",
+                 "cast_price_that_fits", "cast_filtered_rows_fit",
+                 "cast_null_rows_fit", "sum_int_stays_bigint")

@@ -370,6 +370,11 @@ def test_perf_mode_profile_equals_reference(env, q, capfd):
                if r[4])
 
 
+# the modules whose plain versions stand in for a kernel on the CPU (on the
+# card the wrapper launches the kernel, which reads nothing to the host)
+_PLAIN_VERSIONS = ("pgather.py", "checked.py")
+
+
 def _guard_host_reads(monkeypatch):
     """Guards on every way a fused program could copy from the host or read
     to it (see test_fused_programs_copy_nothing_from_the_host), on while
@@ -389,8 +394,9 @@ def _guard_host_reads(monkeypatch):
         def call(*a, **k):
             if state["inside"] and not state["upload"] and check(a, k):
                 where = traceback.extract_stack()[-2]
-                # pgather's plain versions stand in for the kernels here
-                if not where.filename.endswith("pgather.py"):
+                # pgather's and checked's plain versions stand in for the
+                # kernels here
+                if not where.filename.endswith(_PLAIN_VERSIONS):
                     bad.append(f"{name} at "
                                f"{os.path.basename(where.filename)}:"
                                f"{where.lineno}")
@@ -443,7 +449,7 @@ def _guard_host_reads(monkeypatch):
             if any(name.startswith(w) for w in waits):
                 where = [f for f in traceback.extract_stack()
                          if "lingodb_tpu_torch" in f.filename][-1]
-                if not where.filename.endswith("pgather.py"):
+                if not where.filename.endswith(_PLAIN_VERSIONS):
                     bad.append(f"aten.{name} at "
                                f"{os.path.basename(where.filename)}:"
                                f"{where.lineno}")
@@ -542,11 +548,11 @@ CONST_ARG_EXPRS = {
     "cast_double": ("CAST({x} AS INT)", "num"),
 }
 # those that can fail, by the programs that build their code (the chain's
-# select list is an eager Map): a double beyond INT's range, and the TopK
-# epilogue's sum(m), a DECIMAL(20,2); the others build no data-error code
-# (m, a DECIMAL(10,2), fits INT even rounded)
-CONST_ARG_CAN_FAIL = {"cast": {"topk_epilogue"},
-                      "cast_double": {"aggregate", "topk_epilogue"}}
+# select list is an eager Map): a double beyond INT's range; the others
+# build no data-error code (m, a DECIMAL(10,2), fits INT even rounded, and
+# so does the TopK epilogue's sum(m), a DECIMAL(20,2), by the bounds of m's
+# values over w's rows, ops/bounds.py)
+CONST_ARG_CAN_FAIL = {"cast_double": {"aggregate", "topk_epilogue"}}
 _AS_NUMBER = {"num": "{}", "bool": "CASE WHEN {} THEN 1 ELSE 0 END",
               "str": "length({})", "date": "extract(day FROM {})"}
 # (the program, the operands, the statement): the fused aggregate, the
@@ -573,18 +579,21 @@ def const_arg_session():
     """A session over tools/sqlite_battery.py's table w at 5,000 rows (NULLs
     in every column but the keys) and a seven-row dimension u, all on the
     tensor tier."""
-    from lingodb_tpu_torch.tools import sqlite_battery as sb
-
     old = dv.SMALL_ROWS
     dv.SMALL_ROWS = 64  # read when a column is first uploaded
     s = ldb.create_in_memory(device="cpu")
-    for st in sb.semantics_setup(5000):
+    for st in _const_arg_setup():
         s.sql_stmt(st)
-    s.sql_stmt("CREATE TABLE u(g INT, label VARCHAR(8))")
-    s.sql_stmt("INSERT INTO u VALUES "
-               + ", ".join(f"({i}, 'l{i}')" for i in range(7)))
     yield s
     dv.SMALL_ROWS = old
+
+
+def _const_arg_setup() -> list:
+    from lingodb_tpu_torch.tools import sqlite_battery as sb
+
+    return sb.semantics_setup(5000) + [
+        "CREATE TABLE u(g INT, label VARCHAR(8))",
+        "INSERT INTO u VALUES " + ", ".join(f"({i}, 'l{i}')" for i in range(7))]
 
 
 @pytest.mark.parametrize("fn", list(CONST_ARG_EXPRS))
@@ -684,3 +693,82 @@ def test_data_errors_raise_from_the_packed_fetch(const_arg_session, fn, ctx,
         assert raised_in in ex.FETCH_FINISHES, (sql, raised_in)
         assert not bad, (ctx, sql, sorted(set(bad)))
     assert any(built)
+
+
+# a DECIMAL product past int64 on some live rows (m, a DECIMAL(10,2) up to
+# 500.00: its fifth power passes int64 at scale 10) inside each fused
+# program: the checked kernel marks the rows, the program returns the mark
+# as its scalar "err", and the statement runs again on the exact host path
+WIDE_CONTEXTS = {
+    "aggregate": ("_fused_program",
+                  "SELECT g, sum(m * m * m * m * m) FROM w WHERE id > 10 "
+                  "GROUP BY g ORDER BY g"),
+    "chain": ("_fused_chain_program",
+              "SELECT w.id, u.label FROM w JOIN u ON w.g = u.g "
+              "WHERE w.id > 10 AND w.m * w.m * w.m * w.m * w.m > 0"),
+    "topk_epilogue": ("_fused_program",
+                      "SELECT x, sum(m) * sum(m) * sum(m) * sum(m) * sum(m) "
+                      "AS r FROM w GROUP BY x ORDER BY x LIMIT 3"),
+}
+
+
+@pytest.mark.parametrize("ctx", list(WIDE_CONTEXTS))
+def test_wide_marks_run_the_statement_again_exactly(const_arg_session, ctx,
+                                                     monkeypatch):
+    """Inside the fused aggregate, the fused chain and the TopK epilogue a
+    row past int64 is no read to the host: the program builds its mark as
+    one more scalar, a finish reads it after the packed fetch and the
+    statement runs once more with the expression on the exact host path,
+    where the program declines on the host. A later run goes exact at once
+    (the plan's choice is in the stage cache): no program builds a mark
+    and no second run. Both runs give the host tier's exact rows."""
+    monkeypatch.setattr(dv, "SMALL_ROWS", 64)
+    program, sql = WIDE_CONTEXTS[ctx]
+    epilogues = []
+    apply_epi = F.apply_topk_epi
+
+    def spy(*a, **k):
+        epilogues.append(1)
+        return apply_epi(*a, **k)
+
+    monkeypatch.setattr(F, "apply_topk_epi", spy)
+    marked_in = []
+    raise_one = sc.raise_data_error
+
+    def raising(code, sources=None):
+        try:
+            raise_one(code, sources)
+        except sc.NeedsExact:
+            import sys
+
+            marked_in.append(sys._getframe(1).f_code.co_name)
+            raise
+
+    monkeypatch.setattr(sc, "raise_data_error", raising)
+    bad, ran = _guard_host_reads(monkeypatch)
+    built = _spy_error_codes(monkeypatch)
+    s = const_arg_session
+    first = s.sql(sql).format_rows()
+    assert program in ran, f"{ctx}: no fused program ran: {sql}"
+    if ctx == "topk_epilogue":
+        assert epilogues, f"no TopK epilogue ran in the program: {sql}"
+    assert any(built) and marked_in and all(
+        m in ex.FETCH_FINISHES for m in marked_in), (sql, marked_in)
+    assert s.executor.last_exact_reruns == 1, sql
+    assert not bad, (ctx, sql, sorted(set(bad)))
+    ran.clear()
+    epilogues.clear()
+    built.clear()
+    marked_in.clear()
+    assert s.sql(sql).format_rows() == first
+    assert s.executor.last_exact_reruns == 0 and not marked_in, sql
+    assert not any(built), sql
+    assert not bad, (ctx, sql, sorted(set(bad)))
+    if ctx == "topk_epilogue":
+        assert not epilogues, "the epilogue ran over the exact path's plan"
+    # the host tier computes the same statement exactly from the start
+    monkeypatch.setattr(dv, "SMALL_ROWS", 1 << 30)
+    host = ldb.create_in_memory(device="cpu")
+    for st in _const_arg_setup():
+        host.sql_stmt(st)
+    assert host.sql(sql).format_rows() == first
