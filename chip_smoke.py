@@ -75,7 +75,9 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               NULL literal arguments at their edges, two of them raising
               PostgreSQL's errors; errors the data raises: INT and BIGINT
               arithmetic beyond the range, casts of strings, decimals and
-              doubles to integers) on
+              doubles to integers; arithmetic past int64; DECIMAL % and
+              casts from DOUBLE and REAL to DECIMAL, and INSERTs that make
+              them) on
               the tensor tier, and CUBE over two keys with NULLs at 30,000
               rows at the default tier, each card row equal to the CPU
               session's and to sqlite3's, or raising PostgreSQL's words as
@@ -261,27 +263,37 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
               sf 0.05 tables, rows equal to the one-process mesh's and the
               one-card session's on both processes. NCCL takes one card a
               rank, so on one card this phase says that it did not run
-  15. wide    arithmetic past int64 (C24-C26): (a) (run within phase 3,
-              before any other profiling) the checked kernel
+  15. wide    arithmetic past int64 (C24-C27, C29): (a) (run within phase
+              3, before any other profiling) the checked kernel
               (csrc/checked_arith.cu) at lineitem's length against its plain
               version bit for bit, value and code, for each operator form
               (decimal products past int64, a product that rounds across the
               bound, a sum that rescales, INT and BIGINT arithmetic, a cast
-              past a precision), its first rows the edges (INT64_MIN,
-              +-(2^63 - 1), products exactly at the bound and one past it,
-              rescales that round to the bound and across it), timed beside
-              the plain version, the int64 PyTorch passes and the bytes
-              bound; then captured in a CUDA graph and replayed over new
-              inputs, bit for bit; (b) four statements over the SF1
+              past a precision; a DECIMAL % whose dividend or divisor the
+              rescale takes past int64; casts from DOUBLE and REAL to
+              DECIMAL), its first rows the edges (INT64_MIN, +-(2^63 - 1),
+              products exactly at the bound and one past it, rescales that
+              round to the bound and across it; INT64_MIN % -1, remainders
+              of exactly +-(2^63 - 1), zero divisors; 0.285, 1.005, 2.675,
+              99.995 at DECIMAL(4,2), -0.0, a subnormal, 2^53 +- 1, +-9.2 *
+              10^18 and past it, NaN and the infinities), timed beside the
+              plain version, the int64 PyTorch passes (torch.fmod of the
+              rescaled operands; torch.round(x * 10^s)) and the bytes bound,
+              by CUDA events around calls, by torch.profiler and as replays
+              of a CUDA graph of ten calls; the first mul, mod and cast_f
+              forms then captured in a CUDA graph and replayed over new
+              inputs, bit for bit; (b) seven statements over the SF1
               lineitem (WIDE_SQL: a grouped hand-written variance that needs
               the exact path on live rows, the same restricted to rows that
-              fit, sum and avg of BIGINTs near 2^62, q1), three runs each:
-              rows equal the CPU session's; per run the wall ms, captures,
-              replays, the statement's runs again on the exact path and the
-              checked kernel's launches; host syncs of the third run.
-              Phase 6 (b) also runs tools/sqlite_battery.py's
-              WIDE_STATEMENTS on the card, against the CPU session and the
-              exact oracle
+              fit, sum and avg of BIGINTs near 2^62, q1, a % whose dividend
+              passes int64 at its scale, casts of a double and of a real to
+              DECIMAL(15,2)), three runs each: rows equal the CPU session's;
+              per run the wall ms, captures, replays, the statement's runs
+              again on the exact path and the checked kernel's launches
+              (every run of the last three must launch it); host syncs of
+              the third run. Phase 6 (b) also runs tools/sqlite_battery.py's
+              WIDE_STATEMENTS and MOD_CAST_STATEMENTS on the card, against
+              the CPU session and the exact oracle
 
 Output: progress lines, then the `nvidia-smi` name/power line, then one JSON
 line {"kernels": [...]}, then as the last line
@@ -1695,11 +1707,26 @@ def sqlite_phase(torch, pg, ldb, launches):
         ("errors", 2, sb.semantics_setup() + sb.errors_setup(),
          sb.ERROR_STATEMENTS, True),
         ("wide", 2, sb.wide_setup(), sb.WIDE_STATEMENTS, True),
+        ("mod_cast", 2, sb.mod_cast_setup(), sb.MOD_CAST_STATEMENTS, True),
     ]
+    # the exact oracle's tables: decimals as text
+    exact_setup = {"wide": sb.wide_setup(sqlite=True),
+                   "mod_cast": sb.mod_cast_setup(sqlite=True)}
+    tables = iter(range(1 << 30))
+
+    def query(session, sql):
+        """A tuple runs its first entries as statements over a fresh table
+        {t}, its last as the query."""
+        if isinstance(sql, str):
+            return session.sql(sql)
+        name = f"p6b_{next(tables)}"
+        for st in sql[:-1]:
+            session.sql_stmt(st.format(t=name))
+        return session.sql(sql[-1].format(t=name))
 
     def raised(session, sql):
         try:
-            session.sql(sql)
+            query(session, sql)
         except Exception as exc:  # the statement must raise
             return exc
         return None
@@ -1715,13 +1742,13 @@ def sqlite_phase(torch, pg, ldb, launches):
         gpu = ldb.create_in_memory()
         cpu = ldb.create_in_memory(device="cpu")
         with closing(sqlite3.connect(":memory:")) as conn:
-            exact = label == "wide"  # the exact oracle: decimals as text
+            exact = label in exact_setup
             if exact:
                 sb.exact_functions(conn)
             for st in setup:
                 gpu.sql_stmt(st)
                 cpu.sql_stmt(st)
-            for st in (sb.wide_setup(sqlite=True) if exact else setup):
+            for st in exact_setup.get(label, setup):
                 conn.execute(st)
             for name, (sql, sqlite_sql) in stmts.items():
                 if isinstance(sqlite_sql, sb.Raises):
@@ -1742,9 +1769,9 @@ def sqlite_phase(torch, pg, ldb, launches):
                     n_checked += nchk
                     continue
                 res, counts, nchk = run_checked(torch, pg,
-                                                lambda: gpu.sql(sql))
+                                                lambda: query(gpu, sql))
                 counts["C"] = pg.LAUNCHES["checked_arith"]
-                got, want = res.to_pylist(), cpu.sql(sql).to_pylist()
+                got, want = res.to_pylist(), query(cpu, sql).to_pylist()
                 if not ordered:
                     got = sorted(got, key=row_key)
                     want = sorted(want, key=row_key)
@@ -1851,7 +1878,27 @@ WIDE_SQL = {
         "4611686018427387904), count(*) FROM lineitem GROUP BY l_returnflag "
         "ORDER BY l_returnflag", False),
     "q1": (None, False),  # queries/tpch/1.sql
+    # C27: l_orderkey * 10^12 fits a BIGINT, rescaled to % 0.0007's scale it
+    # passes int64; the remainder fits: the kernel computes it, no re-run
+    "mod_past_int64": (
+        "SELECT l_returnflag, sum(CAST(l_orderkey AS BIGINT) * 1000000000000 "
+        "% 0.0007), count(*) FROM lineitem GROUP BY l_returnflag "
+        "ORDER BY l_returnflag", False),
+    # C29: a double (a real) cast to DECIMAL, 15 (6) digits, then the scale
+    "cast_double": (
+        "SELECT l_returnflag, l_linestatus, sum(CAST(CAST(l_extendedprice AS "
+        "DOUBLE) * 1.005 AS DECIMAL(15,2))) FROM lineitem GROUP BY "
+        "l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus",
+        False),
+    "cast_real": (
+        "SELECT l_returnflag, l_linestatus, sum(CAST(CAST(l_extendedprice * "
+        "1.005 AS REAL) AS DECIMAL(15,2))) FROM lineitem GROUP BY "
+        "l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus",
+        False),
 }
+# the statements whose every run launches the checked kernel (a % whose
+# dividend passes int64 at its scale, a cast from a float)
+WIDE_CHECKED = ("mod_past_int64", "cast_double", "cast_real")
 INT64_MIN, INT64_MAX = -(1 << 63), (1 << 63) - 1
 
 
@@ -1872,6 +1919,44 @@ def _edge_pairs():
                  if tenth % d == 0 and abs(tenth // d) <= b)
         pairs.append((tenth // y, y))
     return pairs
+
+
+def _mod_edge_pairs():
+    """(x, y) rows at the edges of a checked %: INT64_MIN % -1, +-(2^63 -
+    1) rescaled by 10^18, 999999999999999999 % 0.007 (70 at scale 4),
+    remainders of exactly +-(2^63 - 1) (10 at scale 0 is 10^19 at scale
+    18), zero divisors."""
+    b = INT64_MAX
+    return [(INT64_MIN, -1), (b, 7), (-b, 7), (999999999999999999, 70),
+            (b, 10), (-b, 10), (INT64_MIN, b), (b, -b), (INT64_MIN, INT64_MIN),
+            (5, 0), (0, 0), (INT64_MIN, 0), (1, b), (-7, 2), (7, -2)]
+
+
+CAST_F_EDGES = [0.285, 1.005, 2.675, -0.125, 0.0, -0.0, 0.004999999999999999,
+                0.005, 5e-324, 2.0**53 - 1, 2.0**53 + 2, 9.2e18, -9.2e18,
+                9.3e18, -9.3e18, 9.223372036854775e18, 1e19, 99.995, -99.995,
+                float("nan"), float("inf"), float("-inf"), 999999999999999.5,
+                12345.675]
+
+
+def graph_ms(torch, fn, reps=10):
+    """Card ms of one fn() with no host in between: `reps` calls captured in
+    one CUDA graph, its replays timed by CUDA events. (torch.profiler read
+    some of the checked kernel's forms as 0 or below their bound.)"""
+    fn()
+    g, _out, _scratch = capture(torch, lambda: [fn() for _ in range(reps)])
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del g
+    return ms
 
 
 def check_checked_arith(torch, n, cases):
@@ -1897,49 +1982,100 @@ def check_checked_arith(torch, n, cases):
                             < 0.01, far, x)
         return x.to(dtype)
 
+    def floats(top, dtype, scale=1.0):
+        """n doubles in (-top, top), one row in a hundred a price of three
+        decimals (a half at the scale of two), as `dtype`."""
+        x = (torch.rand(n, generator=gen, device="cuda",
+                        dtype=torch.float64) * 2 - 1) * top
+        priced = torch.round(x * 1000) / 1000
+        x = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.01,
+                        priced, x)
+        return (x * scale).to(dtype)
+
+    def magnitudes(dtype):
+        """n doubles of every magnitude up to 10^16, one row in fifty up to
+        10^19 (past 2^52 the plain version takes Python's decimals)."""
+        e = torch.where(
+            torch.rand(n, generator=gen, device="cuda") < 0.02,
+            torch.randint(17, 20, (n,), generator=gen, device="cuda"),
+            torch.randint(0, 17, (n,), generator=gen, device="cuda"))
+        return ((torch.rand(n, generator=gen, device="cuda",
+                            dtype=torch.float64) * 2 - 1)
+                * torch.pow(10.0, e.to(torch.float64))).to(dtype)
+
     edges = _edge_pairs()
     i32 = (-(1 << 31), (1 << 31) - 1)
     i64 = (INT64_MIN, INT64_MAX)
     exact = sc.ERR_EXACT
-    # (label, op, sx, sy, s, (lo, hi), code, prec, code_prec, dtype, x, y)
+    num = sc.ERR_NUMERIC
+    # (label, op, sx, sy, s, (lo, hi), code, prec, code_prec, dtype, x, y,
+    # edge rows: (x, y) pairs, or x values of a cast; digits of cast_f)
     big = 8 * 10**9
+    f64, f32 = torch.float64, torch.float32
     specs = [
         ("variance (p - a)^2: DECIMAL scale 6 x 6 -> 12 past int64", "mul",
          6, 6, 12, i64, exact, 0, 0, torch.int64, col(10**9, big=big),
-         col(10**9, big=big)),
+         col(10**9, big=big), edges, 0),
         ("price^3 step: scale 4 x 2 -> 6 past int64", "mul", 4, 2, 6, i64,
          exact, 0, 0, torch.int64, col(10**11, big=10**15),
-         col(10**7, big=10**9)),
+         col(10**7, big=10**9), edges, 0),
         ("product rounded one digit: scale 3 x 3 -> 5", "mul", 3, 3, 5, i64,
          exact, 0, 0, torch.int64, col(1 << 50, big=1 << 62),
-         col(1 << 8)),
+         col(1 << 8), edges, 0),
         ("sum rescaled: scale 2 + 6 -> 6", "add", 2, 6, 6, i64, exact, 0, 0,
-         torch.int64, col(10**12, big=10**15), col(1 << 58, big=1 << 62)),
+         torch.int64, col(10**12, big=10**15), col(1 << 58, big=1 << 62),
+         edges, 0),
         ("INT * INT", "mul", 0, 0, 0, i32, sc.ERR_INT, 0, 0, torch.int32,
-         col(1 << 15, torch.int32, big=1 << 20), col(1 << 14, torch.int32)),
+         col(1 << 15, torch.int32, big=1 << 20), col(1 << 14, torch.int32),
+         None, 0),
         ("BIGINT - BIGINT", "sub", 0, 0, 0, i64, sc.ERR_BIGINT, 0, 0,
          torch.int64, col(1 << 58, big=INT64_MAX),
-         col(1 << 58, big=INT64_MAX)),
+         col(1 << 58, big=INT64_MAX), edges, 0),
         ("cast scale 6 -> DECIMAL(12,2)", "cast", 6, 0, 2, i64, exact, 12,
-         sc.ERR_NUMERIC, torch.int64, col(10**14, big=10**15), None),
+         sc.ERR_NUMERIC, torch.int64, col(10**14, big=10**15), None,
+         [e[0] for e in edges], 0),
+        # C27: BIGINT % DECIMAL(p,4), the dividend rescaled by 10^4 past
+        # int64 (l_orderkey * 10^12 % 0.0007 in phase 15 (b))
+        ("mod: BIGINT % DECIMAL scale 0 % 4 -> 4, dividend past int64",
+         "mod", 0, 4, 4, i64, exact, 0, 0, torch.int64,
+         col(INT64_MAX), col(10**6), _mod_edge_pairs(), 0),
+        ("mod: DECIMAL scale 18 % BIGINT -> 18, divisor rescaled 10^18",
+         "mod", 18, 0, 18, i64, exact, 0, 0, torch.int64,
+         col(INT64_MAX), col(10, big=INT64_MAX), _mod_edge_pairs(), 0),
+        # C29: casts from DOUBLE and REAL, 15 (6) digits, then the scale
+        ("cast_f: DOUBLE -> DECIMAL(15,2)", "cast_f", 0, 0, 2, i64, exact,
+         15, num, torch.int64, floats(1e5, f64), None, CAST_F_EDGES, 15),
+        ("cast_f: REAL -> DECIMAL(15,2)", "cast_f", 0, 0, 2, i64, exact, 15,
+         num, torch.int64, floats(1e5, f32), None, CAST_F_EDGES, 6),
+        ("cast_f: DOUBLE -> DECIMAL(19,0), magnitudes to 10^19",
+         "cast_f", 0, 0, 0, i64, exact, 19, num, torch.int64,
+         magnitudes(f64), None, CAST_F_EDGES, 15),
+        ("cast_f: DOUBLE -> DECIMAL(4,2)", "cast_f", 0, 0, 2, i64, exact, 4,
+         num, torch.int64, floats(90.0, f64), None, CAST_F_EDGES, 15),
     ]
     valid = torch.rand(n, generator=gen, device="cuda") > 0.05
-    head_done = False
-    for label, op, sx, sy, s, (lo, hi), code, prec, code_prec, dt, x, y in specs:
-        if dt == torch.int64:  # the edges in the first rows
-            x[:len(edges)] = torch.tensor([e[0] for e in edges],
-                                          dtype=torch.int64, device="cuda")
-            if y is not None:
-                y[:len(edges)] = torch.tensor([e[1] for e in edges],
-                                              dtype=torch.int64, device="cuda")
+    # the ops whose first form is captured and replayed (add, sub and cast
+    # take mul's path through the kernel)
+    replayed = {"add", "sub", "cast"}
+    for (label, op, sx, sy, s, (lo, hi), code, prec, code_prec, dt, x, y,
+         edge_rows, digits) in specs:
+        if edge_rows is not None:  # the edges in the first rows
+            if y is None:
+                x[:len(edge_rows)] = torch.tensor(edge_rows, dtype=x.dtype,
+                                                  device="cuda")
+            else:
+                x[:len(edge_rows)] = torch.tensor(
+                    [e[0] for e in edge_rows], dtype=x.dtype, device="cuda")
+                y[:len(edge_rows)] = torch.tensor(
+                    [e[1] for e in edge_rows], dtype=y.dtype, device="cuda")
 
         def kernel():
             return ck.checked_arith(op, x, y, valid, sx, sy, s, lo, hi, code,
-                                    prec, code_prec, dt)
+                                    prec, code_prec, dt, digits)
 
         def plain():
             return ck.checked_arith_plain(op, x, y, valid, sx, sy, s, lo, hi,
-                                          code, prec, code_prec, dt)
+                                          code, prec, code_prec, dt, digits)
 
         got, want = kernel(), plain()
         torch.cuda.synchronize()
@@ -1959,23 +2095,29 @@ def check_checked_arith(torch, n, cases):
                     op, x, y, sx, sy, s)),
                 "library_device_ms": device_ms(torch, lambda: ck.int64_passes(
                     op, x, y, sx, sy, s)) or None,
+                "graph_ms": graph_ms(torch, kernel),
+                "library_graph_ms": graph_ms(torch, lambda: ck.int64_passes(
+                    op, x, y, sx, sy, s)),
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "bytes": nbytes}
         cases.append(case)
         log(f"# checked_arith {label} n={n}: {case['ms']:.4f} ms (on the card "
-            f"{fmt_ms(case['device_ms'])} ms), plain {case['plain_ms']:.4f} ms, "
+            f"{fmt_ms(case['device_ms'])} ms, graph-replayed "
+            f"{case['graph_ms']:.4f} ms), plain {case['plain_ms']:.4f} ms, "
             f"int64 passes {case['library_ms']:.4f} ms (on the card "
-            f"{fmt_ms(case['library_device_ms'])} ms), bound "
+            f"{fmt_ms(case['library_device_ms'])} ms, graph-replayed "
+            f"{case['library_graph_ms']:.4f} ms), bound "
             f"{case['bound_ms']:.4f} ms; {marked} rows marked; bit-equal")
-        if not head_done:  # the head case, captured and replayed
-            head_done = True
+        if op not in replayed:  # each op's first form, captured, replayed
+            replayed.add(op)
             g, out, _scratch = capture(torch, kernel)
             g.replay()
             torch.cuda.synchronize()
             if not (torch.equal(out[0], want[0])
                     and torch.equal(out[1], want[1])):
                 fail(f"checked_arith {label}: the graph's replay differs")
-            x.copy_(col(10**9, big=big))  # new inputs: the replay reads them
+            # new inputs (the rows permuted): the replay reads them
+            x.copy_(x[torch.randperm(n, generator=gen, device="cuda")])
             g.replay()
             want = plain()
             torch.cuda.synchronize()
@@ -1986,8 +2128,9 @@ def check_checked_arith(torch, n, cases):
             del g
     pg.reset_counters()  # launches made to compare do not count
     log(f"# checked_arith: {len(specs)} forms bit-equal to the plain version "
-        f"at n={n}, {len(edges)} edge rows each, the first captured and "
-        f"replayed twice ({time.perf_counter() - t0:.1f}s)")
+        f"at n={n}, their edge rows first, the first mul, mod and cast_f "
+        f"forms captured and replayed twice "
+        f"({time.perf_counter() - t0:.1f}s)")
 
 
 def wide_phase(torch, pg, gpu, cpu, launches, smi_line):
@@ -2024,6 +2167,10 @@ def wide_phase(torch, pg, gpu, cpu, launches, smi_line):
                                                  else [0, 0, 0]):
             fail(f"phase 15 {name}: exact runs by run "
                  f"{[r['exact_reruns'] for r in runs]}")
+        if name in WIDE_CHECKED and not all(r["checked_launches"]
+                                            for r in runs):
+            fail(f"phase 15 {name}: the checked kernel did not launch on "
+                 f"every run: {[r['checked_launches'] for r in runs]}")
         syncs, peak, _res = gpu_profile.syncs_and_peak(
             torch, lambda: gpu.sql(sql).to_pylist())
         report[name] = {"runs": runs, "syncs_third": syncs,

@@ -100,7 +100,8 @@ def _step(b, a: int, c: int) -> int:
 
 def arith_bound(op: str, ba, bb, sa: int, sb: int, s: int):
     """(result bound, largest intermediate magnitude) of add / sub / mul /
-    cast (bb None) over operand bounds at scales sa, sb, at result scale s."""
+    mod / cast (bb None) over operand bounds at scales sa, sb, at result
+    scale s."""
     if op == "cast":
         r = _rescale(ba, sa, s)
         return r, max(_mag(ba), _step(ba, sa, s))
@@ -110,10 +111,14 @@ def arith_bound(op: str, ba, bb, sa: int, sb: int, s: int):
         r = _rescale(p, sa + sb, s)
         return r, max(_mag(p), _step(p, sa + sb, s))
     a2, b2 = _rescale(ba, sa, s), _rescale(bb, sb, s)
+    inter = max(_mag(ba), _mag(bb), _step(ba, sa, s), _step(bb, sb, s))
+    if op == "mod":
+        # |R| < |b| and |R| <= |a|, with a's sign
+        m = min(_mag(a2), max(_mag(b2) - 1, 0))
+        return (-m if a2[0] < 0 else 0, m if a2[1] > 0 else 0), inter
     r = ((a2[0] + b2[0], a2[1] + b2[1]) if op == "add"
          else (a2[0] - b2[1], a2[1] - b2[0]))
-    return r, max(_mag(ba), _mag(bb), _step(ba, sa, s), _step(bb, sb, s),
-                  _mag(r))
+    return r, max(inter, _mag(r))
 
 
 def fits(op: str, ba, bb, sa: int, sb: int, s: int, lo: int, hi: int,
@@ -175,7 +180,7 @@ def _expr_bound(e, pb):
             out = _union(out, sub(v))
         return _meet(out, tb)
     if isinstance(e, Call):
-        if e.op in ("add", "sub", "mul") and len(e.args) == 2:
+        if e.op in ("add", "sub", "mul", "mod") and len(e.args) == 2:
             a, b = sub(e.args[0]), sub(e.args[1])
             if a is None or b is None:
                 return tb

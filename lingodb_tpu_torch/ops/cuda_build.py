@@ -138,7 +138,7 @@ def _declare(libs) -> None:
             # the checked operators (ops/checked.py)
             ("checked_arith", "ldb_checked_arith",
              [i32, i64, vp, i32, i64, vp, i32, i64, vp, i64, i32, i32, i32,
-              i64, i64, i32, i32, i32, vp, i32, vp, i32, vp])):
+              i64, i64, i32, i32, i32, i32, vp, i32, vp, i32, vp])):
         f = getattr(libs[lib_name], fn_name)
         f.argtypes = args
         f.restype = i32

@@ -562,7 +562,7 @@ def _int_scalar(x):
 
 def _checked(t: Type, op: str, x, y, valid, sx: int, sy: int, s: int,
              lo: int, hi: int, code: int, prec: int = 0,
-             code_prec: int = 0) -> SCol:
+             code_prec: int = 0, digits: int = 0) -> SCol:
     """A checked operator's column (ops/checked.py): its value and codes,
     the operands placed beside each other."""
     ref = _first_torch(x, y, valid)
@@ -572,7 +572,7 @@ def _checked(t: Type, op: str, x, y, valid, sx: int, sy: int, s: int,
         valid = None if valid is None else be.like(valid, ref)
     value, err = ckd.checked_arith(
         op, x, y, valid, sx, sy, s, lo, hi, code, prec, code_prec,
-        be.tdtype(np_dtype(t)))
+        be.tdtype(np_dtype(t)), digits)
     return SCol(t, value, valid, None, err)
 
 
@@ -631,27 +631,26 @@ def _cast_to_decimal(a: SCol, d: Type, e) -> SCol:
 
 
 def _cast_double_to_decimal(a: SCol, d: Type, e) -> SCol:
-    """A double cast to DECIMAL(p, s): rounded half away from zero at scale
-    s; a live row with more than p - s integer digits (or infinite, or NaN,
-    which the engine's decimals do not hold) raises "numeric field
-    overflow", and one int64 cannot hold needs the exact path."""
-    data, valid = be.astype(a.data, jnp.float64), a.valid
-    scaled = _round_half_away_f(data * (10.0**d.s))
-    fits_p = jnp.abs(scaled) < float(10**d.p)  # False for NaN
-    fits_i = jnp.abs(scaled) < 2.0**63
-    ref = _first_torch(data, valid)
-    if goes_exact(e) or (ref is None and bool(np.any(
-            np.asarray(fits_p & ~fits_i)))):
-        host = be.to_host(data).reshape(-1)
-        vals = np.array([int(_round_half_away_f(np.float64(v) * 10.0**d.s))
-                         if np.isfinite(v) else 10**d.p for v in host],
-                        dtype=np.object_).reshape(np.shape(be.to_host(data)))
-        return _exact_decimal(d, vals, valid, ref)
-    ok = fits_p & fits_i
-    out = be.astype(jnp.where(ok, scaled, 0.0), jnp.int64)
-    err = _first_err(_err_where(~fits_p, valid, ERR_NUMERIC),
-                     _err_where(fits_p & ~fits_i, valid, _exact_code(e)))
-    return SCol(d, out, valid, None, err)
+    """A double or real cast to DECIMAL(p, s) as PostgreSQL casts it: the
+    value rounded to 15 significant digits (a real's to 6), then half away
+    from zero at scale s (ops/checked.py, cast_f, one pass); a live row with
+    more than p - s integer digits (or infinite, or NaN, which the engine's
+    decimals do not hold) raises "numeric field overflow", and one int64
+    cannot hold needs the exact path."""
+    real = a.type.kind == K.FLOAT
+    digits = ckd.FLOAT_DIGITS[torch.float32 if real else torch.float64]
+    data = be.astype(a.data, jnp.float32 if real else jnp.float64)
+    valid = a.valid
+    if d.s <= ckd.MAX_SHIFT and not goes_exact(e):
+        out = _checked(d, "cast_f", data, None, valid, 0, 0, d.s, INT64_MIN,
+                       INT64_MAX, _exact_code(e), d.p, ERR_NUMERIC, digits)
+        if not _marks_exact(out):
+            return out
+    host = be.to_host(data)
+    vals = [ckd.float_result(float(v), digits, d.s) for v in host.reshape(-1)]
+    vals = np.array([10**d.p if v is None else v for v in vals],
+                    dtype=np.object_).reshape(np.shape(host))
+    return _exact_decimal(d, vals, valid, _first_torch(data, valid))
 
 
 def _exact_int(d: Type, q, valid, ref) -> SCol:
@@ -1642,6 +1641,9 @@ def _decimal_arith(op: str, a: SCol, b: SCol, t: Type, valid, e=None) -> SCol:
         and ((op in ("add", "sub", "mod")
               and max(abs(t.s - sa), abs(t.s - sb)) > 18)
              or (op == "mul" and abs(t.s - (sa + sb)) > 18)
+             # a remainder at a scale below an operand's (a type cut to 38
+             # digits) never comes to int64's rescale
+             or (op == "mod" and t.s < max(sa, sb))
              # wide division: the quotient a*10^shift/b routinely exceeds
              # int64 (12.51 at scale 19 wraps negative); magnitude is not
              # statically knowable, so wide result types always go exact
@@ -1650,8 +1652,8 @@ def _decimal_arith(op: str, a: SCol, b: SCol, t: Type, valid, e=None) -> SCol:
         is_obj(xa) or is_obj(xb)
         or (dec_is_wide(t) and not (is_torch(xa) or is_torch(xb)))
         or big_shift))
-    checks = (sa is not None and sb is not None and op in ("add", "sub", "mul")
-              and not exact)
+    checks = (sa is not None and sb is not None
+              and op in ("add", "sub", "mul", "mod") and not exact)
     if checks:
         ea, eb = (None, None) if e is None else e.args
         if op == "mul" and t.s > sa + sb:
@@ -1672,6 +1674,10 @@ def _decimal_arith(op: str, a: SCol, b: SCol, t: Type, valid, e=None) -> SCol:
         out = _checked(t, op, xa, xb, valid, sa, sb, t.s, INT64_MIN,
                        INT64_MAX, _exact_code(e))
         if not _marks_exact(out):
+            if op == "mod":  # a divisor of 0 gives NULL (no code)
+                nonzero = be.like(xb, out.data) != 0
+                out = dataclasses.replace(
+                    out, valid=_mask_and(out.valid, nonzero))
             return out
         exact = True
     if exact:

@@ -568,7 +568,10 @@ def wide_setup(rows: int = 240, seed: int = 20261019,
 
 def exact_functions(conn) -> None:
     """Register the exact decimal functions the oracle forms call on a
-    sqlite3 connection: NULL in, NULL out; values exchanged as text."""
+    sqlite3 connection: NULL in, NULL out; values exchanged as text. dmod
+    and ddiv give NULL for a divisor of 0 (the engine's rule); dcastf(x,
+    digits, scale) is PostgreSQL's cast of a double (digits 15) or a real
+    (digits 6) to a numeric of that scale."""
     import decimal
 
     ctx = decimal.Context(prec=200, rounding=decimal.ROUND_HALF_UP)
@@ -617,6 +620,33 @@ def exact_functions(conn) -> None:
 
     conn.create_aggregate("dsum", 1, Sum)
     conn.create_aggregate("davg", 2, Avg)
+
+    def dmod(a, b):  # the truncated remainder, the dividend's sign
+        if a is None or b is None or num(b) == 0:
+            return None
+        return str(ctx.remainder(num(a), num(b)))
+
+    def ddiv(a, b):
+        if a is None or b is None or num(b) == 0:
+            return None
+        return str(ctx.divide(num(a), num(b)))
+
+    def dcastf(x, digits, scale):
+        # PostgreSQL's float8_numeric / float4_numeric: printf's "%.*g" at
+        # DBL_DIG / FLT_DIG digits (a REAL's value is a float32), then the
+        # typmod's scale, half away from zero
+        if x is None:
+            return None
+        x = float(x)
+        if int(digits) == 6:
+            x = float(np.float32(x))
+        d = decimal.Decimal(f"%.{int(digits)}g" % x)
+        return str(d.quantize(decimal.Decimal(1).scaleb(-int(scale)),
+                              context=ctx))
+
+    conn.create_function("dmod", 2, dmod)
+    conn.create_function("ddiv", 2, ddiv)
+    conn.create_function("dcastf", 3, dcastf)
 
 
 def exact_rows(res) -> list[list]:
@@ -820,3 +850,224 @@ WIDE_JAX_EXACT = ("cube", "sum_cube", "grouped_sum_cube", "variance_by_hand",
 WIDE_NO_RERUN = ("charge_that_fits", "filtered_rows_do_not_mark",
                  "cast_price_that_fits", "cast_filtered_rows_fit",
                  "cast_null_rows_fit", "sum_int_stays_bigint")
+
+
+# ------------------------------------------------------------------ C27, C29
+# DECIMAL % that wrapped in int64 on both tiers (C27: the operands rescaled
+# to the result's scale with no check), and casts from DOUBLE and REAL to
+# DECIMAL that rounded the binary value where PostgreSQL rounds its 15 (a
+# REAL's 6) significant digits first (C29). The JAX package shares both
+# faults: the oracle is sqlite3 over the same rows with its decimals held as
+# text (exact_functions: dmod, ddiv, dcastf, dsum, dgt), or Raises(words).
+def mod_cast_setup(rows: int = 160, seed: int = 20261020,
+                   sqlite: bool = False) -> list[str]:
+    """mc(k, g, a, b, c, e, d, i, f, r, h, s) of `rows` rows made from `seed`:
+    a DECIMAL(18,0) up to 10^18, b a DECIMAL(18,10), c a DECIMAL(12,2) up to
+    10^10, e a DECIMAL(4,2), d a DECIMAL(18,2), i a BIGINT near +-9 * 10^18
+    on half the rows, f a DOUBLE price of three decimals, r a REAL, h a
+    DOUBLE up to 9.3 * 10^18; b, c, e are 0 on some rows and every column
+    but k, g and s is NULL on some; s is 'g' || g. The first rows hold the
+    edges (123456789012 % 1.5, 0.285, 1.005, 2.675, 99.995, 2^53 + 1, 9.2 *
+    10^18 ...). And
+    mdim(g, label). With `sqlite` the same rows in sqlite3's form: the
+    decimals as text."""
+    rng = np.random.default_rng(seed)
+
+    def dec(v: int, s: int) -> str:
+        sign = "-" if v < 0 else ""
+        ip, fp = divmod(abs(v), 10**s)
+        return f"{sign}{ip}.{fp:0{s}d}" if s else f"{sign}{ip}"
+
+    edges = [  # a, b, c, e, i, f, r, h
+        (123456789012, 15 * 10**9, 12345678, 1, 9 * 10**18, "0.285", "2.675",
+         "9.2e18"),
+        (-987654321, 225 * 10**8, 999999999999, 1, -9 * 10**18, "1.005",
+         "0.285", "-9.2e18"),
+        (999999999999999999, 7 * 10**7, -999999999999, -1, 7, "2.675",
+         "1.005", "9.3e18"),
+        (5, 0, 0, 0, 0, "99.995", "99.995", "9007199254740993.0"),
+        (None, 1, 100, 9999, None, "-0.125", "-0.125", "9007199254740991.0"),
+        (-5, -15 * 10**9, None, None, -7, "0.004999999999999999", "0.005",
+         "1000000000000000.5"),
+        (10**17, 3, 1, -9999, 123456789, "0.005", None, "-0.0"),
+        (-10**17, -10**10, -1, 7, -(1 << 62), "-0.0", "0.0", None),
+    ]
+    out = []
+    for k in range(rows):
+        if k < len(edges):
+            a, b, c, e, i, f, r, h = edges[k]
+        else:
+            def maybe(v, p=0.1):
+                return None if rng.random() < p else v
+
+            a = maybe(int(rng.integers(-10**17, 10**17)) if k % 3
+                      else int(rng.integers(-10**12, 10**12)))
+            b = maybe(0 if k % 17 == 0 else int(rng.integers(-10**14, 10**14)))
+            c = maybe(0 if k % 13 == 0 else int(rng.integers(-10**11, 10**11)))
+            e = maybe(0 if k % 11 == 0 else int(rng.integers(-9999, 10000)))
+            i = maybe(int(rng.integers(-9 * 10**18, 9 * 10**18)) if k % 2
+                      else int(rng.integers(-10**6, 10**6)))
+            f = maybe(repr(round(float(rng.uniform(-1e5, 1e5)), 3)))
+            r = maybe(repr(round(float(rng.uniform(-1e3, 1e3)), 3)))
+            h = maybe(repr(float(rng.uniform(-1, 1))
+                           * 10.0 ** int(rng.integers(0, 19))))
+        d = None if k % 9 == 4 else int(rng.integers(-10**17, 10**17))
+        out.append((k, k % 4, None if a is None else dec(a, 0),
+                    None if b is None else dec(b, 10),
+                    None if c is None else dec(c, 2),
+                    None if e is None else dec(e, 2),
+                    None if d is None else dec(d, 2), i, f, r, h,
+                    f"g{k % 4}"))
+
+    def lit(v, j):
+        if v is None:
+            return "NULL"
+        if j == 11 or (sqlite and 2 <= j <= 6):  # strings, text
+            return f"'{v}'"
+        return str(v)
+
+    body = ", ".join(
+        "(" + ", ".join(lit(v, j) for j, v in enumerate(row)) + ")"
+        for row in out)
+    dd = "TEXT" if sqlite else None
+    cols = (f"k INT, g INT, a {dd or 'DECIMAL(18,0)'}, "
+            f"b {dd or 'DECIMAL(18,10)'}, c {dd or 'DECIMAL(12,2)'}, "
+            f"e {dd or 'DECIMAL(4,2)'}, d {dd or 'DECIMAL(18,2)'}, i BIGINT, "
+            "f DOUBLE, r REAL, h DOUBLE, s VARCHAR(4)")
+    dim = [f"({g}, 'l{g}')" for g in range(4)]
+    return [f"CREATE TABLE mc({cols})", f"INSERT INTO mc VALUES {body}",
+            "CREATE TABLE mdim(g INT, label VARCHAR(8))",
+            f"INSERT INTO mdim VALUES {', '.join(dim)}"]
+
+
+def _mc(expr: str, where: str = "") -> str:
+    return f"SELECT k, {expr} FROM mc {where}ORDER BY k"
+
+
+def _cf(col: str, scale: int) -> str:  # the oracle's cast of f, h or r
+    return f"dcastf({col}, {6 if col.endswith('r') else 15}, {scale})"
+
+
+# over mod_cast_setup()'s tables. A tuple statement runs its first entries
+# as statements and its last as the query, {t} a fresh table's name; the
+# second entry is sqlite3's form, or Raises(PostgreSQL's words)
+MOD_CAST_STATEMENTS = {
+    # C27: % rescales both operands to the result's scale
+    "a_mod_b": (_mc("a % b"), _mc("dmod(a, b)")),
+    "bigint_mod_literal": (_mc("i % 1.5"), _mc("dmod(i, '1.5')")),
+    "bigint_mod_price": (_mc("i % c"), _mc("dmod(i, c)")),
+    "price_mod_bigint": (_mc("c % i"), _mc("dmod(c, i)")),
+    "decimal_mod_int": (_mc("b % g"), _mc("dmod(b, g)")),
+    "a_mod_small_literal": (_mc("a % 0.0007"), _mc("dmod(a, '0.0007')")),
+    "sum_a_mod_b": ("SELECT sum(a % b) FROM mc",
+                    "SELECT dsum(dmod(a, b)) FROM mc"),
+    "literal_mod_literal": (
+        "SELECT CAST(999999999999999999 AS DECIMAL(18,0)) % "
+        "CAST(0.007 AS DECIMAL(18,3))", "SELECT '0.000'"),
+    "d_mod_007_fits": (_mc("d % 0.07"), _mc("dmod(d, '0.07')")),
+    "grouped_sum_mod": (
+        "SELECT g, sum(a % b), count(*) FROM mc GROUP BY g ORDER BY g",
+        "SELECT g, dsum(dmod(a, b)), count(*) FROM mc GROUP BY g ORDER BY g"),
+    "grouped_min_max_mod": (
+        "SELECT g, min(i % c), max(i % c) FROM mc GROUP BY g ORDER BY g",
+        "SELECT g, min(CAST(dmod(i, c) AS REAL)), max(CAST(dmod(i, c) AS "
+        "REAL)) FROM mc GROUP BY g ORDER BY g"),
+    "chain_mod": (
+        "SELECT mc.k, mdim.label FROM mc JOIN mdim ON mc.g = mdim.g "
+        "WHERE mc.k > 3 AND mc.a % mc.b > 0 ORDER BY mc.k",
+        "SELECT mc.k, mdim.label FROM mc JOIN mdim ON mc.g = mdim.g "
+        "WHERE mc.k > 3 AND dgt(dmod(mc.a, mc.b), '0') ORDER BY mc.k"),
+    "topk_epilogue_mod": (
+        "SELECT g, sum(a) % sum(b) AS r FROM mc GROUP BY g ORDER BY g LIMIT 3",
+        "SELECT g, dmod(dsum(a), dsum(b)) AS r FROM mc GROUP BY g "
+        "ORDER BY g LIMIT 3"),
+    "mod_in_predicate": (
+        "SELECT k FROM mc WHERE i % c > 1000 ORDER BY k",
+        "SELECT k FROM mc WHERE dgt(dmod(i, c), '1000') ORDER BY k"),
+    "mod_in_case": (_mc("CASE WHEN g = 0 THEN a % b ELSE c END"),
+                    _mc("CASE WHEN g = 0 THEN dmod(a, b) ELSE c END")),
+    "zero_divisors_are_null": (
+        _mc("a % b, i % c", "WHERE b = 0 OR c = 0 OR b IS NULL "),
+        _mc("dmod(a, b), dmod(i, c)", "WHERE CAST(b AS REAL) = 0 OR "
+            "CAST(c AS REAL) = 0 OR b IS NULL ")),
+    # C29: a double (a real) to 15 (6) digits, then to the scale
+    "cast_double_2": (_mc("CAST(f AS DECIMAL(12,2))"), _mc(_cf("f", 2))),
+    "cast_double_0": (_mc("CAST(f AS DECIMAL(18,0))"), _mc(_cf("f", 0))),
+    "cast_double_6": (_mc("CAST(f AS DECIMAL(18,6))"), _mc(_cf("f", 6))),
+    "cast_real_2": (_mc("CAST(r AS DECIMAL(12,2))"), _mc(_cf("r", 2))),
+    "cast_real_4": (_mc("CAST(r AS DECIMAL(12,4))"), _mc(_cf("r", 4))),
+    "cast_big_double_exact": (_mc("CAST(h AS DECIMAL(19,0))"),
+                              _mc(_cf("h", 0))),
+    "cast_big_double_scale_2": (_mc("CAST(h AS DECIMAL(38,2))"),
+                                _mc(_cf("h", 2))),
+    "cast_literal_double": (
+        "SELECT CAST(CAST(0.285 AS DOUBLE) AS DECIMAL(12,2)), "
+        "CAST(CAST(1.005 AS DOUBLE) AS DECIMAL(12,2)), "
+        "CAST(CAST(2.675 AS REAL) AS DECIMAL(12,2))",
+        "SELECT '0.29', '1.01', '2.68'"),
+    "cast_literal_past_precision": (
+        "SELECT CAST(CAST(99.995 AS DOUBLE) AS DECIMAL(4,2))",
+        Raises("numeric field overflow")),
+    "cast_column_past_precision": (_mc("CAST(f AS DECIMAL(6,2))"),
+                                   Raises("numeric field overflow")),
+    "cast_filtered_rows_fit": (
+        _mc("CAST(f AS DECIMAL(6,2))", "WHERE abs(f) < 1000 "),
+        _mc(_cf("f", 2), "WHERE abs(f) < 1000 ")),
+    "cast_null_rows_fit": (
+        _mc("CAST(r AS DECIMAL(5,2))", "WHERE r IS NULL OR abs(r) < 100 "),
+        _mc(_cf("r", 2), "WHERE r IS NULL OR abs(r) < 100 ")),
+    "grouped_sum_cast_double": (
+        "SELECT g, sum(CAST(f AS DECIMAL(15,2))) FROM mc GROUP BY g "
+        "ORDER BY g",
+        f"SELECT g, dsum({_cf('f', 2)}) FROM mc GROUP BY g ORDER BY g"),
+    "grouped_sum_cast_real": (
+        "SELECT g, sum(CAST(r AS DECIMAL(15,2))) FROM mc GROUP BY g "
+        "ORDER BY g",
+        f"SELECT g, dsum({_cf('r', 2)}) FROM mc GROUP BY g ORDER BY g"),
+    "chain_cast": (
+        "SELECT mc.k, mdim.label FROM mc JOIN mdim ON mc.g = mdim.g "
+        "WHERE mc.k > 3 AND CAST(mc.f AS DECIMAL(12,2)) > 1.0 ORDER BY mc.k",
+        "SELECT mc.k, mdim.label FROM mc JOIN mdim ON mc.g = mdim.g "
+        f"WHERE mc.k > 3 AND dgt({_cf('mc.f', 2)}, '1.0') ORDER BY mc.k"),
+    "topk_epilogue_cast": (
+        "SELECT g, CAST(max(f) AS DECIMAL(12,2)) AS m FROM mc GROUP BY g "
+        "ORDER BY g LIMIT 3",
+        f"SELECT g, {_cf('max(f)', 2)} AS m FROM mc GROUP BY g "
+        "ORDER BY g LIMIT 3"),
+    "insert_select_casts": (
+        ("CREATE TABLE {t}(k INT, v DECIMAL(10,2))",
+         "INSERT INTO {t} SELECT k, f FROM mc WHERE f IS NOT NULL",
+         "SELECT k, v FROM {t} ORDER BY k"),
+        _mc(_cf("f", 2), "WHERE f IS NOT NULL ")),
+    "insert_values_casts": (
+        ("CREATE TABLE {t}(k INT, v DECIMAL(10,2))",
+         "INSERT INTO {t} VALUES (1, CAST(0.285 AS DOUBLE)), "
+         "(3, CAST(-1.005 AS DOUBLE))",
+         # (alone: beside a double, VALUES would make the real a double)
+         "INSERT INTO {t} VALUES (2, CAST(2.675 AS REAL))",
+         "SELECT k, v FROM {t} ORDER BY k"),
+        "SELECT 1, '0.29' UNION ALL SELECT 2, '2.68' UNION ALL "
+        "SELECT 3, '-1.01'"),
+    "insert_past_precision": (
+        ("CREATE TABLE {t}(k INT, v DECIMAL(4,2))",
+         "INSERT INTO {t} VALUES (1, CAST(99.995 AS DOUBLE))",
+         "SELECT k, v FROM {t} ORDER BY k"),
+        Raises("numeric field overflow")),
+    # division at the edges of quotient types int64 holds (DECIMAL(18,6),
+    # DECIMAL(18,14)): the int64 path is exact there; a wide quotient type
+    # goes exact
+    "div_price_by_cent": (_mc("c / e"), _mc("ddiv(c, e)")),
+    "div_price_by_literal": (_mc("c / 0.07"), _mc("ddiv(c, '0.07')")),
+    "div_cent_by_price": (_mc("e / c"), _mc("ddiv(e, c)")),
+    "div_bigint_wide": (_mc("i / 1.5"), _mc("ddiv(i, '1.5')")),
+    "grouped_sum_div": (  # each quotient rounded to its scale, 6
+        "SELECT g, sum(c / e) FROM mc GROUP BY g ORDER BY g",
+        "SELECT g, dsum(dround(ddiv(c, e), 6)) FROM mc GROUP BY g "
+        "ORDER BY g"),
+    "div_by_zero_is_null": (
+        _mc("c / e, e / c", "WHERE e = 0 OR c = 0 "),
+        _mc("ddiv(c, e), ddiv(e, c)",
+            "WHERE CAST(e AS REAL) = 0 OR CAST(c AS REAL) = 0 ")),
+}
+# statements whose operands the bounds prove: no check is built
+MOD_CAST_UNCHECKED = ("d_mod_007_fits",)

@@ -772,3 +772,71 @@ def test_wide_marks_run_the_statement_again_exactly(const_arg_session, ctx,
     for st in _const_arg_setup():
         host.sql_stmt(st)
     assert host.sql(sql).format_rows() == first
+
+
+# a checked % (m, a DECIMAL(10,2) up to 500.00, rescaled to scale 17 passes
+# int64; its remainder fits) and a cast of a double to DECIMAL (15 digits,
+# then the scale) inside each fused program: the checked kernel's codes are
+# the program's scalar "err", read with the packed fetch
+CHECKED_EXPRS = {"mod": ("{n} % 0.00000000000000007",) * 2,
+                 "cast_f": ("CAST({x} AS DECIMAL(12,2))",
+                            "CAST({x} AS DECIMAL(18,2))")}
+CHECKED_CONTEXTS = {
+    "aggregate": ("_fused_program", dict(n="m", x="x"),
+                  "SELECT g, sum({expr}) FROM w WHERE id > 10 GROUP BY g "
+                  "ORDER BY g"),
+    "chain": ("_fused_chain_program", dict(n="w.m", x="w.x"),
+              "SELECT w.id, u.label FROM w JOIN u ON w.g = u.g "
+              "WHERE w.id > 10 AND {expr} > 0 ORDER BY w.id"),
+    "topk_epilogue": ("_fused_program", dict(n="sum(m)", x="sum(x)"),
+                      "SELECT x, {expr} AS r FROM w GROUP BY x "
+                      "ORDER BY x LIMIT 3"),
+}
+
+
+@pytest.fixture(scope="module")
+def host_const_arg_session():
+    """const_arg_session's tables on the host tier."""
+    old = dv.SMALL_ROWS
+    dv.SMALL_ROWS = 1 << 30
+    s = ldb.create_in_memory(device="cpu")
+    for st in _const_arg_setup():
+        s.sql_stmt(st)
+    yield s
+    dv.SMALL_ROWS = old
+
+
+@pytest.mark.parametrize("ctx", list(CHECKED_CONTEXTS))
+@pytest.mark.parametrize("form", list(CHECKED_EXPRS))
+def test_checked_mod_and_float_cast_read_nothing(const_arg_session,
+                                                 host_const_arg_session,
+                                                 form, ctx, monkeypatch):
+    """A checked % and a cast from a double to DECIMAL inside the fused
+    aggregate, the fused chain and the TopK epilogue read nothing to the
+    host and copy nothing from it (the guards of
+    test_fused_programs_copy_nothing_from_the_host): the program builds their
+    code as its scalar "err", no row needs the exact path, and the rows
+    equal the host tier's."""
+    monkeypatch.setattr(dv, "SMALL_ROWS", 64)
+    program, operands, template = CHECKED_CONTEXTS[ctx]
+    expr = CHECKED_EXPRS[form][ctx == "topk_epilogue"].format(**operands)
+    sql = template.format(expr=expr)
+    epilogues = []
+    apply_epi = F.apply_topk_epi
+
+    def spy(*a, **k):
+        epilogues.append(1)
+        return apply_epi(*a, **k)
+
+    monkeypatch.setattr(F, "apply_topk_epi", spy)
+    bad, ran = _guard_host_reads(monkeypatch)
+    built = _spy_error_codes(monkeypatch)
+    got = const_arg_session.sql(sql).format_rows()
+    assert program in ran, f"{ctx}: no fused program ran: {sql}"
+    if ctx == "topk_epilogue":
+        assert epilogues, f"no TopK epilogue ran in the program: {sql}"
+    assert any(built), sql
+    assert const_arg_session.executor.last_exact_reruns == 0, sql
+    assert not bad, (ctx, sql, sorted(set(bad)))
+    monkeypatch.setattr(dv, "SMALL_ROWS", 1 << 30)
+    assert host_const_arg_session.sql(sql).format_rows() == got
